@@ -1,0 +1,487 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``src/repro_torch``) on one CUDA card and check it.
+
+Run from the repository root with no arguments: ``python3 chip_smoke.py``.
+It needs one CUDA card and ``nvcc``; it exits non-zero, printing no result
+line, when there is no card or when the repository's sources are missing.
+
+Phases, each printing its own lines:
+
+1. the card (``nvidia-smi`` name and power limit, torch and CUDA versions);
+2. the build of the CUDA library from the repository's sources;
+3. each of the three kernels against its plain torch version at the main
+   path's full-width shapes (R = 500 replicas of M = 100 GPUs, every demand
+   class, both metrics, the four fusable key sets, homogeneous and
+   four-model tables), equal with a tolerance of 0, with its time, its
+   bound on the card and its plain version's time;
+4. the pinned golden results of the reference package, reproduced with the
+   kernels on;
+5. the paper's experiment at full width (M = 100 A100-80GB, uniform mix,
+   offered load 1.0, seed 0, R = 500) for mfi, ff, bf-bi, wf-bi, rr and a
+   delta-only mfi spec, once through the kernels (launch counts reset just
+   before and read just after) and once through the plain lowering over
+   the same events: traces equal, launch counts matching the events;
+6. a ``{"kernels": [...]}`` JSON line, then the result line.
+
+Every equality is exact: all scores are integers held in float32.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+#: SHA-256 of the (ok, gpu, aidx, free_sum, active, frag) trace of
+#: SimConfig(num_gpus=100, offered_load=1.0, seed=0), mfi, runs=8 — the
+#: reference package's value (tests/test_torch_engine.py checks it there)
+FULL_WIDTH_HASH = "c933f4e3c382ae290653d29eb457b52c6521aab868c1a8dc6b5d7736204f30b2"
+
+#: the reference's pinned steady results (tests/test_engine_core.py)
+GOLDEN_TRACE_HASHES = {
+    "homog": "3f61871a2075ffe549c554a6820d3bccc437d8606c80dd6e471e9daa0ad00705",
+    "mixed": "fc5a944c82ab6c74ca8a49b6a1ca19981d1d3fe8953f9b35cce26e67a8678d62",
+}
+GOLDEN_AGGREGATES = {
+    ("homog_m6", "mfi"): {
+        "acceptance_rate": 0.835978120978121,
+        "active_gpus": 5.0,
+        "allocated_workloads": 37.25,
+        "frag_severity": 7.736111243565877,
+        "utilization": 0.6440972222222222,
+    },
+    ("mixed_k2", "rr"): {
+        "acceptance_rate": 0.705775877918735,
+        "active_gpus": 5.583333333333333,
+        "allocated_workloads": 31.25,
+        "frag_severity": 8.333333651224772,
+        "utilization": 0.6458333333333334,
+    },
+    ("four_k4", "bf-bi"): {
+        "acceptance_rate": 0.8497768071971659,
+        "active_gpus": 7.1875,
+        "allocated_workloads": 53.25,
+        "frag_severity": 7.015625,
+        "utilization": 0.68359375,
+    },
+}
+
+#: experiments/fig4_batched_500.csv, mfi at load 1.0 (an older engine's run:
+#: printed beside this run's numbers, not asserted)
+RECORDED_FIG4_MFI = "fig4,mfi,1.0,0.9322,891.6,0.8735,98.0,4.67"
+
+RUNS = 500
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
+FP32_OPS_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
+KERNEL_SOURCE = "src/repro_torch/kernels/fragscore/csrc/fragscore.cu"
+REPLACES = {
+    "fragscore": "src/repro/kernels/fragscore/fragscore.py:76",
+    "delta_from_base": "src/repro/kernels/fragscore/fragscore.py:248",
+    "select_from_base": "src/repro/kernels/fragscore/fragscore.py:473",
+}
+
+
+def log(*parts) -> None:
+    print(*parts, flush=True)
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+def trace_hash(trace) -> str:
+    h = hashlib.sha256()
+    for a in trace:
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def cuda_ms(fn, iters: int, warm: int = 5) -> float:
+    """Mean milliseconds per call by CUDA events over ``iters`` warm calls
+    made back to back (what a caller pays, host launch cost included)."""
+    import torch
+
+    for _ in range(warm):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def device_times(fn, iters: int):
+    """Device microseconds by kernel name over ``iters`` calls, from
+    ``torch.profiler`` (CUPTI): ``{name: (total_us, launches)}``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us > 0:
+            out[e.key] = (us, e.count)
+    return out
+
+
+def timed(fn, iters: int, kernel=None):
+    """``(ms, call_ms, source)``: ``ms`` is the device time per call — of the
+    kernels whose name holds ``kernel``, or of every kernel when ``None`` —
+    from the profiler, or the CUDA-event time per call where the profiler
+    shows no device time; ``call_ms`` is always the CUDA-event time."""
+    call_ms = cuda_ms(fn, iters)
+    times = device_times(fn, iters)
+    us = sum(t for name, (t, _) in times.items() if kernel is None or kernel in name)
+    if us > 0:
+        return us / iters / 1e3, call_ms, "profiler"
+    return call_ms, call_ms, "cuda-events"
+
+
+def bound(nbytes: float, ops: float):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def random_state(spec, tables, rng, device):
+    """Engine-layout (base, free, f) of R random fills of ``spec``."""
+    import numpy as np
+    import torch
+    from repro_torch.sim import batched
+
+    midx = np.asarray(spec.model_index)
+    s = spec.num_mem_slices
+    fill = (np.arange(RUNS) / RUNS)[:, None, None]
+    occ = (rng.random((RUNS, spec.num_gpus, s)) < fill).astype(np.int32)
+    for g in range(spec.num_gpus):  # zero the slices a smaller model lacks
+        occ[:, g, spec.models[midx[g]].num_mem_slices:] = 0
+    occ_t = torch.as_tensor(occ, device=device)
+    mi = torch.as_tensor(midx, device=device).long()
+    base = torch.einsum("rms,mns->rmn", occ_t.float(), tables.W[mi])
+    free = (tables.slices[mi] - occ_t.sum(dim=2, dtype=torch.int32)).contiguous()
+    f = batched._frag_from_base(base, free, "blocked", tables.V[mi])
+    return occ_t, base.contiguous(), free, f.contiguous()
+
+
+def kernel_phase(device):
+    import numpy as np
+    import torch
+    from repro_torch.core import mig
+    from repro_torch.core.policy import resolve
+    from repro_torch.kernels.fragscore import fragscore as K
+    from repro_torch.kernels.fragscore import ref
+    from repro_torch.sim import batched
+
+    rng = np.random.default_rng(0)
+    homog = mig.ClusterSpec.homogeneous(mig.A100_80GB, 100)
+    four = mig.ClusterSpec.parse("a100-80:30,a100-40:30,h100-96:20,h100-80:20")
+    pid = torch.as_tensor(np.arange(RUNS) % mig.NUM_PROFILES, dtype=torch.int32, device=device)
+    rows = {}
+
+    # fragscore: the expire rows (R·E) and the commit rows (R) of the main path
+    occ, _, _, _ = random_state(homog, batched.spec_tables(homog, device), rng, device)
+    w = torch.tensor(mig.A100_80GB.placement_masks, dtype=torch.float32, device=device)
+    v = torch.tensor(mig.A100_80GB.placement_mem, dtype=torch.float32, device=device)
+    expire_rows = occ[:, :12].reshape(-1, occ.shape[-1]).contiguous()  # E = 12 ring columns
+    err = 0.0
+    for metric in ("blocked", "partial"):
+        for x in (expire_rows, occ[:, 0].contiguous()):
+            got = K.fragscore(x, w, v, metric=metric)
+            want = ref.fragscore_ref(x, w, v, metric)
+            check(torch.equal(got, want), f"fragscore/{metric}/{tuple(x.shape)} differs from its plain version")
+            err = max(err, float((got - want).abs().max()))
+    x = expire_rows
+    ms, call_ms, src = timed(lambda: K.fragscore(x, w, v), 200, "fragscore_kernel")
+    plain_ms, plain_call_ms, _ = timed(lambda: ref.fragscore_ref(x, w, v), 50)
+    q, s = x.shape
+    n = w.shape[0]
+    b_ms, b_by = bound(nbytes(x, w, v) + 4 * q, 2 * q * n * s + 3 * q * n)
+    rows["fragscore"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                             bound_by=b_by, call_ms=call_ms, plain_call_ms=plain_call_ms,
+                             ms_source=src, shape=f"occ ({q}, {s})")
+    log(f"kernel fragscore: equal to plain (both metrics, {q} and {RUNS} rows); "
+        f"device {ms:.5f} ms ({src}), per call {call_ms:.4f} ms; plain device "
+        f"{plain_ms:.5f} ms, per call {plain_call_ms:.4f} ms; bound {b_ms:.6f} ms ({b_by})")
+
+    # delta_from_base and select_from_base on homogeneous and four-model tables
+    err_d = err_s = 0.0
+    timing = {}
+    for tag, spec in (("homog", homog), ("four-model", four)):
+        tables = batched.spec_tables(spec, device)
+        midx32 = torch.as_tensor(spec.model_index, device=device)
+        _, base, free, f = random_state(spec, tables, rng, device)
+        dargs = (base, free, f, pid, midx32, tables.V, tables.maskwin, tables.profile_mem)
+        sargs = (base, free, f, pid, midx32, tables.V, tables.maskwin, tables.profile_rows,
+                 tables.profile_valid, tables.profile_anchors, tables.profile_mem)
+        for metric in ("blocked", "partial"):
+            got = K.delta_from_base(*dargs, metric=metric)
+            want = ref.delta_from_base_ref(*dargs, metric)
+            check(torch.equal(got, want), f"delta_from_base/{tag}/{metric} differs from its plain version")
+            err_d = max(err_d, float((got - want).abs().max()))
+            for policy in ("mfi", "ff", "bf-bi", "wf-bi"):
+                keys = batched._effective_keys(resolve(policy))
+                got = K.select_from_base(*sargs, keys=keys, metric=metric)
+                want = ref.select_from_base_ref(*sargs, keys, metric)
+                for g, wv in zip(got, want):
+                    check(torch.equal(g.long(), wv.long()),
+                          f"select_from_base/{tag}/{metric}/{policy} differs from its plain version")
+                    err_s = max(err_s, float((g.long() - wv.long()).abs().max()))
+        if tag == "homog":
+            r, m, nn = base.shape
+            a = tables.maskwin.shape[2]
+            mfi_keys = batched._effective_keys(resolve("mfi"))
+            timing["delta_from_base"] = (
+                timed(lambda: K.delta_from_base(*dargs), 200, "delta_from_base_kernel"),
+                timed(lambda: ref.delta_from_base_ref(*dargs), 50),
+                dargs,
+            )
+            timing["select_from_base"] = (
+                timed(lambda: K.select_from_base(*sargs, keys=mfi_keys), 200,
+                      "select_from_base_kernel"),
+                timed(lambda: ref.select_from_base_ref(*sargs, mfi_keys), 50),
+                sargs,
+            )
+            rows_sel = tables.profile_rows[midx32.long()[None, :], pid.long()[:, None]].long()
+            feasible = int(((torch.gather(base, 2, rows_sel) == 0)
+                            & tables.profile_valid[midx32.long()[None, :], pid.long()[:, None]]).sum())
+    (ms, call_ms, src), (plain_ms, plain_call_ms, _), dargs = timing["delta_from_base"]
+    b_ms, b_by = bound(nbytes(*dargs) + 4 * r * m * a, 2 * r * m * nn * (a + 1))
+    rows["delta_from_base"] = dict(max_abs_err=err_d, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                   bound_by=b_by, call_ms=call_ms, plain_call_ms=plain_call_ms,
+                                   ms_source=src, shape=f"base ({r}, {m}, {nn})")
+    log(f"kernel delta_from_base: equal to plain (homog + four-model, both metrics); "
+        f"device {ms:.5f} ms ({src}), per call {call_ms:.4f} ms; plain device "
+        f"{plain_ms:.5f} ms, per call {plain_call_ms:.4f} ms; bound {b_ms:.6f} ms ({b_by})")
+    (ms, call_ms, src), (plain_ms, plain_call_ms, _), sargs = timing["select_from_base"]
+    # data-dependent work: the occupied sum of every row, the cross term and
+    # three key comparisons of each feasible anchor
+    ops = 2 * r * m * nn + feasible * (2 * nn + 3)
+    b_ms, b_by = bound(nbytes(*sargs) + 9 * r, ops)
+    rows["select_from_base"] = dict(max_abs_err=err_s, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                    bound_by=b_by, call_ms=call_ms, plain_call_ms=plain_call_ms,
+                                    ms_source=src,
+                                    shape=f"base ({r}, {m}, {nn}), {feasible} feasible")
+    log(f"kernel select_from_base: equal to plain (homog + four-model, both metrics, "
+        f"mfi/ff/bf-bi/wf-bi keys); device {ms:.5f} ms ({src}), per call {call_ms:.4f} ms; "
+        f"plain device {plain_ms:.5f} ms, per call {plain_call_ms:.4f} ms; "
+        f"bound {b_ms:.6f} ms ({b_by})")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the reference's pinned results, kernels on
+# ---------------------------------------------------------------------------
+
+
+def golden_phase(device):
+    import torch
+    from repro_torch.core import mig
+    from repro_torch.sim import batched
+    from repro_torch.sim.simulator import SimConfig
+
+    mixed = mig.ClusterSpec(((mig.A100_80GB, 3), (mig.A100_40GB, 3)))
+    four = mig.ClusterSpec(((mig.A100_80GB, 2), (mig.A100_40GB, 2),
+                            (mig.H100_96GB, 2), (mig.H100_80GB, 2)))
+
+    def traced(policy, cfg, runs, spec=None):
+        events, _, rr, rc = batched.presample_arrivals(cfg, runs)
+        spec = spec or cfg.spec()
+        _, trace = batched._simulate(
+            events, policy=policy, metric=cfg.metric, num_gpus=cfg.num_gpus,
+            ring_rows=rr, ring_cols=rc, use_kernel=True, kernel_spec=spec,
+            midx=torch.as_tensor(spec.model_index, device=device),
+            tables=batched.spec_tables(spec, device), device=device,
+        )
+        return events, batched.trace_to_numpy(trace)
+
+    for tag, cfg in (("homog", SimConfig(num_gpus=5, offered_load=1.1, seed=7)),
+                     ("mixed", SimConfig(cluster_spec=mixed, offered_load=1.0, seed=9))):
+        got = trace_hash(traced("mfi", cfg, 3)[1])
+        check(got == GOLDEN_TRACE_HASHES[tag], f"golden trace hash {tag}: {got}")
+    configs = {
+        "homog_m6": SimConfig(num_gpus=6, offered_load=0.9, seed=12),
+        "mixed_k2": SimConfig(cluster_spec=mixed, offered_load=0.9, seed=12),
+        "four_k4": SimConfig(cluster_spec=four, offered_load=0.85, seed=3),
+    }
+    for (tag, policy), want in GOLDEN_AGGREGATES.items():
+        r = batched.run_batched(policy, configs[tag], runs=4, use_kernel=True, device=device)
+        for key, value in want.items():
+            check(r[key] == value, f"golden aggregate {tag}/{policy}/{key}: {r[key]!r} != {value!r}")
+    got = trace_hash(traced("mfi", SimConfig(num_gpus=100, offered_load=1.0, seed=0), 8)[1])
+    check(got == FULL_WIDTH_HASH, f"full-width hash: {got}")
+    log("golden: 2 trace hashes, 3 aggregates and the full-width hash (M=100, runs=8) "
+        "reproduced with the kernels on")
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the paper's experiment at full width
+# ---------------------------------------------------------------------------
+
+
+def full_width_phase(device):
+    import numpy as np
+    import torch
+    from repro_torch.core.policy import PolicySpec
+    from repro_torch.kernels.fragscore import fragscore as K
+    from repro_torch.sim import batched
+    from repro_torch.sim.simulator import SimConfig
+
+    wrappers = {"fragscore": K.fragscore, "delta_from_base": K.delta_from_base,
+                "select_from_base": K.select_from_base}
+    totals = dict.fromkeys(wrappers, 0)
+    cfg = SimConfig(num_gpus=100, offered_load=1.0, seed=0)
+    spec = cfg.spec()
+    t0 = time.perf_counter()
+    events, _, ring_rows, ring_cols = batched.presample_arrivals(cfg, RUNS)
+    e_max = events.pid.shape[0]
+    log(f"full width: presampled (E_max, R) = {events.pid.shape}, "
+        f"{int((events.pid >= 0).sum())} arrivals, ring {ring_rows} x {ring_cols}, "
+        f"{time.perf_counter() - t0:.2f} s")
+    delta_only = PolicySpec(name="mfi-delta-only", keys=("frag-delta", "gpu", "anchor"),
+                            kernel_lowering="delta")
+    common = dict(metric=cfg.metric, num_gpus=cfg.num_gpus, ring_rows=ring_rows,
+                  ring_cols=ring_cols, kernel_spec=spec,
+                  midx=torch.as_tensor(spec.model_index, device=device),
+                  tables=batched.spec_tables(spec, device), device=device)
+    warm = batched.EventStream(*[a[:64] for a in events])
+    rates = {}
+    for policy in ("mfi", "ff", "bf-bi", "wf-bi", "rr", delta_only):
+        name = policy if isinstance(policy, str) else policy.name
+        out = {}
+        for use_kernel in (True, False):
+            batched._simulate(warm, policy=policy, use_kernel=use_kernel, **common)
+            torch.cuda.synchronize()
+            for fn in wrappers.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            _, trace = batched._simulate(events, policy=policy, use_kernel=use_kernel, **common)
+            trace = batched.trace_to_numpy(trace)
+            seconds = time.perf_counter() - t0
+            counts = {k: fn.launches for k, fn in wrappers.items()}
+            out[use_kernel] = (trace, seconds, counts)
+        (tk, sk, ck), (tp, sp, cp) = out[True], out[False]
+        for field in batched.EventTrace._fields:
+            check(np.array_equal(getattr(tk, field), getattr(tp, field)),
+                  f"{name}: kernel and plain traces differ in {field}")
+        check(sum(cp.values()) == 0, f"{name}: the plain path launched kernels {cp}")
+        want = {"fragscore": 2 * e_max,
+                "select_from_base": e_max if name in ("mfi", "ff", "bf-bi", "wf-bi") else 0,
+                "delta_from_base": e_max if name == "mfi-delta-only" else 0}
+        check(ck == want, f"{name}: launch counts {ck} != expected {want}")
+        for k in totals:
+            totals[k] += ck[k]
+        agg = batched.aggregate(events, tk, spec, RUNS)
+        rates[name] = (RUNS * e_max / sk, RUNS * e_max / sp)
+        log(f"full width {name}: traces equal (kernel vs plain); launches {ck}; "
+            f"acceptance {agg['acceptance_rate']:.4f} allocated {agg['allocated_workloads']:.1f} "
+            f"utilization {agg['utilization']:.4f} active {agg['active_gpus']:.1f} "
+            f"frag {agg['frag_severity']:.2f}; replica-events/s kernel {rates[name][0]:.0f} "
+            f"plain {rates[name][1]:.0f} ({sk:.2f} s / {sp:.2f} s)")
+        if name == "mfi":
+            row = (f"fig4,mfi,1.0,{agg['acceptance_rate']:.4f},{agg['allocated_workloads']:.1f},"
+                   f"{agg['utilization']:.4f},{agg['active_gpus']:.1f},{agg['frag_severity']:.2f}")
+            log(f"fig4 mfi row this run: {row}; recorded: {RECORDED_FIG4_MFI}; "
+                f"{'same' if row == RECORDED_FIG4_MFI else 'differs'}")
+    for k in totals:
+        check(totals[k] > 0, f"{k} never launched on the main path")
+
+    # where the device time goes: a window of the mfi step, profiled, and
+    # the same window's wall time without the profiler
+    n = 256
+    window = batched.EventStream(*[a[:n] for a in events])
+    for use_kernel in (True, False):
+        def run():
+            return batched._simulate(window, policy="mfi", use_kernel=use_kernel, **common)
+
+        times = device_times(run, 1)
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        busy_ms = sum(t for t, _ in times.values()) / 1e3
+        launches = sum(c for _, c in times.values())
+        top = sorted(times.items(), key=lambda kv: -kv[1][0])[:4]
+        log(f"engine window mfi {'kernel' if use_kernel else 'plain'} ({n} events, R={RUNS}): "
+            f"device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms wall "
+            f"({100 * busy_ms / wall_ms:.1f}% busy), {launches / n:.1f} device ops/event; top: "
+            + "; ".join(f"{k[:48]} {t / c:.1f} us x{c}" for k, (t, c) in top))
+    return totals, rates
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; nothing to run",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build
+    from repro_torch.kernels.fragscore import fragscore as K
+
+    device = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+    log(smi)
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} card(s)")
+
+    t0 = time.perf_counter()
+    built = build.build("fragscore")
+    K._lib()
+    log(f"build: {built.path.name} in {time.perf_counter() - t0:.2f} s (nvcc {built.seconds:.2f} s)")
+    for line in built.log.splitlines():
+        if "registers" in line or "Compiling entry" in line:
+            log(f"  ptxas: {line.strip()}")
+
+    rows = kernel_phase(device)
+    golden_phase(device)
+    totals, rates = full_width_phase(device)
+
+    kernels = [
+        dict(name=name, route="cuda", source=KERNEL_SOURCE, replaces=REPLACES[name],
+             launches=totals[name], equal_to_plain=True, max_abs_err=row["max_abs_err"],
+             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+             bound_by=row["bound_by"], library_ms=None, call_ms=row["call_ms"],
+             plain_call_ms=row["plain_call_ms"], ms_source=row["ms_source"],
+             shape=row["shape"])
+        for name, row in rows.items()
+    ]
+    log(json.dumps({"engine_replica_events_per_s": {
+        k: {"kernel": v[0], "plain": v[1]} for k, v in rates.items()}}))
+    log(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,192 @@
+"""Wrappers of the three fragscore CUDA kernels (``csrc/fragscore.cu``).
+
+Each wrapper takes its operands in the engine's layout (see
+:mod:`repro_torch.kernels.fragscore.ref`).  For tensors that lie on the CPU
+it returns its plain torch version from ``ref.py``; for CUDA tensors it
+checks device, dtype, shape and contiguity, launches the hand-written
+kernel on the current stream and adds one to its ``launches`` count — or
+raises.  There is no fallback from the card to the plain version.
+
+* :func:`fragscore` — F(m) per occupancy row (the commit/drain rescore on
+  homogeneous fleets);
+* :func:`delta_from_base` — the raw ``(R, M, A)`` ΔF table of each
+  replica's request (specs with ``kernel_lowering="delta"``);
+* :func:`select_from_base` — each replica's whole decision, ΔF plus the
+  masked lexicographic argmin (argmin-fusable specs).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.fragscore import ref
+
+_METRICS = ("blocked", "partial")
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = build.library("fragscore")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.fragscore_launch.argtypes = [p, p, p, p, i, i, i, i, i, p]
+    lib.delta_from_base_launch.argtypes = [p] * 9 + [i] * 7 + [p]
+    lib.select_from_base_launch.argtypes = [p] * 14 + [i] * 10 + [p]
+    for fn in (lib.fragscore_launch, lib.delta_from_base_launch,
+               lib.select_from_base_launch):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _on_cpu(*tensors: torch.Tensor) -> bool:
+    """True when every operand lies on the CPU; raises on a device mix or
+    on a device that is neither the CPU nor CUDA."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"operands lie on several devices: {sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev.type == "cpu"
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def _metric_flag(metric: str) -> int:
+    if metric not in _METRICS:
+        raise ValueError(f"unknown metric {metric!r}")
+    return int(metric == "partial")
+
+
+def _launch(fn, *args, device: torch.device) -> None:
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = fn(*args, device.index if device.index is not None else torch.cuda.current_device(), stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__} failed: cudaError_t {rc}")
+
+
+def fragscore(
+    occ: torch.Tensor, w: torch.Tensor, v: torch.Tensor, *, metric: str = "blocked"
+) -> torch.Tensor:
+    """F(m) of every row of ``occ (Q, S)`` under placement table
+    ``w (N, S)``, ``v (N,)``: ``(Q,)`` float32."""
+    partial = _metric_flag(metric)
+    if _on_cpu(occ, w, v):
+        return ref.fragscore_ref(occ, w, v, metric)
+    q, s = occ.shape
+    n = w.shape[0]
+    _check("occ", occ, torch.int32, (q, s))
+    _check("w", w, torch.float32, (n, s))
+    _check("v", v, torch.float32, (n,))
+    out = torch.empty((q,), dtype=torch.float32, device=occ.device)
+    if q:
+        _launch(_lib().fragscore_launch, occ.data_ptr(), w.data_ptr(),
+                v.data_ptr(), out.data_ptr(), q, n, s, partial,
+                device=occ.device)
+        fragscore.launches += 1
+    return out
+
+
+fragscore.launches = 0
+
+
+def _table_args(base, free, f, pid, midx, V, maskwin, profile_mem):
+    """Shape/dtype checks shared by the ΔF kernels; returns (R, M, N, A, K, P)."""
+    r, m, n = base.shape
+    k, p, a, _ = maskwin.shape
+    _check("base", base, torch.float32, (r, m, n))
+    _check("free", free, torch.int32, (r, m))
+    _check("f", f, torch.float32, (r, m))
+    _check("pid", pid, torch.int32, (r,))
+    _check("midx", midx, torch.int32, (m,))
+    _check("V", V, torch.float32, (k, n))
+    _check("maskwin", maskwin, torch.float32, (k, p, a, n))
+    _check("profile_mem", profile_mem, torch.float32, (k, p))
+    return r, m, n, a, k, p
+
+
+def delta_from_base(
+    base, free, f, pid, midx, V, maskwin, profile_mem, *, metric: str = "blocked"
+) -> torch.Tensor:
+    """Raw ΔF ``(R, M, A)`` of every anchor dry-run of each replica's
+    request ``pid`` (no feasibility mask)."""
+    partial = _metric_flag(metric)
+    if _on_cpu(base, free, f, pid, midx, V, maskwin, profile_mem):
+        return ref.delta_from_base_ref(
+            base, free, f, pid, midx, V, maskwin, profile_mem, metric
+        )
+    r, m, n, a, _, p = _table_args(base, free, f, pid, midx, V, maskwin, profile_mem)
+    out = torch.empty((r, m, a), dtype=torch.float32, device=base.device)
+    if r and m:
+        _launch(_lib().delta_from_base_launch, base.data_ptr(), free.data_ptr(),
+                f.data_ptr(), pid.data_ptr(), midx.data_ptr(), V.data_ptr(),
+                maskwin.data_ptr(), profile_mem.data_ptr(), out.data_ptr(),
+                r, m, n, a, p, partial, device=base.device)
+        delta_from_base.launches += 1
+    return out
+
+
+delta_from_base.launches = 0
+
+#: most effective keys the select kernel compares (its ``kMaxKeys``)
+MAX_KEYS = 8
+
+
+def pack_keys(keys) -> int:
+    """The select kernel's key code: 3 bits per effective key, the base's
+    index in :data:`ref.FUSED_KEY_CODES` plus 4 for the ``-`` direction."""
+    if len(keys) > MAX_KEYS:
+        raise ValueError(f"at most {MAX_KEYS} fused keys, got {len(keys)}")
+    code = 0
+    for i, (base_key, sign) in enumerate(keys):
+        if base_key not in ref.FUSED_KEY_CODES:
+            raise ValueError(f"key {base_key!r} is not argmin-fusable")
+        code |= (ref.FUSED_KEY_CODES.index(base_key) | (4 if sign < 0 else 0)) << (3 * i)
+    return code
+
+
+def select_from_base(
+    base, free, f, pid, midx, V, maskwin, profile_rows, profile_valid,
+    profile_anchors, profile_mem, *, keys, metric: str = "blocked",
+):
+    """Each replica's decision ``(gpu, col, ok)``, each ``(R,)``: the
+    lexicographic minimum of ``(keys…, gpu, col)`` over the feasible
+    anchors of request ``pid``; ``keys`` is the static effective-key tuple
+    ``((base, sign), …)``."""
+    partial = _metric_flag(metric)
+    operands = (base, free, f, pid, midx, V, maskwin, profile_rows,
+                profile_valid, profile_anchors, profile_mem)
+    if _on_cpu(*operands):
+        return ref.select_from_base_ref(*operands, keys, metric)
+    code = pack_keys(keys)
+    r, m, n, a, k, p = _table_args(base, free, f, pid, midx, V, maskwin, profile_mem)
+    _check("profile_rows", profile_rows, torch.int32, (k, p, a))
+    _check("profile_valid", profile_valid, torch.bool, (k, p, a))
+    _check("profile_anchors", profile_anchors, torch.int32, (k, p, a))
+    smem = 4 * (k * n + k * a * n + k + 3 * k * a)
+    if smem > 48 * 1024:
+        raise ValueError(f"select_from_base: tables need {smem} B of shared memory (> 48 KiB)")
+    dev = base.device
+    gpu = torch.empty((r,), dtype=torch.int32, device=dev)
+    col = torch.empty((r,), dtype=torch.int32, device=dev)
+    ok = torch.empty((r,), dtype=torch.bool, device=dev)
+    if r:
+        _launch(_lib().select_from_base_launch,
+                *(t.data_ptr() for t in operands),
+                gpu.data_ptr(), col.data_ptr(), ok.data_ptr(),
+                r, m, n, a, p, k, len(keys), code, partial, device=dev)
+        select_from_base.launches += 1
+    return gpu, col, ok
+
+
+select_from_base.launches = 0
