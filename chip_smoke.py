@@ -9,18 +9,21 @@ Phases, each printing its own lines:
 
 1. the card (``nvidia-smi`` name and power limit, torch and CUDA versions);
 2. the build of the CUDA library from the repository's sources;
-3. each of the three kernels against its plain torch version at the main
+3. each of the four kernels against its plain torch version at the main
    path's full-width shapes (R = 500 replicas of M = 100 GPUs, every demand
-   class, both metrics, the four fusable key sets, homogeneous and
-   four-model tables), equal with a tolerance of 0, with its time, its
-   bound on the card and its plain version's time;
-4. the pinned golden results of the reference package, reproduced with the
-   kernels on;
+   class, both metrics, the fusable key sets, homogeneous and four-model
+   tables; for ``migrate_refine`` C_live = 800 victims per replica), equal
+   with a tolerance of 0, with its time, its bound on the card and its
+   plain version's time;
+4. the pinned golden results of the reference package, mfi-defrag's
+   included, reproduced with the kernels on;
 5. the paper's experiment at full width (M = 100 A100-80GB, uniform mix,
-   offered load 1.0, seed 0, R = 500) for mfi, ff, bf-bi, wf-bi, rr and a
-   delta-only mfi spec, once through the kernels (launch counts reset just
-   before and read just after) and once through the plain lowering over
-   the same events: traces equal, launch counts matching the events;
+   offered load 1.0, seed 0, R = 500) for mfi, ff, bf-bi, wf-bi, rr, a
+   delta-only mfi spec and mfi-defrag, once through the kernels (launch
+   counts reset just before and read just after) and once through the
+   plain lowering over the same events: traces equal, launch counts
+   matching the events; then a profiled 256-event window of the mfi and
+   the mfi-defrag step;
 6. a ``{"kernels": [...]}`` JSON line, then the result line.
 
 Every equality is exact: all scores are integers held in float32.
@@ -41,6 +44,16 @@ ROOT = Path(__file__).resolve().parent
 #: SimConfig(num_gpus=100, offered_load=1.0, seed=0), mfi, runs=8 — the
 #: reference package's value (tests/test_torch_engine.py checks it there)
 FULL_WIDTH_HASH = "c933f4e3c382ae290653d29eb457b52c6521aab868c1a8dc6b5d7736204f30b2"
+
+#: SHA-256 of the (ok, gpu, aidx, free_sum, active, frag, mig, mig_from_gpu,
+#: mig_from_anchor, mig_to_gpu, mig_to_anchor) trace of mfi-defrag at
+#: SimConfig(num_gpus=100, offered_load=1.0, seed=0), runs=8, and at the
+#: mixed fleet a100-80:2,h200-141:2,a100-40:1, load 1.0, seed 3, runs=4 —
+#: the reference package's values (tests/test_torch_defrag_full.py checks
+#: them there)
+DEFRAG_FULL_WIDTH_HASH = "181cb4f270d4ad117b2419f11486930db90537983266584ebb2a77fb9d6ca2e1"
+DEFRAG_MIXED_HASH = "95c0cdde028947bbd250b583b6223f72bb829150e85943fe316cb53215d42d8b"
+DEFRAG_MIXED_FLEET = "a100-80:2,h200-141:2,a100-40:1"
 
 #: the reference's pinned steady results (tests/test_engine_core.py)
 GOLDEN_TRACE_HASHES = {
@@ -83,7 +96,10 @@ REPLACES = {
     "fragscore": "src/repro/kernels/fragscore/fragscore.py:76",
     "delta_from_base": "src/repro/kernels/fragscore/fragscore.py:248",
     "select_from_base": "src/repro/kernels/fragscore/fragscore.py:473",
+    "migrate_refine": "src/repro/kernels/fragscore/fragscore.py:670",
 }
+#: victims per replica of the migrate search at M = 100 (min(C, M·S))
+C_LIVE = 800
 
 
 def log(*parts) -> None:
@@ -96,9 +112,11 @@ def check(cond: bool, what: str) -> None:
 
 
 def trace_hash(trace) -> str:
+    """SHA-256 over the trace's fields that exist, in field order."""
     h = hashlib.sha256()
     for a in trace:
-        h.update(a.tobytes())
+        if a is not None:
+            h.update(a.tobytes())
     return h.hexdigest()
 
 
@@ -290,7 +308,89 @@ def kernel_phase(device):
         f"mfi/ff/bf-bi/wf-bi keys); device {ms:.5f} ms ({src}), per call {call_ms:.4f} ms; "
         f"plain device {plain_ms:.5f} ms, per call {plain_call_ms:.4f} ms; "
         f"bound {b_ms:.6f} ms ({b_by})")
+    rows["migrate_refine"] = migrate_kernel_phase(device, rng, homog, four)
     return rows
+
+
+def victims(spec, tables, rng, device):
+    """``C_LIVE`` random victims per replica: each one's GPU, class, model
+    and a patched row (a random fill of a GPU of its model)."""
+    import numpy as np
+    import torch
+
+    _, base_b, free_b, f_b = random_state(spec, tables, rng, device)
+    rg = torch.as_tensor(rng.integers(0, spec.num_gpus, (RUNS, C_LIVE)), device=device)
+    rp = torch.as_tensor(rng.integers(0, 6, (RUNS, C_LIVE)), dtype=torch.int32, device=device)
+    kc = torch.as_tensor(np.asarray(spec.model_index), device=device)[rg].to(torch.int32)
+    ri = torch.arange(RUNS, device=device)[:, None]
+    return (base_b[ri, rg].contiguous(), free_b[ri, rg].contiguous(), f_b[ri, rg].contiguous(),
+            rg.to(torch.int32).contiguous(), rp, kc.contiguous())
+
+
+def migrate_kernel_phase(device, rng, homog, four):
+    import torch
+    from repro_torch.core import mig
+    from repro_torch.core.policy import PolicySpec, resolve
+    from repro_torch.kernels.fragscore import fragscore as K
+    from repro_torch.kernels.fragscore import ref
+    from repro_torch.sim import batched
+
+    key_sets = {
+        "mfi-defrag": batched._effective_keys(resolve("mfi-defrag")),
+        "bf-bi-keyed defrag": batched._effective_keys(PolicySpec(
+            name="bf-bi-defrag", keys=("free-slices", "gpu", "-anchor"), defrag=True)),
+    }
+    err = 0.0
+    for tag, spec in (("homog", homog), ("four-model", four)):
+        tables = batched.spec_tables(spec, device)
+        midx32 = torch.as_tensor(spec.model_index, device=device)
+        _, base, free, f = random_state(spec, tables, rng, device)
+        margs = (base, free, f) + victims(spec, tables, rng, device) + (
+            midx32, tables.V, tables.maskwin, tables.profile_rows, tables.profile_valid,
+            tables.profile_anchors, tables.profile_mem)
+        for metric in ("blocked", "partial"):
+            for kname, keys in key_sets.items():
+                got = K.migrate_refine(*margs, keys=keys, metric=metric)
+                want = ref.migrate_refine_ref(*margs, keys, metric)
+                for i, (g, w) in enumerate(zip(got, want)):
+                    check(g.dtype == w.dtype and torch.equal(g, w),
+                          f"migrate_refine/{tag}/{metric}/{kname}: output {i} differs "
+                          "from its plain version")
+                    err = max(err, float((g.double() - w.double()).abs().max()))
+        if tag == "homog":
+            hargs, hkeys = margs, key_sets["mfi-defrag"]
+    torch.cuda.synchronize()
+    ms, call_ms, src = timed(lambda: K.migrate_refine(*hargs, keys=hkeys), 200,
+                             "migrate_refine_kernel")
+    plain_ms, plain_call_ms, _ = timed(lambda: ref.migrate_refine_ref(*hargs, hkeys), 10)
+    outs = K.migrate_refine(*hargs, keys=hkeys)
+    base, _, _, base2, _, _, _, rp, kc, midx32 = hargs[:10]
+    tables = batched.spec_tables(homog, device)
+    r, m, nn = base.shape
+    c, a = base2.shape[1], tables.maskwin.shape[2]
+    # data-dependent work: each row's occupied sum, then the cross term and
+    # the key comparisons of every feasible anchor (pass 0 over every class,
+    # pass 1 over each victim's class, plus its column-0 fallback)
+    mi = midx32.long()
+    feas0 = sum(
+        int(((torch.gather(base, 2, tables.profile_rows[mi, p].long()[None].expand(r, -1, -1))
+              == 0) & tables.profile_valid[mi, p]).sum())
+        for p in range(mig.NUM_PROFILES))
+    kl, pl = kc.long(), rp.long()
+    feas1 = int(((torch.gather(base2, 2, tables.profile_rows[kl, pl].long()) == 0)
+                 & tables.profile_valid[kl, pl]).sum())
+    per_anchor = 2 * nn + 2 * len(hkeys)
+    ops = (2 * nn * (r * mig.NUM_PROFILES * m + r * c)
+           + per_anchor * (feas0 + feas1 + r * c))
+    b_ms, b_by = bound(nbytes(*hargs) + nbytes(*outs), ops)
+    log(f"kernel migrate_refine: equal to plain (homog + four-model, both metrics, "
+        f"mfi-defrag and bf-bi-keyed defrag keys, C_live = {c}); device {ms:.5f} ms ({src}), "
+        f"per call {call_ms:.4f} ms; plain device {plain_ms:.5f} ms, per call "
+        f"{plain_call_ms:.4f} ms; bound {b_ms:.6f} ms ({b_by}, "
+        f"{nbytes(*hargs) + nbytes(*outs)} bytes, {ops} ops)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                call_ms=call_ms, plain_call_ms=plain_call_ms, ms_source=src,
+                shape=f"base ({r}, {m}, {nn}), base2 ({r}, {c}, {nn}), A = {a}")
 
 
 # ---------------------------------------------------------------------------
@@ -332,10 +432,26 @@ def golden_phase(device):
         r = batched.run_batched(policy, configs[tag], runs=4, use_kernel=True, device=device)
         for key, value in want.items():
             check(r[key] == value, f"golden aggregate {tag}/{policy}/{key}: {r[key]!r} != {value!r}")
-    got = trace_hash(traced("mfi", SimConfig(num_gpus=100, offered_load=1.0, seed=0), 8)[1])
+    full = SimConfig(num_gpus=100, offered_load=1.0, seed=0)
+    got = trace_hash(traced("mfi", full, 8)[1])
     check(got == FULL_WIDTH_HASH, f"full-width hash: {got}")
-    log("golden: 2 trace hashes, 3 aggregates and the full-width hash (M=100, runs=8) "
-        "reproduced with the kernels on")
+    from repro_torch.kernels.fragscore import fragscore as K
+
+    before = K.migrate_refine.launches
+    _, trace = traced("mfi-defrag", full, 8)
+    check(trace.mig.sum() > 0, "full-width mfi-defrag trace: no migration")
+    got = trace_hash(trace)
+    check(got == DEFRAG_FULL_WIDTH_HASH, f"full-width mfi-defrag hash: {got}")
+    mixed_cfg = SimConfig(cluster_spec=mig.ClusterSpec.parse(DEFRAG_MIXED_FLEET),
+                          offered_load=1.0, seed=3)
+    _, trace = traced("mfi-defrag", mixed_cfg, 4)
+    check(trace.mig.sum() > 0, "mixed-fleet mfi-defrag trace: no migration")
+    got = trace_hash(trace)
+    check(got == DEFRAG_MIXED_HASH, f"mixed-fleet mfi-defrag hash: {got}")
+    check(K.migrate_refine.launches > before, "the defrag goldens did not launch migrate_refine")
+    log("golden: 2 trace hashes, 3 aggregates, the full-width hash (M=100, runs=8) and "
+        "the two mfi-defrag hashes (M=100 runs=8; mixed fleet with H200) reproduced "
+        "with the kernels on")
 
 
 # ---------------------------------------------------------------------------
@@ -352,7 +468,7 @@ def full_width_phase(device):
     from repro_torch.sim.simulator import SimConfig
 
     wrappers = {"fragscore": K.fragscore, "delta_from_base": K.delta_from_base,
-                "select_from_base": K.select_from_base}
+                "select_from_base": K.select_from_base, "migrate_refine": K.migrate_refine}
     totals = dict.fromkeys(wrappers, 0)
     cfg = SimConfig(num_gpus=100, offered_load=1.0, seed=0)
     spec = cfg.spec()
@@ -370,7 +486,7 @@ def full_width_phase(device):
                   tables=batched.spec_tables(spec, device), device=device)
     warm = batched.EventStream(*[a[:64] for a in events])
     rates = {}
-    for policy in ("mfi", "ff", "bf-bi", "wf-bi", "rr", delta_only):
+    for policy in ("mfi", "ff", "bf-bi", "wf-bi", "rr", delta_only, "mfi-defrag"):
         name = policy if isinstance(policy, str) else policy.name
         out = {}
         for use_kernel in (True, False):
@@ -386,17 +502,26 @@ def full_width_phase(device):
             out[use_kernel] = (trace, seconds, counts)
         (tk, sk, ck), (tp, sp, cp) = out[True], out[False]
         for field in batched.EventTrace._fields:
-            check(np.array_equal(getattr(tk, field), getattr(tp, field)),
+            a, b = getattr(tk, field), getattr(tp, field)
+            check((a is None) == (b is None) and (a is None or np.array_equal(a, b)),
                   f"{name}: kernel and plain traces differ in {field}")
         check(sum(cp.values()) == 0, f"{name}: the plain path launched kernels {cp}")
-        want = {"fragscore": 2 * e_max,
-                "select_from_base": e_max if name in ("mfi", "ff", "bf-bi", "wf-bi") else 0,
-                "delta_from_base": e_max if name == "mfi-delta-only" else 0}
+        defrag = name == "mfi-defrag"
+        # fragscore: the expire and commit rescores, plus the rescore of a
+        # migrated victim's landing GPU for defrag
+        want = {"fragscore": (3 if defrag else 2) * e_max,
+                "select_from_base": e_max if name in ("mfi", "ff", "bf-bi", "wf-bi",
+                                                      "mfi-defrag") else 0,
+                "delta_from_base": e_max if name == "mfi-delta-only" else 0,
+                "migrate_refine": e_max if defrag else 0}
         check(ck == want, f"{name}: launch counts {ck} != expected {want}")
         for k in totals:
             totals[k] += ck[k]
         agg = batched.aggregate(events, tk, spec, RUNS)
         rates[name] = (RUNS * e_max / sk, RUNS * e_max / sp)
+        if defrag:
+            log(f"full width mfi-defrag: {int(tk.mig.sum())} migrations over "
+                f"{RUNS} replicas")
         log(f"full width {name}: traces equal (kernel vs plain); launches {ck}; "
             f"acceptance {agg['acceptance_rate']:.4f} allocated {agg['allocated_workloads']:.1f} "
             f"utilization {agg['utilization']:.4f} active {agg['active_gpus']:.1f} "
@@ -414,9 +539,10 @@ def full_width_phase(device):
     # the same window's wall time without the profiler
     n = 256
     window = batched.EventStream(*[a[:n] for a in events])
-    for use_kernel in (True, False):
+    for policy, use_kernel in (("mfi", True), ("mfi", False),
+                               ("mfi-defrag", True), ("mfi-defrag", False)):
         def run():
-            return batched._simulate(window, policy="mfi", use_kernel=use_kernel, **common)
+            return batched._simulate(window, policy=policy, use_kernel=use_kernel, **common)
 
         times = device_times(run, 1)
         t0 = time.perf_counter()
@@ -426,7 +552,8 @@ def full_width_phase(device):
         busy_ms = sum(t for t, _ in times.values()) / 1e3
         launches = sum(c for _, c in times.values())
         top = sorted(times.items(), key=lambda kv: -kv[1][0])[:4]
-        log(f"engine window mfi {'kernel' if use_kernel else 'plain'} ({n} events, R={RUNS}): "
+        log(f"engine window {policy} {'kernel' if use_kernel else 'plain'} "
+            f"({n} events, R={RUNS}): "
             f"device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms wall "
             f"({100 * busy_ms / wall_ms:.1f}% busy), {launches / n:.1f} device ops/event; top: "
             + "; ".join(f"{k[:48]} {t / c:.1f} us x{c}" for k, (t, c) in top))

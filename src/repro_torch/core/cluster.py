@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import mig
+from repro_torch.device import resolve_device
 
 
 class DeviceTables(NamedTuple):
@@ -77,10 +78,11 @@ def _tables_for(model: mig.DeviceModel, max_anchors, device: str) -> DeviceTable
 def tables_for(
     model: mig.DeviceModel,
     max_anchors: Optional[int] = None,
-    device: torch.device | str = "cpu",
+    device=None,
 ) -> DeviceTables:
-    """Build (and cache per device) the torch placement tables of a model."""
-    return _tables_for(model, max_anchors, str(torch.device(device)))
+    """Build (and cache per device) the torch placement tables of a model;
+    ``device=None`` means ``"cuda"``."""
+    return _tables_for(model, max_anchors, str(resolve_device(device)))
 
 
 def frag_scores(

@@ -11,11 +11,12 @@
 // (repro_torch/kernels/fragscore/ref.py) bit for bit in any summation order.
 //
 // Shapes on the engine's main path (M = 100 A100-80GB GPUs, R = 500
-// replicas): N = 18 windows, A = 7 anchors, S = 8 slices.  All three
-// kernels move well under a megabyte a call and do a few hundred
+// replicas): N = 18 windows, A = 7 anchors, S = 8 slices.  The first three
+// kernels move a few megabytes a call at most and do a few hundred
 // thousand float operations, so on an H100 each is bound by its launch
 // (a few microseconds), not by bytes or operations; the designs keep one
 // launch per engine stage and read every table once per block.
+// migrate_refine reads ~40 MB a call, so bytes bound it (see its note).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -30,6 +31,8 @@ constexpr int kMaxKeys = 8;     // effective scoring keys of a fused spec
 constexpr int kFragThreads = 256;
 constexpr int kDeltaThreads = 256;
 constexpr int kSelectThreads = 128;
+constexpr int kMigrateThreads = 128;
+constexpr float kBig = 1e9f;  // the masked-key sentinel (ref.BIG)
 
 // ---------------------------------------------------------------------------
 // fragscore — replaces kernels/fragscore/fragscore.py::fragscore (Pallas,
@@ -182,25 +185,35 @@ __device__ __forceinline__ bool lex_less(const float (&ka)[kMaxKeys], int fa,
   return fa < fb;
 }
 
-__global__ void __launch_bounds__(kSelectThreads) select_from_base_kernel(
-    const float* __restrict__ base, const int32_t* __restrict__ free,
-    const float* __restrict__ f, const int32_t* __restrict__ pid,
-    const int32_t* __restrict__ midx, const float* __restrict__ V,
-    const float* __restrict__ maskwin, const int32_t* __restrict__ profile_rows,
+// One demand class's tables of every model, staged in shared memory.
+struct ClassTables {
+  const float* v;    // (K, N) window sizes
+  const float* mw;   // (K, A, N) slices each anchor adds per window
+  const float* mem;  // (K,) slice demand
+  const int* row;    // (K, A) window row of each anchor
+  const int* anc;    // (K, A) anchor value
+  const int* val;    // (K, A) anchor validity
+};
+
+inline size_t class_tables_floats(int k_count, int n, int a) {
+  return static_cast<size_t>(k_count) * n + static_cast<size_t>(k_count) * a * n +
+         k_count + 3 * static_cast<size_t>(k_count) * a;
+}
+
+// Stage class p's tables into sh; ends with a block barrier.
+__device__ ClassTables stage_class_tables(
+    float* sh, const float* __restrict__ V, const float* __restrict__ maskwin,
+    const int32_t* __restrict__ profile_rows,
     const uint8_t* __restrict__ profile_valid,
     const int32_t* __restrict__ profile_anchors,
-    const float* __restrict__ profile_mem, int32_t* __restrict__ out_gpu,
-    int32_t* __restrict__ out_col, uint8_t* __restrict__ out_ok, int m, int n,
-    int a, int p_count, int k_count, int nkeys, int keycode, int partial) {
-  extern __shared__ float sh[];
-  const int r = blockIdx.x;
-  const int p = pid[r];
-  float* sv = sh;                        // (K, N) window sizes
-  float* smw = sv + k_count * n;         // (K, A, N) this class's maskwin
-  float* smem = smw + k_count * a * n;   // (K,) this class's slice demand
-  int* srow = reinterpret_cast<int*>(smem + k_count);  // (K, A) window row
-  int* sanc = srow + k_count * a;        // (K, A) anchor value
-  int* sval = sanc + k_count * a;        // (K, A) anchor validity
+    const float* __restrict__ profile_mem, int p, int k_count, int p_count, int n,
+    int a) {
+  float* sv = sh;
+  float* smw = sv + k_count * n;
+  float* smem = smw + k_count * a * n;
+  int* srow = reinterpret_cast<int*>(smem + k_count);
+  int* sanc = srow + k_count * a;
+  int* sval = sanc + k_count * a;
   for (int i = threadIdx.x; i < k_count * n; i += blockDim.x) sv[i] = V[i];
   for (int i = threadIdx.x; i < k_count * a * n; i += blockDim.x) {
     const int k = i / (a * n);
@@ -216,19 +229,69 @@ __global__ void __launch_bounds__(kSelectThreads) select_from_base_kernel(
     sval[i] = profile_valid[src];
   }
   __syncthreads();
+  return ClassTables{sv, smw, smem, srow, sanc, sval};
+}
 
-  // keycode packs 3 bits per key: bits 0-1 the base (0 frag-delta,
-  // 1 free-slices, 2 gpu, 3 anchor), bit 2 the "-" direction
-  int code[kMaxKeys];
-  float sgn[kMaxKeys];
-  bool need_delta = false;
+// keycode packs 3 bits per key: bits 0-1 the base (0 frag-delta,
+// 1 free-slices, 2 gpu, 3 anchor), bit 2 the "-" direction
+struct KeyCode {
+  int base[kMaxKeys];
+  bool neg[kMaxKeys];
+  bool need_delta;
+};
+
+__device__ __forceinline__ KeyCode decode_keys(int keycode, int nkeys) {
+  KeyCode kc;
+  kc.need_delta = false;
 #pragma unroll
   for (int i = 0; i < kMaxKeys; ++i) {
     const int c = (keycode >> (3 * i)) & 7;
-    code[i] = c & 3;
-    sgn[i] = (c & 4) ? -1.f : 1.f;
-    if (i < nkeys && code[i] == 0) need_delta = true;
+    kc.base[i] = c & 3;
+    kc.neg[i] = (c & 4) != 0;
+    if (i < nkeys && kc.base[i] == 0) kc.need_delta = true;
   }
+  return kc;
+}
+
+// The signed key vector of one candidate.
+__device__ __forceinline__ void key_vector(const KeyCode& kc, float delta,
+                                           float free_after, float gpu,
+                                           float anchor, float (&out)[kMaxKeys]) {
+#pragma unroll
+  for (int i = 0; i < kMaxKeys; ++i) {
+    float val;
+    switch (kc.base[i]) {
+      case 0: val = delta; break;
+      case 1: val = free_after; break;
+      case 2: val = gpu; break;
+      default: val = anchor; break;
+    }
+    out[i] = kc.neg[i] ? -val : val;
+  }
+}
+
+__device__ __forceinline__ void copy_keys(float (&dst)[kMaxKeys],
+                                          const float (&src)[kMaxKeys]) {
+#pragma unroll
+  for (int i = 0; i < kMaxKeys; ++i) dst[i] = src[i];
+}
+
+__global__ void __launch_bounds__(kSelectThreads) select_from_base_kernel(
+    const float* __restrict__ base, const int32_t* __restrict__ free,
+    const float* __restrict__ f, const int32_t* __restrict__ pid,
+    const int32_t* __restrict__ midx, const float* __restrict__ V,
+    const float* __restrict__ maskwin, const int32_t* __restrict__ profile_rows,
+    const uint8_t* __restrict__ profile_valid,
+    const int32_t* __restrict__ profile_anchors,
+    const float* __restrict__ profile_mem, int32_t* __restrict__ out_gpu,
+    int32_t* __restrict__ out_col, uint8_t* __restrict__ out_ok, int m, int n,
+    int a, int p_count, int k_count, int nkeys, int keycode, int partial) {
+  extern __shared__ float sh[];
+  const int r = blockIdx.x;
+  const ClassTables t = stage_class_tables(sh, V, maskwin, profile_rows, profile_valid,
+                                           profile_anchors, profile_mem, pid[r],
+                                           k_count, p_count, n, a);
+  const KeyCode kc = decode_keys(keycode, nkeys);
 
   float best[kMaxKeys];
 #pragma unroll
@@ -239,34 +302,25 @@ __global__ void __launch_bounds__(kSelectThreads) select_from_base_kernel(
   for (int g = threadIdx.x; g < m; g += blockDim.x) {
     const int k = midx[g];
     const float* b = base_r + static_cast<int64_t>(g) * n;
-    const float* v = sv + k * n;
+    const float* v = t.v + k * n;
     const int64_t rg = static_cast<int64_t>(r) * m + g;
-    const float free_after = static_cast<float>(free[rg]) - smem[k];
+    const float free_after = static_cast<float>(free[rg]) - t.mem[k];
     const float fb = f[rg];
     const float s_occ =
-        (need_delta && !partial) ? occupied_sum(b, v, n, free_after) : 0.f;
+        (kc.need_delta && !partial) ? occupied_sum(b, v, n, free_after) : 0.f;
     for (int j = 0; j < a; ++j) {
       const int kj = k * a + j;
-      if (!sval[kj] || b[srow[kj]] != 0.f) continue;  // infeasible anchor
+      if (!t.val[kj] || b[t.row[kj]] != 0.f) continue;  // infeasible anchor
       const float delta =
-          need_delta ? anchor_delta(b, v, smw + kj * n, n, free_after, s_occ, fb, partial)
-                     : 0.f;
+          kc.need_delta
+              ? anchor_delta(b, v, t.mw + kj * n, n, free_after, s_occ, fb, partial)
+              : 0.f;
       float cand[kMaxKeys];
-#pragma unroll
-      for (int i = 0; i < kMaxKeys; ++i) {
-        float val;
-        switch (code[i]) {
-          case 0: val = delta; break;
-          case 1: val = free_after; break;
-          case 2: val = static_cast<float>(g); break;
-          default: val = static_cast<float>(sanc[kj]); break;
-        }
-        cand[i] = sgn[i] < 0.f ? -val : val;
-      }
+      key_vector(kc, delta, free_after, static_cast<float>(g),
+                 static_cast<float>(t.anc[kj]), cand);
       const int flat = g * a + j;
       if (lex_less(cand, flat, best, best_flat, nkeys)) {
-#pragma unroll
-        for (int i = 0; i < kMaxKeys; ++i) best[i] = cand[i];
+        copy_keys(best, cand);
         best_flat = flat;
       }
     }
@@ -311,6 +365,254 @@ __global__ void __launch_bounds__(kSelectThreads) select_from_base_kernel(
     out_gpu[r] = ok ? best_flat / a : 0;
     out_col[r] = ok ? best_flat % a : 0;
     out_ok[r] = ok ? 1 : 0;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// migrate_refine — replaces kernels/fragscore/fragscore.py::migrate_refine
+// (Pallas, _migrate_refine_kernel: _class_pass_impl and _victim_pass_impl
+// with _refine_cols, _tile_top2 and _delta_rows) and its host-side merge
+// sim/batched.py::_merge_top2 of the JAX package.
+//
+// Both refinements of the factored defrag search in ONE launch with two
+// block ranges; the wrapper's `launches` counts that one launch.
+//  * Blocks [0, R·P), pass 0: one block per (replica, demand class), one
+//    thread per GPU row of the untouched cluster.  A thread refines its row
+//    along the anchors (feasibility, ΔF and keys as in select_from_base;
+//    ties to the first column), then a per-thread, warp-shuffle and
+//    shared-memory top-2 by (keys..., gpu) yields the class's best and
+//    runner-up rows: the reference's in-tile _tile_top2 and host
+//    _merge_top2 in one reduction.  The class's tables of every model are
+//    staged in shared memory, so a mixed fleet is the same single launch.
+//  * Blocks [R·P, R·P + ceil(R·C / 128)), pass 1: one thread per (replica,
+//    victim) refines the victim's patched row, gathering its own model's
+//    and class's tables through kc/rp (the reference's wrapper built
+//    per-victim (C, A, N) tables for this; nothing of the kind is built).
+// Masked outputs: pass 0 writes gpu = col = 0 and keys = 1e9 where no row
+// is feasible (ok = 0); pass 1 writes column 0 and the UNMASKED keys of
+// column 0 where no anchor is feasible — the plain version's conventions.
+//
+// Bound: bytes.  At R = 500, M = 100, C_live = 800, N = 18, L = 3 a call
+// reads base2 (28.8 MB), five per-victim scalars (8 MB) and the replica
+// state (4 MB), and writes 6.8 MB: about 48 MB, 14 µs at 3.35 TB/s, while
+// its float work (a few hundred MFLOP) takes a few µs at 67 TFLOP/s.  The
+// dominant stream, base2, is read once and in order: each pass-1 block
+// stages its 128 rows through shared memory with coalesced loads.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void top2_insert(const float (&key)[kMaxKeys], int g, int col,
+                                            float (&k1)[kMaxKeys], int& g1, int& c1,
+                                            float (&k2)[kMaxKeys], int& g2, int& c2,
+                                            int nkeys) {
+  if (lex_less(key, g, k1, g1, nkeys)) {
+    copy_keys(k2, k1);
+    g2 = g1;
+    c2 = c1;
+    copy_keys(k1, key);
+    g1 = g;
+    c1 = col;
+  } else if (lex_less(key, g, k2, g2, nkeys)) {
+    copy_keys(k2, key);
+    g2 = g;
+    c2 = col;
+  }
+}
+
+__device__ __forceinline__ void migrate_class_pass(
+    float* sh, int r, int p, const float* __restrict__ base,
+    const int32_t* __restrict__ free, const float* __restrict__ f,
+    const int32_t* __restrict__ midx, const float* __restrict__ V,
+    const float* __restrict__ maskwin, const int32_t* __restrict__ profile_rows,
+    const uint8_t* __restrict__ profile_valid,
+    const int32_t* __restrict__ profile_anchors,
+    const float* __restrict__ profile_mem, int32_t* __restrict__ out_g1,
+    uint8_t* __restrict__ out_ok1, int32_t* __restrict__ out_a1,
+    float* __restrict__ out_k1, int32_t* __restrict__ out_g2,
+    uint8_t* __restrict__ out_ok2, int32_t* __restrict__ out_a2,
+    float* __restrict__ out_k2, int m, int n, int a, int p_count, int k_count,
+    int nkeys, const KeyCode& keys, int partial) {
+  const ClassTables t = stage_class_tables(sh, V, maskwin, profile_rows, profile_valid,
+                                           profile_anchors, profile_mem, p, k_count,
+                                           p_count, n, a);
+  float k1[kMaxKeys], k2[kMaxKeys];
+#pragma unroll
+  for (int i = 0; i < kMaxKeys; ++i) k1[i] = k2[i] = CUDART_INF_F;
+  int g1 = INT_MAX, c1 = 0, g2 = INT_MAX, c2 = 0;
+
+  const float* base_r = base + static_cast<int64_t>(r) * m * n;
+  for (int g = threadIdx.x; g < m; g += blockDim.x) {
+    const int k = midx[g];
+    const float* b = base_r + static_cast<int64_t>(g) * n;
+    const float* v = t.v + k * n;
+    const int64_t rg = static_cast<int64_t>(r) * m + g;
+    const float free_after = static_cast<float>(free[rg]) - t.mem[k];
+    const float fb = f[rg];
+    const float s_occ =
+        (keys.need_delta && !partial) ? occupied_sum(b, v, n, free_after) : 0.f;
+    float best[kMaxKeys];
+#pragma unroll
+    for (int i = 0; i < kMaxKeys; ++i) best[i] = CUDART_INF_F;
+    int best_col = INT_MAX;
+    for (int j = 0; j < a; ++j) {
+      const int kj = k * a + j;
+      if (!t.val[kj] || b[t.row[kj]] != 0.f) continue;  // infeasible anchor
+      const float delta =
+          keys.need_delta
+              ? anchor_delta(b, v, t.mw + kj * n, n, free_after, s_occ, fb, partial)
+              : 0.f;
+      float cand[kMaxKeys];
+      key_vector(keys, delta, free_after, static_cast<float>(g),
+                 static_cast<float>(t.anc[kj]), cand);
+      if (lex_less(cand, j, best, best_col, nkeys)) {
+        copy_keys(best, cand);
+        best_col = j;
+      }
+    }
+    if (best_col != INT_MAX) top2_insert(best, g, best_col, k1, g1, c1, k2, g2, c2, nkeys);
+  }
+
+  // warp-shuffle merge of the per-thread top-2 lists
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    float o1[kMaxKeys], o2[kMaxKeys];
+#pragma unroll
+    for (int i = 0; i < kMaxKeys; ++i) {
+      o1[i] = __shfl_down_sync(0xffffffffu, k1[i], off);
+      o2[i] = __shfl_down_sync(0xffffffffu, k2[i], off);
+    }
+    const int og1 = __shfl_down_sync(0xffffffffu, g1, off);
+    const int oc1 = __shfl_down_sync(0xffffffffu, c1, off);
+    const int og2 = __shfl_down_sync(0xffffffffu, g2, off);
+    const int oc2 = __shfl_down_sync(0xffffffffu, c2, off);
+    top2_insert(o1, og1, oc1, k1, g1, c1, k2, g2, c2, nkeys);
+    top2_insert(o2, og2, oc2, k1, g1, c1, k2, g2, c2, nkeys);
+  }
+
+  // then across the block's warps in shared memory
+  constexpr int kWarps = kMigrateThreads / 32;
+  __shared__ float wkeys[kWarps][2][kMaxKeys];
+  __shared__ int wrow[kWarps][4];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) {
+    copy_keys(wkeys[warp][0], k1);
+    copy_keys(wkeys[warp][1], k2);
+    wrow[warp][0] = g1;
+    wrow[warp][1] = c1;
+    wrow[warp][2] = g2;
+    wrow[warp][3] = c2;
+  }
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  for (int w = 1; w < kWarps; ++w) {
+    top2_insert(wkeys[w][0], wrow[w][0], wrow[w][1], k1, g1, c1, k2, g2, c2, nkeys);
+    top2_insert(wkeys[w][1], wrow[w][2], wrow[w][3], k1, g1, c1, k2, g2, c2, nkeys);
+  }
+  const int64_t o = static_cast<int64_t>(r) * p_count + p;
+  const bool ok1 = g1 != INT_MAX;
+  const bool ok2 = g2 != INT_MAX;
+  out_g1[o] = ok1 ? g1 : 0;
+  out_ok1[o] = ok1 ? 1 : 0;
+  out_a1[o] = ok1 ? c1 : 0;
+  out_g2[o] = ok2 ? g2 : 0;
+  out_ok2[o] = ok2 ? 1 : 0;
+  out_a2[o] = ok2 ? c2 : 0;
+  for (int i = 0; i < nkeys; ++i) {
+    out_k1[o * nkeys + i] = ok1 ? k1[i] : kBig;
+    out_k2[o * nkeys + i] = ok2 ? k2[i] : kBig;
+  }
+}
+
+__device__ __forceinline__ void migrate_victim_pass(
+    float* sh, int64_t first, int64_t total, const float* __restrict__ base2,
+    const int32_t* __restrict__ free2, const float* __restrict__ f2,
+    const int32_t* __restrict__ rg, const int32_t* __restrict__ rp,
+    const int32_t* __restrict__ kc, const float* __restrict__ V,
+    const float* __restrict__ maskwin, const int32_t* __restrict__ profile_rows,
+    const uint8_t* __restrict__ profile_valid,
+    const int32_t* __restrict__ profile_anchors,
+    const float* __restrict__ profile_mem, int32_t* __restrict__ out_ap,
+    uint8_t* __restrict__ out_okp, float* __restrict__ out_kp, int n, int a,
+    int p_count, int nkeys, const KeyCode& keys, int partial) {
+  // coalesced staging of this block's consecutive base2 rows
+  const int rows_here = static_cast<int>(
+      total - first < static_cast<int64_t>(blockDim.x) ? total - first : blockDim.x);
+  const float* src = base2 + first * n;
+  for (int i = threadIdx.x; i < rows_here * n; i += blockDim.x) sh[i] = src[i];
+  __syncthreads();
+  if (static_cast<int>(threadIdx.x) >= rows_here) return;
+
+  const int64_t vi = first + threadIdx.x;
+  const float* b = sh + threadIdx.x * n;
+  const int k = kc[vi];
+  const int64_t cls = static_cast<int64_t>(k) * p_count + rp[vi];
+  const float* v = V + static_cast<int64_t>(k) * n;
+  const float* mw = maskwin + cls * a * n;
+  const float free_after = static_cast<float>(free2[vi]) - profile_mem[cls];
+  const float fb = f2[vi];
+  const float gpu = static_cast<float>(rg[vi]);
+  const float s_occ =
+      (keys.need_delta && !partial) ? occupied_sum(b, v, n, free_after) : 0.f;
+  float best[kMaxKeys], col0[kMaxKeys];
+#pragma unroll
+  for (int i = 0; i < kMaxKeys; ++i) best[i] = col0[i] = CUDART_INF_F;
+  int best_col = INT_MAX;
+  for (int j = 0; j < a; ++j) {
+    const int64_t cj = cls * a + j;
+    const bool feasible = profile_valid[cj] && b[profile_rows[cj]] == 0.f;
+    if (!feasible && j != 0) continue;  // column 0 is the all-infeasible fallback
+    const float delta =
+        keys.need_delta
+            ? anchor_delta(b, v, mw + static_cast<int64_t>(j) * n, n, free_after, s_occ,
+                           fb, partial)
+            : 0.f;
+    float cand[kMaxKeys];
+    key_vector(keys, delta, free_after, gpu, static_cast<float>(profile_anchors[cj]), cand);
+    if (j == 0) copy_keys(col0, cand);
+    if (feasible && lex_less(cand, j, best, best_col, nkeys)) {
+      copy_keys(best, cand);
+      best_col = j;
+    }
+  }
+  const bool ok = best_col != INT_MAX;
+  out_ap[vi] = ok ? best_col : 0;
+  out_okp[vi] = ok ? 1 : 0;
+  for (int i = 0; i < nkeys; ++i) out_kp[vi * nkeys + i] = ok ? best[i] : col0[i];
+}
+
+__global__ void __launch_bounds__(kMigrateThreads) migrate_refine_kernel(
+    const float* __restrict__ base, const int32_t* __restrict__ free,
+    const float* __restrict__ f, const float* __restrict__ base2,
+    const int32_t* __restrict__ free2, const float* __restrict__ f2,
+    const int32_t* __restrict__ rg, const int32_t* __restrict__ rp,
+    const int32_t* __restrict__ kc, const int32_t* __restrict__ midx,
+    const float* __restrict__ V, const float* __restrict__ maskwin,
+    const int32_t* __restrict__ profile_rows,
+    const uint8_t* __restrict__ profile_valid,
+    const int32_t* __restrict__ profile_anchors,
+    const float* __restrict__ profile_mem, int32_t* __restrict__ out_g1,
+    uint8_t* __restrict__ out_ok1, int32_t* __restrict__ out_a1,
+    float* __restrict__ out_k1, int32_t* __restrict__ out_g2,
+    uint8_t* __restrict__ out_ok2, int32_t* __restrict__ out_a2,
+    float* __restrict__ out_k2, int32_t* __restrict__ out_ap,
+    uint8_t* __restrict__ out_okp, float* __restrict__ out_kp, int r_count, int m,
+    int c_count, int n, int a, int p_count, int k_count, int nkeys, int keycode,
+    int partial) {
+  extern __shared__ float sh[];
+  const KeyCode keys = decode_keys(keycode, nkeys);
+  const int pass0_blocks = r_count * p_count;
+  if (static_cast<int>(blockIdx.x) < pass0_blocks) {
+    migrate_class_pass(sh, blockIdx.x / p_count, blockIdx.x % p_count, base, free, f,
+                       midx, V, maskwin, profile_rows, profile_valid, profile_anchors,
+                       profile_mem, out_g1, out_ok1, out_a1, out_k1, out_g2, out_ok2,
+                       out_a2, out_k2, m, n, a, p_count, k_count, nkeys, keys, partial);
+  } else {
+    const int64_t first =
+        static_cast<int64_t>(blockIdx.x - pass0_blocks) * kMigrateThreads;
+    migrate_victim_pass(sh, first, static_cast<int64_t>(r_count) * c_count, base2,
+                        free2, f2, rg, rp, kc, V, maskwin, profile_rows, profile_valid,
+                        profile_anchors, profile_mem, out_ap, out_okp, out_kp, n, a,
+                        p_count, nkeys, keys, partial);
   }
 }
 
@@ -364,8 +666,7 @@ int select_from_base_launch(const void* base, const void* free, const void* f,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (r_count <= 0 || nkeys < 0 || nkeys > kMaxKeys) return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * static_cast<size_t>(
-      k_count * n + k_count * a * n + k_count + 3 * k_count * a);
+  const size_t smem = sizeof(float) * class_tables_floats(k_count, n, a);
   select_from_base_kernel<<<r_count, kSelectThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(base), static_cast<const int32_t*>(free),
       static_cast<const float*>(f), static_cast<const int32_t*>(pid),
@@ -377,6 +678,50 @@ int select_from_base_launch(const void* base, const void* free, const void* f,
       static_cast<const float*>(profile_mem), static_cast<int32_t*>(out_gpu),
       static_cast<int32_t*>(out_col), static_cast<uint8_t*>(out_ok), m, n, a,
       p_count, k_count, nkeys, keycode, partial);
+  return cudaGetLastError();
+}
+
+int migrate_refine_launch(
+    const void* base, const void* free, const void* f, const void* base2,
+    const void* free2, const void* f2, const void* rg, const void* rp,
+    const void* kc, const void* midx, const void* V, const void* maskwin,
+    const void* profile_rows, const void* profile_valid,
+    const void* profile_anchors, const void* profile_mem, void* out_g1,
+    void* out_ok1, void* out_a1, void* out_k1, void* out_g2, void* out_ok2,
+    void* out_a2, void* out_k2, void* out_ap, void* out_okp, void* out_kp,
+    int r_count, int m, int c_count, int n, int a, int p_count, int k_count,
+    int nkeys, int keycode, int partial, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (r_count <= 0 || c_count < 0 || nkeys < 0 || nkeys > kMaxKeys) {
+    return cudaErrorInvalidValue;
+  }
+  const int64_t pass0 = static_cast<int64_t>(r_count) * p_count;
+  const int64_t pass1 =
+      (static_cast<int64_t>(r_count) * c_count + kMigrateThreads - 1) / kMigrateThreads;
+  if (pass0 + pass1 > INT_MAX) return cudaErrorInvalidValue;
+  const size_t floats = class_tables_floats(k_count, n, a);
+  const size_t smem = sizeof(float) * (floats > static_cast<size_t>(kMigrateThreads) * n
+                                           ? floats
+                                           : static_cast<size_t>(kMigrateThreads) * n);
+  migrate_refine_kernel<<<static_cast<int>(pass0 + pass1), kMigrateThreads, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(base), static_cast<const int32_t*>(free),
+      static_cast<const float*>(f), static_cast<const float*>(base2),
+      static_cast<const int32_t*>(free2), static_cast<const float*>(f2),
+      static_cast<const int32_t*>(rg), static_cast<const int32_t*>(rp),
+      static_cast<const int32_t*>(kc), static_cast<const int32_t*>(midx),
+      static_cast<const float*>(V), static_cast<const float*>(maskwin),
+      static_cast<const int32_t*>(profile_rows),
+      static_cast<const uint8_t*>(profile_valid),
+      static_cast<const int32_t*>(profile_anchors),
+      static_cast<const float*>(profile_mem), static_cast<int32_t*>(out_g1),
+      static_cast<uint8_t*>(out_ok1), static_cast<int32_t*>(out_a1),
+      static_cast<float*>(out_k1), static_cast<int32_t*>(out_g2),
+      static_cast<uint8_t*>(out_ok2), static_cast<int32_t*>(out_a2),
+      static_cast<float*>(out_k2), static_cast<int32_t*>(out_ap),
+      static_cast<uint8_t*>(out_okp), static_cast<float*>(out_kp), r_count, m,
+      c_count, n, a, p_count, k_count, nkeys, keycode, partial);
   return cudaGetLastError();
 }
 

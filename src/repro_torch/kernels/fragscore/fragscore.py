@@ -1,4 +1,4 @@
-"""Wrappers of the three fragscore CUDA kernels (``csrc/fragscore.cu``).
+"""Wrappers of the four fragscore CUDA kernels (``csrc/fragscore.cu``).
 
 Each wrapper takes its operands in the engine's layout (see
 :mod:`repro_torch.kernels.fragscore.ref`).  For tensors that lie on the CPU
@@ -12,7 +12,9 @@ raises.  There is no fallback from the card to the plain version.
 * :func:`delta_from_base` — the raw ``(R, M, A)`` ΔF table of each
   replica's request (specs with ``kernel_lowering="delta"``);
 * :func:`select_from_base` — each replica's whole decision, ΔF plus the
-  masked lexicographic argmin (argmin-fusable specs).
+  masked lexicographic argmin (argmin-fusable specs);
+* :func:`migrate_refine` — both refinements of the defrag migrate search
+  (argmin-fusable defrag specs).
 """
 
 from __future__ import annotations
@@ -35,8 +37,9 @@ def _lib() -> ctypes.CDLL:
     lib.fragscore_launch.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.delta_from_base_launch.argtypes = [p] * 9 + [i] * 7 + [p]
     lib.select_from_base_launch.argtypes = [p] * 14 + [i] * 10 + [p]
+    lib.migrate_refine_launch.argtypes = [p] * 27 + [i] * 11 + [p]
     for fn in (lib.fragscore_launch, lib.delta_from_base_launch,
-               lib.select_from_base_launch):
+               lib.select_from_base_launch, lib.migrate_refine_launch):
         fn.restype = ctypes.c_int
     return lib
 
@@ -100,14 +103,13 @@ def fragscore(
 fragscore.launches = 0
 
 
-def _table_args(base, free, f, pid, midx, V, maskwin, profile_mem):
+def _table_args(base, free, f, midx, V, maskwin, profile_mem):
     """Shape/dtype checks shared by the ΔF kernels; returns (R, M, N, A, K, P)."""
     r, m, n = base.shape
     k, p, a, _ = maskwin.shape
     _check("base", base, torch.float32, (r, m, n))
     _check("free", free, torch.int32, (r, m))
     _check("f", f, torch.float32, (r, m))
-    _check("pid", pid, torch.int32, (r,))
     _check("midx", midx, torch.int32, (m,))
     _check("V", V, torch.float32, (k, n))
     _check("maskwin", maskwin, torch.float32, (k, p, a, n))
@@ -125,7 +127,8 @@ def delta_from_base(
         return ref.delta_from_base_ref(
             base, free, f, pid, midx, V, maskwin, profile_mem, metric
         )
-    r, m, n, a, _, p = _table_args(base, free, f, pid, midx, V, maskwin, profile_mem)
+    r, m, n, a, _, p = _table_args(base, free, f, midx, V, maskwin, profile_mem)
+    _check("pid", pid, torch.int32, (r,))
     out = torch.empty((r, m, a), dtype=torch.float32, device=base.device)
     if r and m:
         _launch(_lib().delta_from_base_launch, base.data_ptr(), free.data_ptr(),
@@ -140,6 +143,8 @@ delta_from_base.launches = 0
 
 #: most effective keys the select kernel compares (its ``kMaxKeys``)
 MAX_KEYS = 8
+#: threads per block of the migrate kernel (its ``kMigrateThreads``)
+_MIGRATE_THREADS = 128
 
 
 def pack_keys(keys) -> int:
@@ -169,7 +174,8 @@ def select_from_base(
     if _on_cpu(*operands):
         return ref.select_from_base_ref(*operands, keys, metric)
     code = pack_keys(keys)
-    r, m, n, a, k, p = _table_args(base, free, f, pid, midx, V, maskwin, profile_mem)
+    r, m, n, a, k, p = _table_args(base, free, f, midx, V, maskwin, profile_mem)
+    _check("pid", pid, torch.int32, (r,))
     _check("profile_rows", profile_rows, torch.int32, (k, p, a))
     _check("profile_valid", profile_valid, torch.bool, (k, p, a))
     _check("profile_anchors", profile_anchors, torch.int32, (k, p, a))
@@ -190,3 +196,51 @@ def select_from_base(
 
 
 select_from_base.launches = 0
+
+
+def migrate_refine(
+    base, free, f, base2, free2, f2, rg, rp, kc, midx, V, maskwin, profile_rows,
+    profile_valid, profile_anchors, profile_mem, *, keys, metric: str = "blocked",
+):
+    """Both refinements of the migrate search in one launch: per replica
+    and demand class the best and runner-up untouched GPU rows, per victim
+    its patched row (see :func:`ref.migrate_refine_ref` for the operands and
+    the ``(g1, ok1, a1, k1, g2, ok2, a2, k2, ap, okp, kp)`` outputs)."""
+    partial = _metric_flag(metric)
+    operands = (base, free, f, base2, free2, f2, rg, rp, kc, midx, V, maskwin,
+                profile_rows, profile_valid, profile_anchors, profile_mem)
+    if _on_cpu(*operands):
+        return ref.migrate_refine_ref(*operands, keys, metric)
+    code = pack_keys(keys)
+    r, m, n, a, k, p = _table_args(base, free, f, midx, V, maskwin, profile_mem)
+    c = base2.shape[1]
+    _check("base2", base2, torch.float32, (r, c, n))
+    _check("free2", free2, torch.int32, (r, c))
+    _check("f2", f2, torch.float32, (r, c))
+    for name, t in (("rg", rg), ("rp", rp), ("kc", kc)):
+        _check(name, t, torch.int32, (r, c))
+    _check("profile_rows", profile_rows, torch.int32, (k, p, a))
+    _check("profile_valid", profile_valid, torch.bool, (k, p, a))
+    _check("profile_anchors", profile_anchors, torch.int32, (k, p, a))
+    smem = 4 * max(k * n + k * a * n + k + 3 * k * a, _MIGRATE_THREADS * n)
+    if smem > 48 * 1024:
+        raise ValueError(f"migrate_refine: tables need {smem} B of shared memory (> 48 KiB)")
+    dev = base.device
+    l = len(keys)
+    i32 = dict(dtype=torch.int32, device=dev)
+    b8 = dict(dtype=torch.bool, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    g1, a1, g2, a2 = (torch.empty((r, p), **i32) for _ in range(4))
+    ok1, ok2 = torch.empty((r, p), **b8), torch.empty((r, p), **b8)
+    k1, k2 = torch.empty((r, p, l), **f32), torch.empty((r, p, l), **f32)
+    ap, okp, kp = torch.empty((r, c), **i32), torch.empty((r, c), **b8), torch.empty((r, c, l), **f32)
+    outs = (g1, ok1, a1, k1, g2, ok2, a2, k2, ap, okp, kp)
+    if r:
+        _launch(_lib().migrate_refine_launch,
+                *(t.data_ptr() for t in operands + outs),
+                r, m, c, n, a, p, k, l, code, partial, device=dev)
+        migrate_refine.launches += 1
+    return outs
+
+
+migrate_refine.launches = 0

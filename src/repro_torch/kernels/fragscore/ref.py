@@ -1,4 +1,4 @@
-"""Plain torch versions of the three fragscore kernels.
+"""Plain torch versions of the four fragscore kernels.
 
 Each function computes exactly what its CUDA kernel in ``csrc/fragscore.cu``
 computes, on the same operands, in plain tensor ops.  The wrappers in
@@ -18,7 +18,12 @@ Operand layout (the engine's own, ``R`` replicas of an ``M``-GPU fleet of
 * ``midx (M,)`` int32 — each GPU's device-model index;
 * ``V (K, N)``, ``maskwin (K, P, A, N)``, ``profile_mem (K, P)`` float32,
   ``profile_rows``/``profile_anchors (K, P, A)`` int32,
-  ``profile_valid (K, P, A)`` bool — the stacked per-model tables.
+  ``profile_valid (K, P, A)`` bool — the stacked per-model tables;
+* for the migrate search, per victim ``c`` of each replica's ``C`` live
+  ring entries: ``base2 (R, C, N)`` float32, ``free2 (R, C)`` int32 and
+  ``f2 (R, C)`` float32 — the victim's GPU after evacuation and the
+  request's placement — and ``rg``/``rp``/``kc (R, C)`` int32, its GPU,
+  demand class and device model.
 """
 
 from __future__ import annotations
@@ -52,29 +57,46 @@ def fragscore_ref(
     return torch.where(counted & eligible, v[None, :], 0.0).sum(dim=-1)
 
 
-def delta_from_base_ref(
-    base, free, f, pid, midx, V, maskwin, profile_mem, metric: str = "blocked"
-) -> torch.Tensor:
-    """ΔF of every anchor dry-run of each replica's request: ``(R, M, A)``.
+def _delta_dense(base, free, f, v, mw, mem, metric: str) -> torch.Tensor:
+    """ΔF of every anchor dry-run on rows ``base (..., N)``: ``(..., A)``.
 
-    The dense ``(R, M, A, N)`` form: window counts after a placement are
-    ``base + maskwin`` (a feasible window is disjoint from the current
-    occupancy); eligibility compares window sizes with the
-    post-allocation free count.  The result is raw (no feasibility mask).
+    ``v (..., N)`` are the rows' window sizes, ``mw (..., A, N)`` the slices
+    each anchor adds per window, ``mem (...)`` the request's slice demand
+    and ``free``/``f (...)`` the rows' free slices and F.  The dense form:
+    window counts after a placement are ``base + mw`` (a feasible window is
+    disjoint from the current occupancy); eligibility compares window sizes
+    with the post-allocation free count.  Raw (no feasibility mask).
     """
-    mi, pi = midx.long()[None, :], pid.long()[:, None]
-    v = V[midx.long()]                                     # (M, N)
-    ba = base[:, :, None, :] + maskwin[mi, pi]             # (R, M, A, N)
+    ba = base[..., None, :] + mw                           # (..., A, N)
+    vv = v[..., None, :]
     if metric == "blocked":
         counted = ba > 0
     elif metric == "partial":
-        counted = (ba > 0) & (ba < v[None, :, None, :])
+        counted = (ba > 0) & (ba < vv)
     else:
         raise ValueError(f"unknown metric {metric!r}")
-    free_after = free.to(torch.float32) - profile_mem[mi, pi]  # (R, M)
-    eligible = v[None, :, None, :] <= free_after[:, :, None, None]
-    f_after = torch.where(counted & eligible, v[None, :, None, :], 0.0).sum(dim=-1)
-    return f_after - f[:, :, None]
+    free_after = free.to(torch.float32) - mem              # (...)
+    eligible = vv <= free_after[..., None, None]
+    f_after = torch.where(counted & eligible, vv, 0.0).sum(dim=-1)
+    return f_after - f[..., None]
+
+
+def delta_from_base_ref(
+    base, free, f, pid, midx, V, maskwin, profile_mem, metric: str = "blocked"
+) -> torch.Tensor:
+    """ΔF of every anchor dry-run of each replica's request: ``(R, M, A)``."""
+    mi, pi = midx.long()[None, :], pid.long()[:, None]
+    return _delta_dense(base, free, f, V[midx.long()][None], maskwin[mi, pi],
+                        profile_mem[mi, pi], metric)
+
+
+def first_true(mask: torch.Tensor) -> torch.Tensor:
+    """Index of the first ``True`` along the last axis, 0 where there is
+    none (``argmax`` of a boolean mask)."""
+    n = mask.shape[-1]
+    idx = torch.arange(n, device=mask.device)
+    k = torch.where(mask, idx, n).amin(dim=-1)
+    return torch.where(k < n, k, 0)
 
 
 def lex_argmin(feasible: torch.Tensor, vals) -> tuple:
@@ -92,11 +114,70 @@ def lex_argmin(feasible: torch.Tensor, vals) -> tuple:
         mask = mask & (masked == masked.amin(dim=(1, 2), keepdim=True))
     r, m, a = feasible.shape
     flat = mask.reshape(r, m * a)
-    idx = torch.arange(m * a, device=feasible.device)
-    ok = flat.any(dim=1)
-    k = torch.where(flat, idx, m * a).amin(dim=1)
-    k = torch.where(ok, k, 0)
-    return k // a, k % a, ok
+    k = first_true(flat)
+    return k // a, k % a, flat.any(dim=1)
+
+
+def refine_rows(feasible: torch.Tensor, vals) -> tuple:
+    """Masked lexicographic refinement of every row along the last
+    (anchor) axis of ``feasible (..., A)``.
+
+    Returns ``(col, ok, keys)``: the first surviving column (0 where no
+    anchor is feasible), whether one survived, and the key values at that
+    column, ``(..., L)``, taken *unmasked* — an all-infeasible row reports
+    column 0's values.
+    """
+    mask = feasible
+    full = [torch.broadcast_to(v, feasible.shape) for v in vals]
+    for val in full:
+        masked = torch.where(mask, val, BIG)
+        mask = mask & (masked == masked.amin(dim=-1, keepdim=True))
+    col = first_true(mask)
+    keys = [torch.gather(v, -1, col[..., None])[..., 0] for v in full]
+    keys = (torch.stack(keys, dim=-1) if keys
+            else feasible.new_zeros(feasible.shape[:-1] + (0,), dtype=torch.float32))
+    return col, mask.any(dim=-1), keys
+
+
+def _lex_best(keys: torch.Tensor, mask: torch.Tensor):
+    for i in range(keys.shape[-1]):
+        masked = torch.where(mask, keys[..., i], BIG)
+        mask = mask & (masked == masked.amin(dim=-1, keepdim=True))
+    return first_true(mask), mask.any(dim=-1)
+
+
+def lex_top2(keys: torch.Tensor, ok: torch.Tensor) -> tuple:
+    """Best and runner-up row of ``keys (..., M, L)`` among the valid rows
+    ``ok (..., M)``, by ``(keys…, row)``.
+
+    The runner-up excludes the winner's row only where a winner exists;
+    with no winner both indices are 0, and a single valid row gives
+    ``ok2 = False``.  Returns ``(g1, ok1, g2, ok2)``, each ``(...)``.
+    """
+    g1, ok1 = _lex_best(keys, ok)
+    m = ok.shape[-1]
+    excl = ~ok1[..., None] | (torch.arange(m, device=ok.device) != g1[..., None])
+    g2, ok2 = _lex_best(keys, ok & excl)
+    return g1, ok1, g2, ok2
+
+
+def _fused_vals(keys, delta, free_after, gid, anchors):
+    """Signed key tensors of an effective key tuple: ``delta`` is a
+    callable that builds the ΔF table on first use."""
+    vals = []
+    for base_key, sign in keys:
+        if base_key == "frag-delta":
+            val = delta()
+        elif base_key == "free-slices":
+            val = free_after[..., None]
+        elif base_key == "gpu":
+            val = gid.to(torch.float32)[..., None]
+        elif base_key == "anchor":
+            val = anchors.to(torch.float32)
+        else:
+            raise ValueError(f"key {base_key!r} is not argmin-fusable")
+        vals.append(-val if sign < 0 else val)
+    return vals
 
 
 def select_from_base_ref(
@@ -113,23 +194,74 @@ def select_from_base_ref(
     rows = profile_rows[mi, pi].long()                      # (R, M, A)
     feas = (torch.gather(base, 2, rows) == 0) & profile_valid[mi, pi]
     mem = profile_mem[mi, pi]                               # (R, M)
-    m = base.shape[1]
-    delta = None
-    vals = []
-    for base_key, sign in keys:
-        if base_key == "frag-delta":
-            if delta is None:
-                delta = delta_from_base_ref(
-                    base, free, f, pid, midx, V, maskwin, profile_mem, metric
-                )
-            val = delta
-        elif base_key == "free-slices":
-            val = (free.to(torch.float32) - mem)[:, :, None]
-        elif base_key == "gpu":
-            val = torch.arange(m, dtype=torch.float32, device=base.device)[None, :, None]
-        elif base_key == "anchor":
-            val = profile_anchors[mi, pi].to(torch.float32)
-        else:
-            raise ValueError(f"key {base_key!r} is not argmin-fusable")
-        vals.append(-val if sign < 0 else val)
+    gid = torch.arange(base.shape[1], device=base.device)[None, :]
+    vals = _fused_vals(
+        keys,
+        lambda: delta_from_base_ref(base, free, f, pid, midx, V, maskwin, profile_mem, metric),
+        free.to(torch.float32) - mem, gid, profile_anchors[mi, pi],
+    )
     return lex_argmin(feas, vals)
+
+
+def migrate_refine_ref(
+    base, free, f, base2, free2, f2, rg, rp, kc, midx, V, maskwin,
+    profile_rows, profile_valid, profile_anchors, profile_mem, keys,
+    metric: str = "blocked",
+):
+    """Migrate-search plain version: both refinements of the factored
+    defrag search over the effective ``keys``.
+
+    *Pass 0*, per replica and demand class ``p``: every GPU row of the
+    untouched cluster is refined along its anchors (the first surviving
+    column breaks ties), and the best and runner-up rows by ``(keys…,
+    gpu)`` are kept.  *Pass 1*, per victim: its patched row (``base2``,
+    ``free2``, ``f2`` on GPU ``rg``, class ``rp``, model ``kc``) is refined
+    along its anchors.
+
+    Returns ``(g1, ok1, a1, k1, g2, ok2, a2, k2, ap, okp, kp)``: the pass-0
+    rows ``(R, P)`` (gpu, ok, column) and ``(R, P, L)`` keys, with gpu and
+    column 0 and keys :data:`BIG` where not ok; the pass-1 rows ``(R, C)``
+    (column, ok) and ``(R, C, L)`` keys, taken unmasked at column 0 where
+    no anchor is feasible.
+    """
+    r, m, _ = base.shape
+    p_count = maskwin.shape[1]
+    mi = midx.long()
+    gid = torch.arange(m, device=base.device)[None, :]
+    top = []
+    for p in range(p_count):
+        pid = torch.full((r,), p, dtype=torch.int32, device=base.device)
+        rows = profile_rows[mi, p].long()[None].expand(r, -1, -1)   # (R, M, A)
+        feas = (torch.gather(base, 2, rows) == 0) & profile_valid[mi, p]
+        vals = _fused_vals(
+            keys,
+            lambda: delta_from_base_ref(base, free, f, pid, midx, V, maskwin,
+                                        profile_mem, metric),
+            free.to(torch.float32) - profile_mem[mi, p], gid, profile_anchors[mi, p][None],
+        )
+        col, ok, kr = refine_rows(feas, vals)                       # (R, M), (R, M, L)
+        g1, ok1, g2, ok2 = lex_top2(kr, ok)
+        for g, okg in ((g1, ok1), (g2, ok2)):
+            a = torch.gather(col, 1, g[:, None])[:, 0]
+            k = torch.gather(kr, 1, g[:, None, None].expand(-1, 1, kr.shape[-1]))[:, 0]
+            top.append((g, okg, torch.where(okg, a, 0),
+                        torch.where(okg[:, None], k, BIG)))
+    pass0 = [
+        torch.stack([top[2 * p + i][j] for p in range(p_count)], dim=1)
+        for i in range(2) for j in range(4)
+    ]
+    g1, ok1, a1, k1, g2, ok2, a2, k2 = pass0
+
+    kcl, rpl = kc.long(), rp.long()
+    rows = profile_rows[kcl, rpl].long()                            # (R, C, A)
+    feas = (torch.gather(base2, 2, rows) == 0) & profile_valid[kcl, rpl]
+    mem = profile_mem[kcl, rpl]                                     # (R, C)
+    vals = _fused_vals(
+        keys,
+        lambda: _delta_dense(base2, free2, f2, V[kcl], maskwin[kcl, rpl], mem, metric),
+        free2.to(torch.float32) - mem, rg, profile_anchors[kcl, rpl],
+    )
+    ap, okp, kp = refine_rows(feas, vals)
+    i32 = torch.int32
+    return (g1.to(i32), ok1, a1.to(i32), k1, g2.to(i32), ok2, a2.to(i32), k2,
+            ap.to(i32), okp, kp)

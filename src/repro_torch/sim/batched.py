@@ -3,7 +3,8 @@
 R replicas step together through a host-presampled event stream: per event
 the staged :class:`EngineCore` runs *measure* (slot-boundary metrics),
 *expire* (drain this slot's expiry-ring row), *select* (the policy's
-decision) and *commit* over all replicas at once.  The replica axis is an
+decision), *migrate* (defrag specs: the single-migration search on
+reject) and *commit* over all replicas at once.  The replica axis is an
 explicit leading ``R`` dimension of every state tensor, and the event scan
 is a Python loop over events on state tensors that stay on the device:
 nothing leaves the device until the trace is fetched once at the end.
@@ -18,13 +19,16 @@ lowered to a masked-refinement lexicographic argmin over the
 ``use_kernel`` the stages go through the hand-written CUDA kernels:
 ``select_from_base`` for argmin-fusable specs (mfi, ff, bf-bi, wf-bi),
 ``delta_from_base`` for ΔF specs that keep the plain argmin
-(``kernel_lowering="delta"``), and ``fragscore`` for the drain/commit
-rescore on homogeneous fleets (which then tracks occupancy).  rr carries
-the unfusable ``rr-distance`` key, so its argmin stays plain torch.
+(``kernel_lowering="delta"``), ``migrate_refine`` for the migrate search
+of fusable defrag specs (mfi-defrag), and ``fragscore`` for the
+drain/commit rescore on homogeneous fleets (which then tracks occupancy).
+rr carries the unfusable ``rr-distance`` key, so its argmin stays plain
+torch.
 
 Every decision, metric and trace field matches the JAX reference package
-bit for bit: the trace dtypes (bool/int32/int32/int32/int32/float32, laid
-out ``(E_max, R)``) reproduce its golden SHA-256 hashes, and
+bit for bit: the trace dtypes (bool/int32/int32/int32/int32/float32, then
+bool and four int32 ``mig*`` fields for defrag specs, laid out
+``(E_max, R)``) reproduce its golden SHA-256 hashes, and
 :func:`state_from_numpy` / :func:`state_to_numpy` carry a replica state
 between the two packages.
 
@@ -36,7 +40,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict, Mapping, NamedTuple, Optional, Tuple, Union
+from typing import Dict, Mapping, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -51,8 +55,9 @@ from repro_torch.core.policy import (
     list_policies,
     resolve,
 )
+from repro_torch.device import resolve_device
 from repro_torch.kernels.fragscore import fragscore as _k
-from repro_torch.kernels.fragscore.ref import lex_argmin
+from repro_torch.kernels.fragscore.ref import BIG, first_true, lex_argmin, lex_top2, refine_rows
 from repro_torch.sim import distributions
 from repro_torch.sim.simulator import (
     SAMPLE_EVERY,
@@ -63,18 +68,6 @@ from repro_torch.sim.simulator import (
 
 #: batched-capable registered policies at import time
 POLICIES = list_policies(engine="batched")
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means ``"cuda"``; a CUDA device without a card raises."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {str(dev)!r} requested (device=None means 'cuda') but "
-            "torch.cuda.is_available() is false; pass device='cpu' to run "
-            "the plain torch versions on the CPU"
-        )
-    return dev
 
 
 # ---------------------------------------------------------------------------
@@ -116,9 +109,9 @@ PROTOCOLS: Dict[str, Protocol] = {
 
 #: where each protocol that is not ported yet stands in ROADMAP.md
 _NOT_PORTED = {
-    "cumulative": "ROADMAP.md §1 item 4, cumulative protocol",
-    "steady-queued": "ROADMAP.md §1 item 6, queued protocol",
-    "steady-faulted": "ROADMAP.md §1 item 7, faulted protocol",
+    "cumulative": "ROADMAP.md §1 item 7, cumulative protocol",
+    "steady-queued": "ROADMAP.md §1 item 8, queued protocol",
+    "steady-faulted": "ROADMAP.md §1 item 9, faulted protocol",
 }
 
 
@@ -222,9 +215,10 @@ def _spec_tables(spec: mig.ClusterSpec, device: str) -> SpecTables:
     return tables_from_numpy(_spec_tables_np(spec), device)
 
 
-def spec_tables(spec: mig.ClusterSpec, device="cpu") -> SpecTables:
-    """Build (and cache per device) the stacked tables of a cluster spec."""
-    return _spec_tables(spec, str(torch.device(device)))
+def spec_tables(spec: mig.ClusterSpec, device=None) -> SpecTables:
+    """Build (and cache per device) the stacked tables of a cluster spec;
+    ``device=None`` means ``"cuda"``."""
+    return _spec_tables(spec, str(resolve_device(device)))
 
 
 def _default_spec(num_gpus: int) -> mig.ClusterSpec:
@@ -248,47 +242,49 @@ def _frag_from_base(base, free, metric: str, v) -> torch.Tensor:
 
 
 def _delta_from_base(base, free, metric: str, v, mw, mp, mem_g, f_before):
-    """ΔF of every anchor dry-run of each replica's request: (R, M, A).
+    """ΔF of every anchor dry-run on rows ``base (..., M, N)``: ``(..., M, A)``.
 
-    ``v (M, N)``, ``mw/mp (R, M, A, N)`` and ``mem_g (R, M)`` are the
-    per-GPU gathers ``V[midx]``, ``maskwin/maskpos[midx, pid]`` and
-    ``profile_mem[midx, pid]``.  For the "blocked" metric the counted
-    predicate after a placement decomposes as ``(base > 0) | (mw > 0)``, so
-    the table is an occupied sum plus one batched contraction; "partial"
-    needs the dense ``(R, M, A, N)`` form.  Integer-valued, exact.
+    ``v (..., M, N)``, ``mw/mp (..., M, A, N)`` and ``mem_g (..., M)`` are
+    the per-row gathers ``V[midx]``, ``maskwin/maskpos[midx, pid]`` and
+    ``profile_mem[midx, pid]`` (the migrate search gathers them per victim).
+    For the "blocked" metric the counted predicate after a placement
+    decomposes as ``(base > 0) | (mw > 0)``, so the table is an occupied sum
+    plus one batched contraction; "partial" needs the dense ``(..., M, A,
+    N)`` form.  Integer-valued, exact.
     """
-    free_after = free.to(torch.float32) - mem_g  # (R, M)
-    elig = v <= free_after[..., None]            # (R, M, N)
+    free_after = free.to(torch.float32) - mem_g  # (..., M)
+    elig = v <= free_after[..., None]            # (..., M, N)
     if metric == "partial":
-        ba = base[:, :, None, :] + mw            # (R, M, A, N)
-        counted = (ba > 0) & (ba < v[:, None, :])
+        ba = base[..., None, :] + mw             # (..., M, A, N)
+        counted = (ba > 0) & (ba < v[..., None, :])
         f_after = torch.where(
-            counted & elig[:, :, None, :], v[:, None, :], 0.0
+            counted & elig[..., None, :], v[..., None, :], 0.0
         ).sum(dim=-1)
     else:
-        cb = base > 0                            # (R, M, N)
-        s_occ = torch.where(cb & elig, v, 0.0).sum(dim=-1)  # (R, M)
-        cross = torch.einsum("rmn,rman->rma", torch.where(~cb & elig, v, 0.0), mp)
+        cb = base > 0                            # (..., M, N)
+        s_occ = torch.where(cb & elig, v, 0.0).sum(dim=-1)  # (..., M)
+        cross = (torch.where(~cb & elig, v, 0.0)[..., None, :] * mp).sum(dim=-1)
         f_after = s_occ[..., None] + cross
     return f_after - f_before[..., None]
 
 
 def make_frag_fn(metric: str = "blocked", model: mig.DeviceModel = mig.A100_80GB,
-                 device="cpu"):
+                 device=None):
     """(Q, S) occupancy -> (Q,) F scores through the ``fragscore`` kernel,
     for a homogeneous fleet of ``model``."""
-    dev = torch.device(device)
+    dev = resolve_device(device)
     w = torch.tensor(model.placement_masks, dtype=torch.float32, device=dev)
     v = torch.tensor(model.placement_mem, dtype=torch.float32, device=dev)
     return lambda occ: _k.fragscore(occ, w, v, metric=metric)
 
 
-def make_delta_fn(spec: mig.ClusterSpec, metric: str = "blocked", device="cpu"):
+def make_delta_fn(spec: mig.ClusterSpec, metric: str = "blocked", device=None):
     """ΔF dispatch ``(base, free, f, pid) -> (R, M, A)`` through the
     ``delta_from_base`` kernel: one launch covers every replica and every
     device model of the fleet (the kernel gathers each row's model)."""
-    tables = spec_tables(spec, device)
-    midx32 = torch.as_tensor(spec.model_index, device=torch.device(device))
+    dev = resolve_device(device)
+    tables = spec_tables(spec, dev)
+    midx32 = torch.as_tensor(spec.model_index, device=dev)
 
     def delta_fn(base, free, f, pid):
         return _k.delta_from_base(
@@ -313,13 +309,14 @@ def _effective_keys(pspec: PolicySpec):
 
 
 def make_select_fn(
-    spec: mig.ClusterSpec, pspec: PolicySpec, metric: str = "blocked", device="cpu"
+    spec: mig.ClusterSpec, pspec: PolicySpec, metric: str = "blocked", device=None
 ):
     """Fused select dispatch ``(base, free, f, pid) -> (gpu, aidx, ok)``
     through the ``select_from_base`` kernel: one launch per event for all
     replicas and every device model.  Requires ``pspec.argmin_fusable``."""
-    tables = spec_tables(spec, device)
-    midx32 = torch.as_tensor(spec.model_index, device=torch.device(device))
+    dev = resolve_device(device)
+    tables = spec_tables(spec, dev)
+    midx32 = torch.as_tensor(spec.model_index, device=dev)
     keys = _effective_keys(pspec)
 
     def select_fn(base, free, f, pid):
@@ -330,6 +327,30 @@ def make_select_fn(
         )
 
     return select_fn
+
+
+def make_migrate_fn(
+    spec: mig.ClusterSpec, pspec: PolicySpec, metric: str = "blocked", device=None
+):
+    """Migrate-search dispatch through the ``migrate_refine`` kernel:
+    ``(base, free, f, base2, free2, f2, rg, rp, kc) -> (g1, ok1, a1, k1, g2,
+    ok2, a2, k2, ap, okp, kp)`` — the per-class best and runner-up
+    untouched rows and the per-victim patched-row refinements that
+    :func:`_migrate_search` consumes.  One launch per event covers every
+    replica, class, victim and device model; no host merge."""
+    dev = resolve_device(device)
+    tables = spec_tables(spec, dev)
+    midx32 = torch.as_tensor(spec.model_index, device=dev)
+    keys = _effective_keys(pspec)
+
+    def migrate_fn(base, free, f, base2, free2, f2, rg, rp, kc):
+        return _k.migrate_refine(
+            base, free, f, base2, free2, f2, rg, rp, kc, midx32, tables.V,
+            tables.maskwin, tables.profile_rows, tables.profile_valid,
+            tables.profile_anchors, tables.profile_mem, keys=keys, metric=metric,
+        )
+
+    return migrate_fn
 
 
 # ---------------------------------------------------------------------------
@@ -409,9 +430,405 @@ def _select(spec, base, free, f, metric, tables, midx, vg, pid, cursor,
     return _lower_select(spec, feasible, free, mem_g, delta, anchors_g, cursor, midx)
 
 
+# ---------------------------------------------------------------------------
+# Row-wise / grid-wise refinement variants (the migrate stage's selections)
+# ---------------------------------------------------------------------------
+
+
+def _key_rows(base_key, free, mem_g, delta, anchors_g, cursor, gidx, kidx, num_gpus):
+    """One scoring key as a ``(..., A)``-broadcastable tensor for *per-row*
+    selection: each row is an independent single-GPU candidate whose GPU
+    index is ``gidx`` and model index ``kidx`` (broadcastable to the rows;
+    the leading axis is the replica's, as in ``cursor (R,)``)."""
+    if base_key == "frag-delta":
+        return delta
+    if base_key == "free-slices":
+        return (free.to(torch.float32) - mem_g)[..., None]
+    if base_key == "gpu":
+        return gidx.to(torch.float32)[..., None]
+    if base_key == "anchor":
+        return anchors_g.to(torch.float32)
+    if base_key == "rr-distance":
+        cur = cursor.view((-1,) + (1,) * (gidx.dim() - 1))
+        prio = torch.remainder(gidx.to(torch.int32) - cur, num_gpus)
+        return prio.to(torch.float32)[..., None]
+    if base_key == "model-group":
+        return kidx.to(torch.float32)[..., None]
+    if base_key in REQUEST_KEYS:
+        # request-scoped keys are constant over one request's candidates
+        return torch.zeros((1,), dtype=torch.float32, device=gidx.device)
+    raise ValueError(f"unknown scoring key {base_key!r}")  # unreachable
+
+
+def _refine_rows(spec, feasible, free, mem_g, delta, anchors_g, cursor, gidx,
+                 kidx, num_gpus, return_keys=False):
+    """Per-row spec selection: one independent argmin along the anchor axis
+    of every row of ``feasible (..., A)``.  Returns ``(aidx, ok)``; with
+    ``return_keys`` also the winner's signed key values ``(..., L)``, taken
+    unmasked at the first surviving column (column 0 for an all-infeasible
+    row) — the row's representative in a cross-row comparison by
+    ``(keys…, gpu)``, which the factored migrate search relies on."""
+    vals = []
+    for key in spec.keys:
+        val = _key_rows(key_base(key), free, mem_g, delta, anchors_g, cursor,
+                        gidx, kidx, num_gpus)
+        vals.append(-val if key.startswith("-") else val)
+    aidx, ok, keys = refine_rows(feasible, vals)
+    return (aidx, ok, keys) if return_keys else (aidx, ok)
+
+
+def _key_grid(base_key, free, mem_g, delta, anchors_g, cursor, midx):
+    """One scoring key as a ``(..., M, A)``-broadcastable tensor for batched
+    whole-cluster selection (one independent (gpu, anchor) argmin per
+    leading row): ``free/mem_g (..., M)``, ``delta/anchors_g (..., M, A)``."""
+    m = free.shape[-1]
+    dev = free.device
+    if base_key == "frag-delta":
+        return delta
+    if base_key == "free-slices":
+        return (free.to(torch.float32) - mem_g)[..., None]
+    if base_key == "gpu":
+        return torch.arange(m, dtype=torch.float32, device=dev)[:, None]
+    if base_key == "anchor":
+        return anchors_g.to(torch.float32)
+    if base_key == "rr-distance":  # pragma: no cover — defrag+rr is rejected
+        cur = cursor.view((-1,) + (1,) * (free.dim() - 1))
+        prio = torch.remainder(torch.arange(m, dtype=torch.int32, device=dev) - cur, m)
+        return prio.to(torch.float32)[..., None]
+    if base_key == "model-group":
+        return midx.to(torch.float32)[:, None]
+    if base_key in REQUEST_KEYS:
+        return torch.zeros((1,), dtype=torch.float32, device=dev)
+    raise ValueError(f"unknown scoring key {base_key!r}")  # unreachable
+
+
+def _refine_grid(spec, feasible, free, mem_g, delta, anchors_g, cursor, midx):
+    """Batched whole-cluster spec selection: an independent ``(gpu, anchor)``
+    argmin over the trailing ``(M, A)`` axes of every leading row of
+    ``feasible (..., M, A)``.  Returns ``(gpu, aidx, ok)``, each ``(...)``."""
+    mask = feasible
+    for key in spec.keys:
+        val = _key_grid(key_base(key), free, mem_g, delta, anchors_g, cursor, midx)
+        if key.startswith("-"):
+            val = -val
+        masked = torch.where(mask, val, BIG)
+        mask = mask & (masked == masked.amin(dim=(-2, -1), keepdim=True))
+    a = feasible.shape[-1]
+    flat = mask.flatten(-2)
+    k = first_true(flat)
+    return k // a, k % a, flat.any(dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Migrate stage: the batched single-migration defrag search
+# ---------------------------------------------------------------------------
+
+
+class MigrationResult(NamedTuple):
+    """Chosen migration of one event per replica (entries masked by ``mig``);
+    every field has a leading ``R`` axis."""
+
+    mig: torch.Tensor         # (R,) bool — a migration was committed
+    gpu: torch.Tensor         # (R,) int32 — request GPU (= victim's old GPU)
+    aidx: torch.Tensor        # (R,) int32 — request anchor index
+    vic_row: torch.Tensor     # (R,) int32 — victim's ring row
+    vic_col: torch.Tensor     # (R,) int32 — victim's ring column
+    vic_gpu: torch.Tensor     # (R,) int32 — victim's old GPU
+    vic_anchor: torch.Tensor  # (R,) int32 — victim's old anchor value
+    vic_pid: torch.Tensor     # (R,) int32 — victim's demand class
+    new_gpu: torch.Tensor     # (R,) int32 — victim's new GPU
+    new_aidx: torch.Tensor    # (R,) int32 — victim's new anchor index
+    new_anchor: torch.Tensor  # (R,) int32 — victim's new anchor value
+    old_mask: torch.Tensor    # (R, S) int32 — victim's old window bitmask
+    old_mwin: torch.Tensor    # (R, N) float32 — window counts the old mask held
+    new_mask: torch.Tensor    # (R, S) int32 — victim's new window bitmask
+    new_mwin: torch.Tensor    # (R, N) float32 — window counts the new mask adds
+
+
+def _at(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``t (R, C, ...)`` at each replica's columns ``idx (R,)`` or ``(R, X)``."""
+    r = torch.arange(t.shape[0], device=t.device).view((-1,) + (1,) * (idx.dim() - 1))
+    return t[r, idx]
+
+
+def _victims(spec, metric, tables, midx, vg, base, free, rg, rm, rp, ra, pid_c, cursor):
+    """The front half of both searches, per ring entry ``(R, C)``: evacuate
+    the victim from its GPU, re-select the request on the freed GPU and
+    place it there."""
+    num_gpus = midx.shape[0]
+    rgl, rpl, ral = rg.long(), rp.long(), ra.long()
+    kc = midx[rgl]                                     # (R, C) victim model index
+    vgc = vg[rgl]                                      # (R, C, N) window sizes
+
+    # -- evacuate the victim from its own GPU -------------------------------
+    mwin_vic = tables.maskwin[kc, rpl, ral]            # (R, C, N)
+    base_v = _at(base, rgl) - mwin_vic
+    free_v = _at(free, rgl) + rm.sum(dim=-1, dtype=torch.int32)
+    f_v = _frag_from_base(base_v, free_v, metric, vgc)
+
+    # -- re-select the request on the freed GPU -----------------------------
+    pc = pid_c.long()[:, None]
+    mem_req = tables.profile_mem[kc, pc]               # (R, C)
+    feas_req = ((torch.gather(base_v, 2, tables.profile_rows[kc, pc].long()) == 0)
+                & tables.profile_valid[kc, pc])        # (R, C, A)
+    delta_req = None
+    if spec.requires_delta_f:
+        delta_req = _delta_from_base(
+            base_v, free_v, metric, vgc, tables.maskwin[kc, pc], tables.maskpos[kc, pc],
+            mem_req, f_v,
+        )
+    aidx_req, ok_req = _refine_rows(
+        spec, feas_req, free_v, mem_req, delta_req, tables.profile_anchors[kc, pc],
+        cursor, rg, kc, num_gpus,
+    )
+
+    # -- place the request on the freed GPU ---------------------------------
+    al = aidx_req.long()
+    base2 = base_v + tables.maskwin[kc, pc, al]        # (R, C, N)
+    free2 = free_v - tables.profile_masks[kc, pc, al].sum(dim=-1, dtype=torch.int32)
+    f2 = _frag_from_base(base2, free2, metric, vgc)
+    return dict(kc=kc, vgc=vgc, mwin_vic=mwin_vic, aidx_req=aidx_req, ok_req=ok_req,
+                base2=base2, free2=free2, f2=f2)
+
+
+def _choose(tables, midx, vg, metric, base, free, f, v, rg, rm, rp, ra, present, want,
+            new_gpu, new_aidx, ok_vic, slot, cols) -> MigrationResult:
+    """Score every candidate by the total cluster F after both moves and
+    pick the canonical lex-min ``(total F, victim gpu, victim anchor)`` of
+    each replica; ``slot (R, C)`` is each candidate's flat ring slot."""
+    rgl, rpl = rg.long(), rp.long()
+    ng, na = new_gpu.long(), new_aidx.long()
+    kv = midx[ng]                                                # (R, C)
+    mask_new = tables.profile_masks[kv, rpl, na]                 # (R, C, S)
+    mwin_new = tables.maskwin[kv, rpl, na]                       # (R, C, N)
+    same = ng == rgl
+    base_gv = torch.where(same[..., None], v["base2"], _at(base, ng))
+    free_gv = torch.where(same, v["free2"], _at(free, ng))
+    vgn = vg[ng]
+    f_gv_before = _frag_from_base(base_gv, free_gv, metric, vgn)
+    f_gv_after = _frag_from_base(
+        base_gv + mwin_new, free_gv - mask_new.sum(dim=-1, dtype=torch.int32), metric, vgn
+    )
+    total = f.sum(dim=1, keepdim=True) - _at(f, rgl) + v["f2"] + f_gv_after - f_gv_before
+
+    vic_anchor = tables.profile_anchors[v["kc"], rpl, ra.long()]  # (R, C)
+    cmask = present & v["ok_req"] & ok_vic & want[:, None]
+    for val in (total, rg.to(torch.float32), vic_anchor.to(torch.float32)):
+        masked = torch.where(cmask, val, BIG)
+        cmask = cmask & (masked == masked.amin(dim=1, keepdim=True))
+    j = first_true(cmask)                                        # (R,)
+    orig = _at(slot, j)                                          # winner's ring slot
+    i32 = torch.int32
+    return MigrationResult(
+        mig=_at(cmask, j),
+        gpu=_at(rg, j).to(i32),
+        aidx=_at(v["aidx_req"], j).to(i32),
+        vic_row=(orig // cols).to(i32),
+        vic_col=(orig % cols).to(i32),
+        vic_gpu=_at(rg, j).to(i32),
+        vic_anchor=_at(vic_anchor, j).to(i32),
+        vic_pid=_at(rp, j).to(i32),
+        new_gpu=_at(ng, j).to(i32),
+        new_aidx=_at(na, j).to(i32),
+        new_anchor=tables.profile_anchors[_at(kv, j), _at(rpl, j), _at(na, j)].to(i32),
+        old_mask=_at(rm, j),
+        old_mwin=_at(v["mwin_vic"], j),
+        new_mask=_at(mask_new, j),
+        new_mwin=_at(mwin_new, j),
+    )
+
+
+def _class_tables(tables, midx):
+    """Whole-cluster tables of every demand class: ``rows``, ``valid``,
+    ``anchors (P, M, A)`` and ``mem (P, M)``."""
+    return (tables.profile_rows[midx].transpose(0, 1),
+            tables.profile_valid[midx].transpose(0, 1),
+            tables.profile_anchors[midx].transpose(0, 1),
+            tables.profile_mem[midx].transpose(0, 1))
+
+
+def _feasible_all(base, rows_all, valid_all):
+    """``(R, P, M, A)`` feasibility of every class on the untouched cluster."""
+    r, m, n = base.shape
+    p, _, a = rows_all.shape
+    rows = rows_all.long()[None].expand(r, p, m, a)
+    return (torch.gather(base[:, None].expand(r, p, m, n), 3, rows) == 0) & valid_all
+
+
+def _delta_all(tables, midx, vg, metric, base, free, f, mem_all):
+    """ΔF of every demand class on the untouched cluster, ``(R, P, M, A)``:
+    the class tables ``(P, M, …)`` broadcast against the replica state
+    ``(R, 1, M, …)``."""
+    return _delta_from_base(
+        base[:, None], free[:, None], metric, vg, tables.maskwin[midx].transpose(0, 1),
+        tables.maskpos[midx].transpose(0, 1), mem_all, f[:, None],
+    )
+
+
+def _delta_patch(tables, metric, v, rp):
+    """ΔF of each victim's class on its patched row, ``(R, C, A)``."""
+    kc, rpl = v["kc"], rp.long()
+    return _delta_from_base(
+        v["base2"], v["free2"], metric, v["vgc"], tables.maskwin[kc, rpl],
+        tables.maskpos[kc, rpl], tables.profile_mem[kc, rpl], v["f2"],
+    )
+
+
+def _feasible_patch(tables, v, rp):
+    """``(R, C, A)`` feasibility of each victim's class on its patched row."""
+    kc, rpl = v["kc"], rp.long()
+    return ((torch.gather(v["base2"], 2, tables.profile_rows[kc, rpl].long()) == 0)
+            & tables.profile_valid[kc, rpl])
+
+
+def _ring_entries(ring_gpu, ring_mask, ring_pid, ring_aidx):
+    """Flatten the ring planes to ``(R, C)`` entries plus the live flags."""
+    r, rows, cols = ring_gpu.shape
+    c = rows * cols
+    rm = ring_mask.reshape(r, c, ring_mask.shape[-1])
+    return (ring_gpu.reshape(r, c), rm, ring_pid.reshape(r, c),
+            ring_aidx.reshape(r, c), rm.sum(dim=-1) > 0)
+
+
+def _migrate_search_dense(spec, metric, tables, midx, vg, base, free, f, ring_gpu,
+                          ring_mask, ring_pid, ring_aidx, pid_c, cursor, want
+                          ) -> MigrationResult:
+    """Dense form of the single-migration search: the full victim × cluster
+    ``(R, C, M, A)`` re-placement grid over every ring slot, dead ones
+    included, lex-refined per victim.  The oracle :func:`_migrate_search`
+    is held to in the tests; the engine never runs it."""
+    r, _, cols = ring_gpu.shape
+    rg, rm, rp, ra, present = _ring_entries(ring_gpu, ring_mask, ring_pid, ring_aidx)
+    v = _victims(spec, metric, tables, midx, vg, base, free, rg, rm, rp, ra, pid_c, cursor)
+    rpl = rp.long()
+
+    rows_all, valid_all, anchors_all, mem_all = _class_tables(tables, midx)
+    onehot = (torch.arange(midx.shape[0], device=base.device)
+              == rg.long()[..., None])                                   # (R, C, M)
+    feas_grid = torch.where(onehot[..., None], _feasible_patch(tables, v, rp)[:, :, None],
+                            _at(_feasible_all(base, rows_all, valid_all), rpl))
+    free_grid = torch.where(onehot, v["free2"][..., None], free[:, None, :])
+    delta_grid = None
+    if spec.requires_delta_f:
+        delta_grid = torch.where(
+            onehot[..., None], _delta_patch(tables, metric, v, rp)[:, :, None],
+            _at(_delta_all(tables, midx, vg, metric, base, free, f, mem_all), rpl),
+        )
+    new_gpu, new_aidx, ok_vic = _refine_grid(
+        spec, feas_grid, free_grid, mem_all[rpl], delta_grid, anchors_all[rpl], cursor, midx
+    )
+    slot = torch.arange(rg.shape[1], device=base.device).expand(r, -1)
+    return _choose(tables, midx, vg, metric, base, free, f, v, rg, rm, rp, ra, present,
+                   want, new_gpu, new_aidx, ok_vic, slot, cols)
+
+
+def _migrate_search(spec, metric, tables, midx, vg, base, free, f, ring_gpu, ring_mask,
+                    ring_pid, ring_aidx, pid_c, cursor, want, delta_fn=None,
+                    migrate_fn=None) -> MigrationResult:
+    """Factored masked single-migration search over live ring entries.
+
+    For every candidate victim (a running workload): evacuate it, re-select
+    the request on the victim's GPU (the only GPU where feasibility can
+    have appeared — the arrival was just rejected everywhere), re-place the
+    victim anywhere through the spec's keys, and score the candidate by the
+    total cluster fragmentation after both moves.  The winner minimizes
+    ``(total F, victim gpu, victim anchor)``; ``want (R,)`` gates the stage.
+
+    Evacuating a victim perturbs exactly one GPU row, so the re-placement
+    candidates split into the victim's *patched* row and ``M - 1``
+    *untouched* rows shared by every victim of the same demand class: once
+    per event a per-class ``(P, M, A)`` row refinement keeps the best and
+    runner-up row of each class (the runner-up serves victims whose own GPU
+    is the best row), and per victim only the patched row is refined.  With
+    ``migrate_fn`` both refinements run in one ``migrate_refine`` launch;
+    without it in plain torch, where ``delta_fn`` (if given) builds the
+    per-class ΔF tables, one launch per class.
+
+    Dead ring slots are compacted away first: every running workload holds
+    at least one slice, so at most ``C_live = min(C, M·S)`` entries are
+    live, and a stable sort of the dead flags keeps them first, in ring
+    order.
+    """
+    r, _, cols = ring_gpu.shape
+    num_gpus = midx.shape[0]
+    rg, rm, rp, ra, present = _ring_entries(ring_gpu, ring_mask, ring_pid, ring_aidx)
+    c_total, s = rm.shape[1], rm.shape[2]
+
+    # -- live-candidate compaction: dead ring slots cost nothing ------------
+    c_live = min(c_total, num_gpus * s)
+    if c_live < c_total:
+        live = torch.argsort((~present).to(torch.int8), dim=1, stable=True)[:, :c_live]
+        rg, rp, ra, present = (torch.gather(t, 1, live) for t in (rg, rp, ra, present))
+        rm = torch.gather(rm, 1, live[..., None].expand(r, c_live, s))
+    else:
+        live = torch.arange(c_total, device=base.device).expand(r, -1)
+    v = _victims(spec, metric, tables, midx, vg, base, free, rg, rm, rp, ra, pid_c, cursor)
+    rgl, rpl, kc = rg.long(), rp.long(), v["kc"]
+
+    if migrate_fn is not None:
+        g1, ok1, aw1, kw1, g2, ok2, aw2, kw2, ap, okp, kp = migrate_fn(
+            base, free, f, v["base2"], v["free2"], v["f2"], rg.contiguous(),
+            rp.contiguous(), kc.to(torch.int32),
+        )
+    else:
+        # -- per-class row winners on the untouched cluster (once per event)
+        p_ = mig.NUM_PROFILES
+        rows_all, valid_all, anchors_all, mem_all = _class_tables(tables, midx)
+        delta_all = None
+        if spec.requires_delta_f:
+            if delta_fn is not None:
+                delta_all = torch.stack([
+                    delta_fn(base, free, f,
+                             torch.full((r,), p, dtype=torch.int32, device=base.device))
+                    for p in range(p_)
+                ], dim=1)
+            else:
+                delta_all = _delta_all(tables, midx, vg, metric, base, free, f, mem_all)
+        aw, okw, kw = _refine_rows(
+            spec, _feasible_all(base, rows_all, valid_all), free[:, None], mem_all,
+            delta_all, anchors_all, cursor,
+            torch.arange(num_gpus, device=base.device)[None, None], midx[None, None],
+            num_gpus, return_keys=True,
+        )                                                         # (R, P, M[, L])
+        g1, ok1, g2, ok2 = lex_top2(kw, okw)                      # (R, P)
+        aw1, aw2 = (torch.gather(aw, 2, g[..., None])[..., 0] for g in (g1, g2))
+        kw1, kw2 = (torch.gather(kw, 2, g[..., None, None].expand(-1, -1, 1, kw.shape[-1]))
+                    [:, :, 0] for g in (g1, g2))
+
+        # -- per victim: refine its patched row -----------------------------
+        ap, okp, kp = _refine_rows(
+            spec, _feasible_patch(tables, v, rp), v["free2"], tables.profile_mem[kc, rpl],
+            _delta_patch(tables, metric, v, rp) if spec.requires_delta_f else None,
+            tables.profile_anchors[kc, rpl], cursor, rg, kc, num_gpus, return_keys=True,
+        )
+
+    # -- per victim: best untouched row (excluding its own GPU) -------------
+    def at_class(t):  # (R, P, ...) -> (R, C, ...) at each victim's class
+        idx = rpl.view(rpl.shape + (1,) * (t.dim() - 2)).expand(rpl.shape + t.shape[2:])
+        return torch.gather(t, 1, idx)
+
+    use2 = at_class(g1) == rgl                    # own GPU was the best row
+    gu = torch.where(use2, at_class(g2), at_class(g1)).long()
+    oku = torch.where(use2, at_class(ok2), at_class(ok1))
+    au = torch.where(use2, at_class(aw2), at_class(aw1)).long()
+    ku = torch.where(use2[..., None], at_class(kw2), at_class(kw1))
+
+    # -- lex-merge the two row winners: (keys…, gpu) ------------------------
+    ku_e = torch.where(oku[..., None], ku, BIG)
+    kp_e = torch.where(okp[..., None], kp, BIG)
+    lt = torch.zeros_like(oku)
+    eq = torch.ones_like(oku)
+    for i in range(ku.shape[-1]):
+        lt = lt | (eq & (ku_e[..., i] < kp_e[..., i]))
+        eq = eq & (ku_e[..., i] == kp_e[..., i])
+    pick_u = oku & (lt | (eq & (gu < rgl)))
+    return _choose(tables, midx, vg, metric, base, free, f, v, rg, rm, rp, ra, present,
+                   want, torch.where(pick_u, gu, rgl), torch.where(pick_u, au, ap.long()),
+                   oku | okp, live, cols)
+
+
 class PolicyDecision(NamedTuple):
-    """One placement decision (``-1`` where n/a; migrations are not ported
-    yet, so ``mig`` is always False)."""
+    """One placement decision, migration included (``-1`` where n/a)."""
 
     gpu: torch.Tensor
     anchor: torch.Tensor
@@ -423,12 +840,24 @@ class PolicyDecision(NamedTuple):
     new_anchor: torch.Tensor
 
 
-def _no_defrag(pspec: PolicySpec) -> None:
-    if pspec.defrag:
-        raise NotImplementedError(
-            f"policy {pspec.name!r}: defrag specs are not ported to "
-            "repro_torch yet (ROADMAP.md §1 item 5, mfi-defrag)"
-        )
+def _workload_ring(spec: mig.ClusterSpec, workloads, s: int, device):
+    """One replica's one-row ring holding ``workloads`` — ``(gpu, profile
+    id, anchor)`` triples — as ``(ring_gpu, ring_mask, ring_pid,
+    ring_aidx)`` of shapes ``(1, 1, C)`` and ``(1, 1, C, S)``."""
+    wl = list(workloads) if workloads else []
+    cols = max(1, len(wl))
+    ring_gpu = np.zeros((1, 1, cols), np.int32)
+    ring_mask = np.zeros((1, 1, cols, s), np.int32)
+    ring_pid = np.zeros((1, 1, cols), np.int32)
+    ring_aidx = np.zeros((1, 1, cols), np.int32)
+    for i, (g, p, anchor) in enumerate(wl):
+        prof = spec.model_of(int(g)).profiles[int(p)]
+        ring_gpu[0, 0, i] = g
+        ring_mask[0, 0, i, anchor:anchor + prof.mem] = 1
+        ring_pid[0, 0, i] = p
+        ring_aidx[0, 0, i] = prof.anchors.index(int(anchor))
+    return tuple(torch.as_tensor(a, device=device)
+                 for a in (ring_gpu, ring_mask, ring_pid, ring_aidx))
 
 
 def policy_select_full(
@@ -438,35 +867,48 @@ def policy_select_full(
     metric: str = "blocked",
     spec: Optional[mig.ClusterSpec] = None,
     cursor: int = 0,
+    workloads: Optional[Sequence[Tuple[int, int, int]]] = None,
     device=None,
 ) -> PolicyDecision:
     """One placement decision on a raw occupancy ``(M, S)``, lowered
-    exactly like the engine step (through the derived ``base``/``free``)."""
+    exactly like the engine step (through the derived ``base``/``free``),
+    defrag search included.
+
+    ``workloads`` lists the running workloads as ``(gpu, profile_id,
+    anchor)`` triples — the victims a defrag spec's migration search
+    considers; it is ignored for other specs, and a defrag spec with no
+    workloads has no migration candidates.
+    """
     dev = resolve_device(device)
     pspec = resolve(policy, engine="batched")
-    _no_defrag(pspec)
     occ = torch.as_tensor(np.asarray(occ), dtype=torch.int32, device=dev)
     spec = spec if spec is not None else _default_spec(int(occ.shape[0]))
     tables = spec_tables(spec, dev)
     midx = torch.as_tensor(spec.model_index, device=dev).long()
-    base = torch.einsum("ms,mns->mn", occ.to(torch.float32), tables.W[midx])
-    free = tables.slices[midx] - occ.sum(dim=1, dtype=torch.int32)
+    base = torch.einsum("ms,mns->mn", occ.to(torch.float32), tables.W[midx])[None]
+    free = (tables.slices[midx] - occ.sum(dim=1, dtype=torch.int32))[None]
     vg = tables.V[midx]
     f = _frag_from_base(base, free, metric, vg)
     pid = torch.full((1,), int(profile_id), dtype=torch.int32, device=dev)
     cur = torch.full((1,), int(cursor), dtype=torch.int32, device=dev)
-    gpu, aidx, ok = _select(
-        pspec, base[None], free[None], f[None], metric, tables, midx, vg, pid, cur
-    )
-    gpu, aidx, ok = gpu[0].long(), aidx[0].long(), ok[0]
-    anchor = torch.where(ok, tables.profile_anchors[midx[gpu], pid[0].long(), aidx], -1)
-    neg1 = torch.tensor(-1, dtype=torch.int32, device=dev)
+    gpu, aidx, ok = _select(pspec, base, free, f, metric, tables, midx, vg, pid, cur)
+    neg1 = torch.full((1,), -1, dtype=torch.int32, device=dev)
+    mig_out = (torch.zeros((1,), dtype=torch.bool, device=dev), neg1, neg1, neg1, neg1)
+    if pspec.defrag:
+        ring = _workload_ring(spec, workloads, int(tables.W.shape[2]), dev)
+        res = _migrate_search(pspec, metric, tables, midx, vg, base, free, f, *ring,
+                              pid, cur, want=~ok)
+        gpu = torch.where(res.mig, res.gpu.long(), gpu)
+        aidx = torch.where(res.mig, res.aidx.long(), aidx)
+        ok = ok | res.mig
+        mig_out = (res.mig,) + tuple(
+            torch.where(res.mig, x, neg1)
+            for x in (res.vic_gpu, res.vic_anchor, res.new_gpu, res.new_anchor)
+        )
+    anchor = torch.where(ok, tables.profile_anchors[midx[gpu], pid.long(), aidx], -1)
     return PolicyDecision(
-        gpu=torch.where(ok, gpu, -1).to(torch.int32),
-        anchor=anchor.to(torch.int32),
-        ok=ok,
-        mig=torch.tensor(False, device=dev),
-        vic_gpu=neg1, vic_anchor=neg1, new_gpu=neg1, new_anchor=neg1,
+        torch.where(ok, gpu, -1)[0].to(torch.int32), anchor[0].to(torch.int32), ok[0],
+        *(x[0] for x in mig_out),
     )
 
 
@@ -477,12 +919,14 @@ def policy_select(
     metric: str = "blocked",
     spec: Optional[mig.ClusterSpec] = None,
     cursor: int = 0,
+    workloads: Optional[Sequence[Tuple[int, int, int]]] = None,
     device=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One placement decision on a raw occupancy: ``(gpu, anchor, accepted)``."""
+    """One placement decision on a raw occupancy: ``(gpu, anchor, accepted)``
+    (``workloads`` as in :func:`policy_select_full`)."""
     d = policy_select_full(
         occ, profile_id, policy, metric=metric, spec=spec, cursor=cursor,
-        device=device,
+        workloads=workloads, device=device,
     )
     return d.gpu, d.anchor, d.ok
 
@@ -503,6 +947,8 @@ class ReplicaState(NamedTuple):
     rr: torch.Tensor         # (R,) int32 — RoundRobin cursor
     ring_gpu: torch.Tensor   # (R, K+2, E) int32 — expiry ring, keyed end_slot % K
     ring_mask: torch.Tensor  # (R, K+2, E, S) int32
+    ring_pid: Optional[torch.Tensor] = None   # (R, K+2, E) int32 — defrag specs only
+    ring_aidx: Optional[torch.Tensor] = None  # (R, K+2, E) int32 — defrag specs only
 
 
 class EventStream(NamedTuple):
@@ -526,7 +972,9 @@ class EventMeta(NamedTuple):
 
 class EventTrace(NamedTuple):
     """Per-event outputs, each ``(E_max, R)`` (torch on the device while
-    the engine runs, numpy after :func:`trace_to_numpy`)."""
+    the engine runs, numpy after :func:`trace_to_numpy`).  The ``mig*``
+    fields exist for defrag specs only and are ``None`` otherwise, as in
+    the reference."""
 
     ok: object        # bool — arrival accepted
     gpu: object       # int32 — chosen GPU (0 when not accepted)
@@ -534,14 +982,23 @@ class EventTrace(NamedTuple):
     free_sum: object  # int32 — Σ free slices at slot boundary (pre-drain)
     active: object    # int32 — active-GPU count at slot boundary (pre-drain)
     frag: object      # float32 — cluster-mean F at slot boundary (pre-drain)
+    mig: object = None              # bool — a migration was committed
+    mig_from_gpu: object = None     # int32 — victim's old GPU (-1 when no mig)
+    mig_from_anchor: object = None  # int32 — victim's old anchor value
+    mig_to_gpu: object = None       # int32 — victim's new GPU
+    mig_to_anchor: object = None    # int32 — victim's new anchor value
 
 
-_TRACE_DTYPES = (torch.bool, torch.int32, torch.int32, torch.int32, torch.int32,
-                 torch.float32)
+_TRACE_DTYPES = dict(
+    ok=torch.bool, gpu=torch.int32, aidx=torch.int32, free_sum=torch.int32,
+    active=torch.int32, frag=torch.float32, mig=torch.bool, mig_from_gpu=torch.int32,
+    mig_from_anchor=torch.int32, mig_to_gpu=torch.int32, mig_to_anchor=torch.int32,
+)
 
 
 def _init_state(tables: SpecTables, midx: torch.Tensor, runs: int,
-                ring_rows: int, ring_cols: int, track_occ: bool) -> ReplicaState:
+                ring_rows: int, ring_cols: int, track_occ: bool,
+                track_alloc: bool) -> ReplicaState:
     dev = tables.W.device
     num_gpus = midx.shape[0]
     n, s = tables.W.shape[1], tables.W.shape[2]
@@ -554,6 +1011,8 @@ def _init_state(tables: SpecTables, midx: torch.Tensor, runs: int,
         rr=torch.zeros((runs,), **i32),
         ring_gpu=torch.zeros((runs, ring_rows, ring_cols), **i32),
         ring_mask=torch.zeros((runs, ring_rows, ring_cols, s), **i32),
+        ring_pid=torch.zeros((runs, ring_rows, ring_cols), **i32) if track_alloc else None,
+        ring_aidx=torch.zeros((runs, ring_rows, ring_cols), **i32) if track_alloc else None,
     )
 
 
@@ -571,11 +1030,12 @@ def _occ_from_ring(st: ReplicaState, num_gpus: int) -> torch.Tensor:
 def state_from_numpy(d: Mapping[str, np.ndarray], device) -> ReplicaState:
     """A :class:`ReplicaState` from numpy arrays keyed by field name — e.g.
     the reference's vmapped ``ReplicaState`` after ``jax.device_get`` (its
-    extra fields, ``None`` in the steady non-defrag protocol, are ignored).
-    A missing ``occ`` is rebuilt from the expiry ring."""
+    fields of other protocols are ignored; ``ring_pid``/``ring_aidx`` are
+    carried where present, as for defrag specs).  A missing ``occ`` is
+    rebuilt from the expiry ring."""
     dev = torch.device(device)
     fields = {
-        name: torch.from_numpy(np.array(d[name])).to(dev)
+        name: None if d.get(name) is None else torch.from_numpy(np.array(d[name])).to(dev)
         for name in ReplicaState._fields
         if name != "occ"
     }
@@ -605,8 +1065,9 @@ class EngineCore:
 
     Stage order within one event is the simulators' semantic order:
     *measure* the just-finished slot, *expire* this slot's ring row,
-    *select*, *commit*.  ``frag_fn``/``delta_fn``/``select_fn`` route the
-    stages through the CUDA kernels when set.
+    *select*, *migrate* (defrag specs, on reject), *commit*.
+    ``frag_fn``/``delta_fn``/``select_fn``/``migrate_fn`` route the stages
+    through the CUDA kernels when set.
     """
 
     spec: PolicySpec
@@ -618,6 +1079,7 @@ class EngineCore:
     frag_fn: Optional[object] = None
     delta_fn: Optional[object] = None
     select_fn: Optional[object] = None
+    migrate_fn: Optional[object] = None
 
     def __post_init__(self):
         dev = self.tables.W.device
@@ -674,9 +1136,38 @@ class EngineCore:
         )
         return gpu, aidx, ok & valid
 
-    def _stage_commit(self, st: ReplicaState, pid_c, gpu, aidx, ok, exp_row, exp_col) -> None:
+    def _stage_migrate(self, st: ReplicaState, pid_c, valid, gpu, aidx, ok):
+        """Defrag search on reject; applies the victim's move in place.  Its
+        old and new GPU may be the same, so the two updates run in turn."""
+        res = _migrate_search(
+            self.spec, self.metric, self.tables, self.midx, self.vg,
+            st.base, st.free, st.f, st.ring_gpu, st.ring_mask, st.ring_pid,
+            st.ring_aidx, pid_c, st.rr, want=valid & ~ok, delta_fn=self.delta_fn,
+            migrate_fn=self.migrate_fn,
+        )
+        mi = res.mig.to(torch.int32)
+        old = (self.ridx, res.vic_gpu.long())
+        new = (self.ridx, res.new_gpu.long())
+        st.base[old] -= res.old_mwin * res.mig.to(torch.float32)[:, None]
+        st.base[new] += res.new_mwin * res.mig.to(torch.float32)[:, None]
+        st.free[old] += res.old_mask.sum(dim=-1, dtype=torch.int32) * mi
+        st.free[new] -= res.new_mask.sum(dim=-1, dtype=torch.int32) * mi
+        if st.occ is not None:
+            st.occ[old] -= res.old_mask * mi[:, None]
+            st.occ[new] += res.new_mask * mi[:, None]
+        rc = (self.ridx, res.vic_row.long(), res.vic_col.long())
+        st.ring_mask[rc] += (res.new_mask - res.old_mask) * mi[:, None]
+        st.ring_gpu[rc] = torch.where(res.mig, res.new_gpu, st.ring_gpu[rc])
+        st.ring_aidx[rc] = torch.where(res.mig, res.new_aidx, st.ring_aidx[rc])
+        gpu = torch.where(res.mig, res.gpu.long(), gpu)
+        aidx = torch.where(res.mig, res.aidx.long(), aidx)
+        return gpu, aidx, ok | res.mig, res
+
+    def _stage_commit(self, st: ReplicaState, pid_c, gpu, aidx, ok, exp_row, exp_col,
+                      mig_res: Optional[MigrationResult] = None) -> None:
         """Commit the accepted placement: occupancy/window/free updates, the
-        rescore of the touched row, the cursor and the expiry-ring insert."""
+        rescore of the touched row (and of a migrated victim's landing GPU),
+        the cursor and the expiry-ring insert."""
         t = self.tables
         oki = ok.to(torch.int32)
         gpu_c = torch.where(ok, gpu.long(), 0)
@@ -690,12 +1181,18 @@ class EngineCore:
         st.base[idx] += mwin
         st.free[idx] -= mask.sum(dim=-1, dtype=torch.int32)
         st.f[idx] = self._rescore(st, idx)
+        if mig_res is not None:  # the victim's old GPU is gpu_c
+            land = (self.ridx, torch.where(mig_res.mig, mig_res.new_gpu.long(), gpu_c))
+            st.f[land] = self._rescore(st, land)
         if self.spec.stateful_cursor:  # advance the cursor past the chosen GPU
             nxt = ((gpu_c + 1) % self.midx.shape[0]).to(torch.int32)
             st.rr.copy_(torch.where(ok, nxt, st.rr))
         ring = (self.ridx, exp_row.long(), exp_col.long())
         st.ring_gpu[ring] = torch.where(ok, gpu_c.to(torch.int32), st.ring_gpu[ring])
         st.ring_mask[ring] += mask
+        if st.ring_pid is not None:
+            st.ring_pid[ring] = torch.where(ok, pid_c, st.ring_pid[ring])
+            st.ring_aidx[ring] = torch.where(ok, aidx.to(torch.int32), st.ring_aidx[ring])
 
     def step(self, st: ReplicaState, x) -> EventTrace:
         """One event for every replica; returns this event's trace row."""
@@ -705,8 +1202,11 @@ class EngineCore:
         valid = pid >= 0
         pid_c = pid.clamp(min=0)
         gpu, aidx, ok = self._stage_select(st, pid_c, valid)
-        self._stage_commit(st, pid_c, gpu, aidx, ok, exp_row, exp_col)
-        return EventTrace(
+        mig_res = None
+        if self.spec.defrag:
+            gpu, aidx, ok, mig_res = self._stage_migrate(st, pid_c, valid, gpu, aidx, ok)
+        self._stage_commit(st, pid_c, gpu, aidx, ok, exp_row, exp_col, mig_res)
+        row = EventTrace(
             ok=ok,
             gpu=torch.where(ok, gpu.long(), 0).to(torch.int32),
             aidx=aidx.to(torch.int32),
@@ -714,6 +1214,14 @@ class EngineCore:
             active=active,
             frag=frag,
         )
+        if mig_res is None:
+            return row
+        m = mig_res.mig
+        return row._replace(mig=m, **{
+            name: torch.where(m, val, -1) for name, val in (
+                ("mig_from_gpu", mig_res.vic_gpu), ("mig_from_anchor", mig_res.vic_anchor),
+                ("mig_to_gpu", mig_res.new_gpu), ("mig_to_anchor", mig_res.new_anchor))
+        })
 
 
 def _build_core(
@@ -734,17 +1242,19 @@ def _build_core(
     Kernel dispatch under ``use_kernel``: the occupancy-based ``fragscore``
     rescore needs one placement table, so it runs on homogeneous fleets
     only; specs whose keys consume ΔF get the ``delta_from_base`` kernel;
-    argmin-fusable specs run the whole select stage in ``select_from_base``.
+    argmin-fusable specs run the whole select stage in ``select_from_base``
+    and, for defrag specs, both refinements of the migrate search in
+    ``migrate_refine`` (a delta-only defrag spec keeps ``delta_from_base``
+    and the plain migrate search).
     """
     dev = torch.device(device)
     pspec = resolve(policy, engine="batched")
     proto = resolve_protocol(protocol)
-    _no_defrag(pspec)
     if tables is None:  # homogeneous A100-80GB default
         cspec = _default_spec(num_gpus)
         tables = spec_tables(cspec, dev)
         midx = torch.as_tensor(cspec.model_index, device=dev)
-    frag_fn = delta_fn = select_fn = None
+    frag_fn = delta_fn = select_fn = migrate_fn = None
     if use_kernel:
         if not pspec.kernel_lowering:
             raise ValueError(
@@ -758,10 +1268,12 @@ def _build_core(
             delta_fn = make_delta_fn(kspec, metric, dev)
         if pspec.fused_argmin:
             select_fn = make_select_fn(kspec, pspec, metric, dev)
+            if pspec.defrag:
+                migrate_fn = make_migrate_fn(kspec, pspec, metric, dev)
     return EngineCore(
         spec=pspec, protocol=proto, metric=metric, tables=tables,
         midx=midx.to(dev).long(), runs=runs, frag_fn=frag_fn,
-        delta_fn=delta_fn, select_fn=select_fn,
+        delta_fn=delta_fn, select_fn=select_fn, migrate_fn=migrate_fn,
     )
 
 
@@ -797,7 +1309,13 @@ def _simulate(
     )
     track_occ = core.frag_fn is not None
     if state is None:
-        state = _init_state(core.tables, core.midx, runs, ring_rows, ring_cols, track_occ)
+        state = _init_state(core.tables, core.midx, runs, ring_rows, ring_cols, track_occ,
+                            track_alloc=core.spec.defrag)
+    elif core.spec.defrag and state.ring_pid is None:
+        raise ValueError(
+            f"policy {core.spec.name!r}: a defrag spec continues only from a state "
+            "with the ring_pid/ring_aidx allocation planes"
+        )
     elif not track_occ:
         state = state._replace(occ=None)
     elif state.occ is None:
@@ -808,19 +1326,21 @@ def _simulate(
                   events.drain_row, events.new_slot)
     ]
     e_max = xs[0].shape[0]
-    trace = EventTrace(*[
-        torch.empty((e_max, runs), dtype=dt, device=dev) for dt in _TRACE_DTYPES
-    ])
+    fields = EventTrace._fields if core.spec.defrag else EventTrace._fields[:6]
+    trace = EventTrace(**{
+        name: torch.empty((e_max, runs), dtype=_TRACE_DTYPES[name], device=dev)
+        for name in fields
+    })
     for e in range(e_max):
         row = core.step(state, [x[e] for x in xs])
-        for buf, val in zip(trace, row):
-            buf[e] = val
+        for name in fields:
+            getattr(trace, name)[e] = getattr(row, name)
     return state, trace
 
 
 def trace_to_numpy(trace: EventTrace) -> EventTrace:
     """Fetch a device trace to the host (the run's one synchronisation)."""
-    return EventTrace(*[t.cpu().numpy() for t in trace])
+    return EventTrace(*[None if t is None else t.cpu().numpy() for t in trace])
 
 
 # ---------------------------------------------------------------------------

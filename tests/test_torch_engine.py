@@ -18,8 +18,9 @@ from repro.core import mig as jmig
 from repro.sim import batched as jb
 from repro.sim import simulator as jsim
 
+from repro_torch.core import cluster as tcluster
 from repro_torch.core import mig as tmig
-from repro_torch.core.policy import PolicySpec
+from repro_torch.core.policy import PolicySpec, resolve
 from repro_torch.sim import batched as tb
 from repro_torch.sim import simulator as tsim
 
@@ -69,9 +70,11 @@ def twin_configs(fleet=None, **kw):
 
 
 def trace_hash(trace) -> str:
+    """SHA-256 over the trace's fields that exist, in field order."""
     h = hashlib.sha256()
     for a in trace:
-        h.update(np.ascontiguousarray(np.asarray(a)).tobytes())
+        if a is not None:
+            h.update(np.ascontiguousarray(np.asarray(a)).tobytes())
     return h.hexdigest()
 
 
@@ -85,7 +88,7 @@ def port_run(policy, cfg, runs, use_kernel, events=None, state=None, rows=None):
         events, policy=policy, metric=cfg.metric, num_gpus=cfg.num_gpus,
         ring_rows=rows[0], ring_cols=rows[1], use_kernel=use_kernel,
         kernel_spec=spec, midx=torch.as_tensor(spec.model_index),
-        tables=tb.spec_tables(spec), state=state, device="cpu",
+        tables=tb.spec_tables(spec, "cpu"), state=state, device="cpu",
     )
     return tb.trace_to_numpy(trace), final
 
@@ -99,7 +102,11 @@ def jax_common(cfg, rows, cols):
 
 def assert_traces_equal(got, want):
     for name in tb.EventTrace._fields:
-        g, w = getattr(got, name), np.asarray(getattr(want, name))
+        g, w = getattr(got, name), getattr(want, name)
+        assert (g is None) == (w is None), name
+        if w is None:
+            continue
+        w = np.asarray(w)
         assert g.dtype == w.dtype, name
         np.testing.assert_array_equal(g, w, err_msg=name)
 
@@ -128,10 +135,17 @@ def test_policy_select_equals_reference(policy, fleet):
 
 
 def test_policy_select_full_reports_no_migration():
-    d = tb.policy_select_full(np.zeros((3, 8), np.int32), 0, "mfi", device="cpu")
+    """A spec without defrag reports no migration; a defrag spec runs its
+    search, which finds no candidate without running workloads."""
+    empty = np.zeros((3, 8), np.int32)
+    d = tb.policy_select_full(empty, 0, "mfi", device="cpu")
     assert (int(d.gpu), int(d.anchor), bool(d.ok), bool(d.mig)) == (0, 0, True, False)
-    with pytest.raises(NotImplementedError, match="defrag"):
-        tb.policy_select(np.zeros((3, 8), np.int32), 0, "mfi-defrag", device="cpu")
+    assert [int(x) for x in (d.vic_gpu, d.vic_anchor, d.new_gpu, d.new_anchor)] == [-1] * 4
+    assert tuple(int(x) for x in tb.policy_select(empty, 0, "mfi-defrag", device="cpu")) == (
+        0, 0, 1)
+    full = tb.policy_select_full(np.ones((3, 8), np.int32), 0, "mfi-defrag", device="cpu")
+    assert (bool(full.ok), bool(full.mig), int(full.gpu), int(full.vic_gpu)) == (
+        False, False, -1, -1)
 
 
 # ---------------------------------------------------------------------------
@@ -165,15 +179,17 @@ def test_one_step_equals_reference(policy, fleet, use_kernel):
     t_core = tb._build_core(policy=policy, metric=tcfg.metric, num_gpus=tcfg.num_gpus,
                             use_kernel=use_kernel, runs=runs, device="cpu",
                             kernel_spec=spec, midx=torch.as_tensor(spec.model_index),
-                            tables=tb.spec_tables(spec))
+                            tables=tb.spec_tables(spec, "cpu"))
     if t_core.frag_fn is None:
         state = state._replace(occ=None)
     xs = [torch.as_tensor(np.ascontiguousarray(a[k]))
           for a in (jev.pid, jev.exp_row, jev.exp_col, jev.drain_row, jev.new_slot)]
     t_row = t_core.step(state, xs)
     for name in tb.EventTrace._fields:
-        np.testing.assert_array_equal(getattr(t_row, name).numpy(),
-                                      np.asarray(getattr(j_row, name)), err_msg=name)
+        got, want = getattr(t_row, name), getattr(j_row, name)
+        assert (got is None) == (want is None), name
+        if want is not None:
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want), err_msg=name)
     got = tb.state_to_numpy(state)
     for name in ("base", "free", "f", "rr", "ring_gpu", "ring_mask"):
         assert got[name].dtype == np.asarray(getattr(j_next, name)).dtype, name
@@ -291,21 +307,38 @@ def test_delta_only_spec_matches_fused_decisions():
 
 def test_device_none_means_cuda_and_never_falls_back():
     cfg = tsim.SimConfig(num_gpus=3, offered_load=1.0, seed=1)
+    spec = tmig.ClusterSpec.homogeneous(tmig.A100_80GB, 3)
+    helpers = {
+        "make_frag_fn": lambda: tb.make_frag_fn(),
+        "make_delta_fn": lambda: tb.make_delta_fn(spec),
+        "make_select_fn": lambda: tb.make_select_fn(spec, resolve("mfi")),
+        "make_migrate_fn": lambda: tb.make_migrate_fn(spec, resolve("mfi-defrag")),
+        "spec_tables": lambda: tb.spec_tables(spec),
+        "tables_for": lambda: tcluster.tables_for(tmig.A100_80GB),
+    }
     if torch.cuda.is_available():
         assert tb.resolve_device(None).type == "cuda"
+        assert tb.spec_tables(spec).W.device.type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="device=None means 'cuda'"):
             tb.run_batched("mfi", cfg, runs=2)
         with pytest.raises(RuntimeError, match="cuda"):
             tb.policy_select(np.zeros((3, 8), np.int32), 0, "mfi")
+        for name, helper in helpers.items():
+            with pytest.raises(RuntimeError, match="device=None means 'cuda'"):
+                helper()
+    assert tb.spec_tables(spec, "cpu").W.device.type == "cpu"
+    assert tcluster.tables_for(tmig.A100_80GB, device="cpu").placement_masks.device.type == "cpu"
 
 
 def test_unported_configurations_raise():
-    with pytest.raises(NotImplementedError, match="cumulative"):
-        tb.run_batched("mfi", tsim.SimConfig(num_gpus=3, protocol="cumulative"),
-                       runs=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="defrag"):
-        tb.run_batched("mfi-defrag", tsim.SimConfig(num_gpus=3), runs=2, device="cpu")
+    """The protocols not ported yet raise; mfi-defrag, ported, runs."""
+    for protocol in ("cumulative", "steady-queued", "steady-faulted"):
+        with pytest.raises(NotImplementedError, match=protocol):
+            tb.run_batched("mfi", tsim.SimConfig(num_gpus=3, protocol=protocol),
+                           runs=2, device="cpu")
+    r = tb.run_batched("mfi-defrag", tsim.SimConfig(num_gpus=3), runs=2, device="cpu")
+    assert 0.0 < r["acceptance_rate"] <= 1.0
     no_kernels = PolicySpec(name="plain-only", keys=("gpu",), kernel_lowering=False)
     with pytest.raises(ValueError, match="opts out"):
         tb.run_batched(no_kernels, tsim.SimConfig(num_gpus=3), runs=2,

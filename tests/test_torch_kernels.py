@@ -67,7 +67,7 @@ def random_states(spec, seed, metric="blocked"):
 
 
 def port_operands(spec, base, free, f, pid):
-    t = tb.spec_tables(spec)
+    t = tb.spec_tables(spec, "cpu")
     state = [torch.as_tensor(x) for x in (base, free, f, pid)]
     return state + [torch.as_tensor(spec.model_index)], t
 

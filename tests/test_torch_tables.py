@@ -221,7 +221,7 @@ def test_device_tables_and_frag_scores_equal(name):
         for got, want in zip(tcluster._np_profile_tables(t_model, a),
                              jcluster._np_profile_tables(j_model, a)):
             assert_same_array(got, want)
-    tt = tcluster.tables_for(t_model)
+    tt = tcluster.tables_for(t_model, device="cpu")
     jt = jax.device_get(jcluster.tables_for(j_model))
     for got, want in zip(tt, jt):
         assert_same_array(got.numpy(), want)
@@ -237,7 +237,7 @@ def test_device_tables_and_frag_scores_equal(name):
 @pytest.mark.parametrize("fleet", MODEL_NAMES + sorted(FLEETS))
 def test_spec_tables_equal(fleet):
     text = FLEETS.get(fleet, f"{fleet}:4")
-    t = tb.spec_tables(tmig.ClusterSpec.parse(text))
+    t = tb.spec_tables(tmig.ClusterSpec.parse(text), "cpu")
     j = jax.device_get(jb.spec_tables(jmig.ClusterSpec.parse(text)))._asdict()
     for name in tb.SpecTables._fields:
         assert_same_array(getattr(t, name).numpy(), j[name])
