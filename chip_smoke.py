@@ -9,12 +9,12 @@ Phases, each printing its own lines:
 
 1. the card (``nvidia-smi`` name and power limit, torch and CUDA versions);
 2. the build of the CUDA library from the repository's sources;
-3. each of the four kernels against its plain torch version at the main
-   path's full-width shapes (R = 500 replicas of M = 100 GPUs, every demand
-   class, both metrics, the fusable key sets, homogeneous and four-model
-   tables; for ``migrate_refine`` C_live = 800 victims per replica), equal
-   with a tolerance of 0, with its time, its bound on the card and its
-   plain version's time;
+3. each of the four fragscore kernels against its plain torch version at
+   the main path's full-width shapes (R = 500 replicas of M = 100 GPUs,
+   every demand class, both metrics, the fusable key sets, homogeneous and
+   four-model tables; for ``migrate_refine`` C_live = 800 victims per
+   replica), equal with a tolerance of 0, with its time, its bound on the
+   card and its plain version's time;
 4. the pinned golden results of the reference package, mfi-defrag's
    included, reproduced with the kernels on;
 5. the paper's experiment at full width (M = 100 A100-80GB, uniform mix,
@@ -24,13 +24,32 @@ Phases, each printing its own lines:
    plain lowering over the same events: traces equal, launch counts
    matching the events; then a profiled 256-event window of the mfi and
    the mfi-defrag step;
-6. a ``{"kernels": [...]}`` JSON line, then the result line.
+6. the ``decode_attention`` kernel against its plain torch version
+   (float32: max abs error <= 1e-5; bfloat16: |kernel - plain| <= 2e-2 +
+   2e-2·|plain|, the plain version computed in float32 from the same
+   bfloat16 inputs) at (a) the serving path's shape (B = 4 slots, H = 32,
+   K = 8, D = 64, S = max_len = 161, bf16, length = pos + 1), (b) a long
+   serving shape (B = 8, S = 8192, bf16, ragged lengths from 1 to S) and
+   (c) float32 with a scale override, with its device time, time per
+   call, bound, plain time and the time of ``scaled_dot_product_attention``;
+7. the serving path at full width: ``llama3.2-1b`` (bf16, random weights
+   from a ``torch.Generator`` seeded 0) behind the MIG admission controller
+   (4 A100-80GB GPUs, mfi, 16 requests of the uniform mix, prompts of 128
+   tokens, 32 new tokens, 4 slots) through ``ServingEngine.run``, launch
+   counts reset just before and read just after (``decode_attention`` =
+   layers × decode steps); the admission stats against the controller
+   alone; one decode step's attention inputs through the kernel and the
+   plain version; prefill and decode times and a profiled window of 16
+   decode steps; then ``launch/serve.py`` run as it stands;
+8. a ``{"kernels": [...]}`` JSON line, then the result line.
 
-Every equality is exact: all scores are integers held in float32.
+Every equality of phases 3-5 is exact: all scores are integers held in
+float32.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import hashlib
 import json
 import subprocess
@@ -91,13 +110,34 @@ RECORDED_FIG4_MFI = "fig4,mfi,1.0,0.9322,891.6,0.8735,98.0,4.67"
 RUNS = 500
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
-KERNEL_SOURCE = "src/repro_torch/kernels/fragscore/csrc/fragscore.cu"
+FRAGSCORE_SOURCE = "src/repro_torch/kernels/fragscore/csrc/fragscore.cu"
+DECODE_SOURCE = "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu"
+SOURCES = {
+    "fragscore": FRAGSCORE_SOURCE,
+    "delta_from_base": FRAGSCORE_SOURCE,
+    "select_from_base": FRAGSCORE_SOURCE,
+    "migrate_refine": FRAGSCORE_SOURCE,
+    "decode_attention": DECODE_SOURCE,
+}
 REPLACES = {
     "fragscore": "src/repro/kernels/fragscore/fragscore.py:76",
     "delta_from_base": "src/repro/kernels/fragscore/fragscore.py:248",
     "select_from_base": "src/repro/kernels/fragscore/fragscore.py:473",
     "migrate_refine": "src/repro/kernels/fragscore/fragscore.py:670",
+    "decode_attention": "src/repro/kernels/decode_attention/decode_attention.py:73",
 }
+
+#: the serving phase: llama3.2-1b at full width behind MIG admission
+SERVE_ARCH = "llama3.2-1b"
+SERVE_GPUS = 4
+SERVE_REQUESTS = 16
+SERVE_SLOTS = 4
+SERVE_PROMPT = 128
+SERVE_NEW = 32
+SERVE_MAX_LEN = SERVE_PROMPT + SERVE_NEW + 1
+#: tolerances of decode_attention against its plain version (PERF.md)
+F32_ATOL = 1e-5
+BF16_ATOL = BF16_RTOL = 2e-2
 #: victims per replica of the migrate search at M = 100 (min(C, M·S))
 C_LIVE = 800
 
@@ -560,6 +600,303 @@ def full_width_phase(device):
     return totals, rates
 
 
+# ---------------------------------------------------------------------------
+# phase 6: decode_attention against its plain version
+# ---------------------------------------------------------------------------
+
+
+def attention_inputs(b, s, kheads, group, d, dtype, lengths, gen, device):
+    import torch
+
+    q = torch.randn(b, kheads * group, d, generator=gen, device=device).to(dtype)
+    k = torch.randn(b, s, kheads, d, generator=gen, device=device).to(dtype)
+    v = torch.randn(b, s, kheads, d, generator=gen, device=device).to(dtype)
+    return q, k, v, torch.as_tensor(lengths, dtype=torch.int32, device=device)
+
+
+def attention_error(got, want, dtype) -> float:
+    """Max abs error of the kernel's output against the plain version
+    computed in float32; raises past the dtype's tolerance."""
+    import torch
+
+    err = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        check(float(err.max()) <= F32_ATOL, f"decode_attention f32 error {float(err.max())}")
+    else:
+        bad = err > BF16_ATOL + BF16_RTOL * want.float().abs()
+        check(not bool(bad.any()), f"decode_attention bf16 error {float(err.max())}")
+    return float(err.max())
+
+
+def attention_bound(q, k, lengths, out):
+    """The least time for one call: the valid K and V rows, q and out read
+    or written once, and 4·Σlength·H·D fp32 operations."""
+    b, h, d = q.shape
+    kheads = k.shape[2]
+    total = int(lengths.clamp(0, k.shape[1]).sum())
+    nbytes_ = 2 * total * kheads * d * k.element_size() + nbytes(q, out) + 4 * b
+    return bound(nbytes_, 4 * total * h * d), nbytes_
+
+
+def sdpa_call(q, k, v, lengths):
+    """``scaled_dot_product_attention`` on the same inputs (GQA, a length
+    mask), as one PyTorch call: the library yardstick, never used by the
+    port.  Rows of length 0 give NaN there."""
+    import torch
+    import torch.nn.functional as F
+
+    s = k.shape[1]
+    mask = (torch.arange(s, device=q.device)[None, :] < lengths[:, None].long())[:, None, None, :]
+    qs, ks, vs = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+
+    def call():
+        return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, enable_gqa=True)
+
+    return call
+
+
+def decode_attention_phase(device):
+    import torch
+    from repro_torch.kernels.decode_attention import decode_attention as D
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+    gen = torch.Generator(device).manual_seed(0)
+    bf16, f32 = torch.bfloat16, torch.float32
+    pos = SERVE_MAX_LEN - 3  # the last decode step of a wave
+    cases = {
+        "serving": (SERVE_SLOTS, SERVE_MAX_LEN, 8, 4, 64, bf16, [pos + 1] * SERVE_SLOTS, None),
+        "long": (8, 8192, 8, 4, 64, bf16, [1, 8192, 4000, 17, 8191, 5000, 2, 6000], None),
+        "f32-scale": (4, 1000, 8, 4, 64, f32, [1, 1000, 0, 517], 0.1),
+        "f32-wide": (3, 300, 2, 12, 128, f32, [300, 1, 150], 0.3),
+    }
+    errs = {}
+    row = {}
+    for tag, (b, s, kh, g, d, dtype, lengths, scale) in cases.items():
+        q, k, v, ln = attention_inputs(b, s, kh, g, d, dtype, lengths, gen, device)
+        got = D.decode_attention(q, k, v, ln, scale=scale)
+        want = decode_attention_ref(q.float(), k.float(), v.float(), ln, scale=scale)
+        torch.cuda.synchronize()
+        errs[tag] = attention_error(got, want, dtype)
+        if tag not in ("serving", "long"):
+            continue
+        ms, call_ms, src = timed(lambda: D.decode_attention(q, k, v, ln), 200,
+                                 "decode_attention_kernel")
+        plain_ms, plain_call_ms, _ = timed(lambda: decode_attention_ref(q, k, v, ln), 50)
+        lib = sdpa_call(q, k, v, ln)
+        lib_ms, lib_call_ms, _ = timed(lib, 200)
+        if 0 not in lengths:
+            lib_err = float((lib()[:, :, 0].float() - want).abs().max())
+        else:
+            lib_err = None
+        (b_ms, b_by), nb = attention_bound(q, k, ln, got)
+        shape = f"q ({b}, {kh * g}, {d}), k/v ({b}, {s}, {kh}, {d}) {str(dtype)[6:]}, lengths {lengths}"
+        log(f"kernel decode_attention [{tag}]: {shape}: max abs err {errs[tag]:.3e} "
+            f"against the f32 plain version; device {ms:.5f} ms ({src}), per call "
+            f"{call_ms:.4f} ms; plain device {plain_ms:.5f} ms, per call {plain_call_ms:.4f} ms; "
+            f"sdpa device {lib_ms:.5f} ms, per call {lib_call_ms:.4f} ms (sdpa err {lib_err}); "
+            f"bound {b_ms:.6f} ms ({b_by}, {nb} bytes)")
+        row[tag] = dict(ms=ms, call_ms=call_ms, ms_source=src, plain_ms=plain_ms,
+                        plain_call_ms=plain_call_ms, library_ms=lib_ms, library_call_ms=lib_call_ms,
+                        bound_ms=b_ms, bound_by=b_by, shape=shape)
+    log(f"kernel decode_attention: within tolerance on every case "
+        f"(f32 <= {F32_ATOL}; bf16 <= {BF16_ATOL} + {BF16_RTOL}·|plain|): {errs}")
+    serving, long = row["serving"], row["long"]
+    return dict(serving, max_abs_err=max(errs.values()), errors=errs,
+                tolerance=f"f32 max abs <= {F32_ATOL}; bf16 |err| <= {BF16_ATOL} + "
+                          f"{BF16_RTOL}*|plain| against the f32 plain version",
+                long={k: long[k] for k in ("ms", "call_ms", "plain_ms", "library_ms",
+                                           "bound_ms", "bound_by", "shape")})
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the serving path at full width
+# ---------------------------------------------------------------------------
+
+
+def serve_requests(cfg, seed=0):
+    """The request stream of ``launch/serve.py``: profiles of the uniform
+    mix, random prompts, all from one numpy generator."""
+    import numpy as np
+    from repro_torch.core import mig
+    from repro_torch.serving import Request
+    from repro_torch.sim import distributions
+
+    rng = np.random.default_rng(seed)
+    profiles = distributions.sample_profiles("uniform", SERVE_REQUESTS, rng)
+    return [Request(request_id=i,
+                    prompt=rng.integers(0, cfg.vocab, SERVE_PROMPT).astype(np.int32),
+                    max_new_tokens=SERVE_NEW, profile=mig.PROFILE_NAMES[profiles[i]])
+            for i in range(SERVE_REQUESTS)]
+
+
+def serving_engine(cfg, params, device):
+    from repro_torch.serving import ServingEngine
+
+    return ServingEngine(cfg, params, num_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                         num_gpus=SERVE_GPUS, policy="mfi", device=device)
+
+
+def timed_calls(fn, seconds):
+    """``fn`` with each call's wall time, synchronised, appended to
+    ``seconds`` (the engine reads every token to the host after each step
+    anyway, so the synchronisation costs it nothing)."""
+    import torch
+
+    def call(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    return call
+
+
+def serving_phase(device, wrappers):
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.decode_attention import decode_attention as D
+    from repro_torch.kernels.decode_attention import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import common, model
+
+    cfg = ARCHS[SERVE_ARCH]
+    t0 = time.perf_counter()
+    params = model.init_params(cfg, torch.Generator(device).manual_seed(0), device=device)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    weight_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    log(f"serving: {SERVE_ARCH} {cfg.n_layers} layers d_model {cfg.d_model} {cfg.dtype}, "
+        f"{n_params} parameters ({weight_bytes / 1e9:.3f} GB) drawn in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # warm-up: one short wave (library load, cuBLAS handles, allocator)
+    warm = serving_engine(cfg, params, device)
+    warm_reqs = serve_requests(cfg, seed=1)[:SERVE_SLOTS]
+    for r in warm_reqs:
+        r.max_new_tokens = 3
+    warm.run(warm_reqs)
+    torch.cuda.synchronize()
+
+    engine = serving_engine(cfg, params, device)
+    prefill_s, decode_s = [], []
+    engine._prefill = timed_calls(engine._prefill, prefill_s)
+    engine._decode = timed_calls(engine._decode, decode_s)
+    requests = serve_requests(cfg)
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    stats = engine.run(requests)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: fn.launches for k, fn in wrappers.items()}
+    steps = len(decode_s)
+    want = dict.fromkeys(wrappers, 0)
+    want["decode_attention"] = cfg.n_layers * steps
+    check(counts == want, f"serving: launch counts {counts} != expected {want}")
+    check(steps > 0 and len(prefill_s) == stats["waves"], "serving: no decode step ran")
+    for r in requests:
+        check(r.finished and r.admitted and len(r.output) == SERVE_NEW
+              and all(0 <= t < cfg.vocab for t in r.output),
+              f"serving: request {r.request_id} ended {r.admitted, r.finished, r.output}")
+    check(engine.admission.cluster.used_mem_slices == 0, "serving: slices left allocated")
+
+    # the same request stream through admission alone (no model): equal stats
+    alone = serving_engine(cfg, params, device)
+
+    def release_only(wave):
+        for r in wave:
+            r.output, r.finished = [], True
+            alone._release(r)
+
+    alone._serve_wave = release_only
+    alone_reqs = serve_requests(cfg)
+    alone_stats = alone.run(alone_reqs)
+    check(alone_stats == stats, f"serving: admission stats {stats} != admission alone {alone_stats}")
+    check([(r.admitted, r.rejected) for r in alone_reqs]
+          == [(r.admitted, r.rejected) for r in requests], "serving: admission decisions differ")
+
+    # one real decode step's attention inputs, every layer: kernel vs plain
+    wave = requests[:SERVE_SLOTS]
+    prompts = torch.as_tensor(np.stack([r.prompt for r in wave]), device=device)
+    logits, cache = model.prefill(params, {"tokens": prompts}, cfg)
+    cache = model.pad_cache(cache, SERVE_PROMPT, SERVE_MAX_LEN)
+    tokens = torch.argmax(logits, dim=-1).to(torch.int32)
+    captured = []
+    direct = common.decode_gqa_attention
+
+    def record(q, k, v, length, **kw):
+        captured.append((q.clone(), k.clone(), v.clone(), length.clone()))
+        return direct(q, k, v, length, **kw)
+
+    common.decode_gqa_attention = record
+    try:
+        logits, cache = model.decode_step(params, cache, tokens, SERVE_PROMPT, cfg)
+    finally:
+        common.decode_gqa_attention = direct
+    check(len(captured) == cfg.n_layers, "serving: capture missed layers")
+    check(bool(torch.isfinite(logits).all()), "serving: non-finite logits")
+    err = 0.0
+    for q, k, v, length in captured:
+        got = ops.gqa_decode_attention(q, k, v, length, use_kernel=True)
+        want_f32 = ops.gqa_decode_attention(q.float(), k.float(), v.float(), length,
+                                            use_kernel=False)
+        err = max(err, attention_error(got, want_f32, torch.bfloat16))
+    log(f"serving: one decode step's attention inputs ({cfg.n_layers} layers, q "
+        f"{tuple(captured[0][0].shape)}, cache {tuple(captured[0][1].shape)}, length "
+        f"{captured[0][3].tolist()}): kernel vs plain max abs err {err:.3e}")
+
+    # a profiled window of 16 decode steps on that cache
+    window = 16
+
+    def steps16():
+        t = tokens
+        for i in range(window):
+            lg, _ = model.decode_step(params, cache, t, SERVE_PROMPT + 1 + i, cfg)
+            t = torch.argmax(lg, dim=-1).to(torch.int32)
+        return t
+
+    times = device_times(steps16, 1)
+    t1 = time.perf_counter()
+    steps16()
+    torch.cuda.synchronize()
+    window_ms = (time.perf_counter() - t1) * 1e3
+    busy_ms = sum(t for t, _ in times.values()) / 1e3
+    ops_ = sum(c for _, c in times.values())
+    top = sorted(times.items(), key=lambda kv: -kv[1][0])[:5]
+    decode_tokens = steps * SERVE_SLOTS
+    out = dict(
+        waves=stats["waves"], decode_steps=steps, launches=counts["decode_attention"],
+        prefill_ms_per_wave=1e3 * sum(prefill_s) / len(prefill_s),
+        decode_ms_per_step=1e3 * sum(decode_s) / steps,
+        decode_tokens_per_s=decode_tokens / sum(decode_s),
+        run_s=wall, tokens_per_s=sum(len(r.output) for r in requests) / wall,
+        window_busy_ms=busy_ms, window_wall_ms=window_ms, busy_share=busy_ms / window_ms,
+        device_ops_per_step=ops_ / window, weight_bytes=weight_bytes,
+        weight_read_ms=weight_bytes / HBM_BYTES_PER_S * 1e3,
+        kernel_vs_plain_err=err, stats=stats)
+    log(f"serving: {SERVE_REQUESTS} requests ({SERVE_PROMPT}-token prompts, {SERVE_NEW} new "
+        f"tokens, {SERVE_SLOTS} slots, {SERVE_GPUS} A100-80GB, mfi) in {wall:.3f} s: "
+        f"{out['waves']} waves, {steps} decode steps, decode_attention launches "
+        f"{counts['decode_attention']} = {cfg.n_layers} x {steps}; prefill "
+        f"{out['prefill_ms_per_wave']:.3f} ms/wave, decode {out['decode_ms_per_step']:.3f} ms/step, "
+        f"{out['decode_tokens_per_s']:.1f} decode tokens/s, {out['tokens_per_s']:.1f} tokens/s "
+        f"end to end; weights read once: {out['weight_read_ms']:.3f} ms")
+    log(f"serving: admission stats {stats} equal the controller alone")
+    log(f"serving window ({window} decode steps): device busy {busy_ms:.3f} ms of "
+        f"{window_ms:.3f} ms wall ({100 * busy_ms / window_ms:.1f}% busy), "
+        f"{ops_ / window:.1f} device ops/step; top: "
+        + "; ".join(f"{k[:48]} {t / c:.1f} us x{c}" for k, (t, c) in top))
+
+    t2 = time.perf_counter()
+    serve.main([])
+    torch.cuda.synchronize()
+    log(f"serving: launch/serve.py main ran as it stands in {time.perf_counter() - t2:.2f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -569,8 +906,12 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
+    from repro_torch.kernels.decode_attention import decode_attention as D
     from repro_torch.kernels.fragscore import fragscore as K
 
+    # the plain versions' float32 products run in full float32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -580,29 +921,42 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} card(s)")
 
+    # one nvcc per source, all started together
     t0 = time.perf_counter()
-    built = build.build("fragscore")
+    with concurrent.futures.ThreadPoolExecutor(len(build.SOURCES)) as pool:
+        built = dict(zip(build.SOURCES, pool.map(build.build, build.SOURCES)))
     K._lib()
-    log(f"build: {built.path.name} in {time.perf_counter() - t0:.2f} s (nvcc {built.seconds:.2f} s)")
-    for line in built.log.splitlines():
-        if "registers" in line or "Compiling entry" in line:
-            log(f"  ptxas: {line.strip()}")
+    D._lib()
+    log(f"build: {len(built)} libraries in {time.perf_counter() - t0:.2f} s")
+    for name, result in built.items():
+        log(f"  {result.path.name}: nvcc {result.seconds:.2f} s")
+        for line in result.log.splitlines():
+            if "registers" in line or "Compiling entry" in line:
+                log(f"  ptxas: {line.strip()}")
 
     rows = kernel_phase(device)
     golden_phase(device)
     totals, rates = full_width_phase(device)
+    rows["decode_attention"] = decode_attention_phase(device)
+    wrappers = {"fragscore": K.fragscore, "delta_from_base": K.delta_from_base,
+                "select_from_base": K.select_from_base, "migrate_refine": K.migrate_refine,
+                "decode_attention": D.decode_attention}
+    serving = serving_phase(device, wrappers)
+    totals["decode_attention"] = serving["launches"]
 
-    kernels = [
-        dict(name=name, route="cuda", source=KERNEL_SOURCE, replaces=REPLACES[name],
-             launches=totals[name], equal_to_plain=True, max_abs_err=row["max_abs_err"],
-             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-             bound_by=row["bound_by"], library_ms=None, call_ms=row["call_ms"],
-             plain_call_ms=row["plain_call_ms"], ms_source=row["ms_source"],
-             shape=row["shape"])
-        for name, row in rows.items()
-    ]
+    kernels = []
+    for name, row in rows.items():
+        extra = {k: row[k] for k in ("tolerance", "errors", "long", "library_call_ms") if k in row}
+        kernels.append(dict(
+            name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
+            launches=totals[name], max_abs_err=row["max_abs_err"], ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=row.get("library_ms"), call_ms=row["call_ms"],
+            plain_call_ms=row["plain_call_ms"], ms_source=row["ms_source"],
+            shape=row["shape"], **extra))
     log(json.dumps({"engine_replica_events_per_s": {
         k: {"kernel": v[0], "plain": v[1]} for k, v in rates.items()}}))
+    log(json.dumps({"serving": serving}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""MIG hardware model: profiles, device models, cluster specs.
+"""MIG hardware model: profiles, device models, cluster specs, GPU and cluster state.
 
 Requests arrive as one of the paper's six Table-I demand classes (named
 after their A100-80GB realization, e.g. ``2g.20gb`` = 2 SM slices + 20 GiB).
@@ -13,8 +13,11 @@ A :class:`ClusterSpec` is an ordered list of ``(model, count)`` pairs; the
 paper's homogeneous A100 fleet is the trivial one-model spec and is the
 default everywhere.
 
-Pure python/numpy: the torch tables built from these descriptors live in
-:mod:`repro_torch.core.cluster` and :mod:`repro_torch.sim.batched`.
+Pure python/numpy: :class:`GPUState` and :class:`ClusterState` are the
+host control plane (the serving admission controller and the host
+schedulers of :mod:`repro_torch.core.schedulers` run on them); the torch
+tables built from the descriptors live in :mod:`repro_torch.core.cluster`
+and :mod:`repro_torch.sim.batched`.
 """
 
 
@@ -23,7 +26,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -395,3 +398,211 @@ class FaultModel:
 
 #: canonical (A100-80GB) slice demand per class — the offered-load unit
 PROFILE_MEM = A100_80GB.profile_mem
+
+
+def profile_placement_rows(pid: int) -> slice:
+    """Rows of the A100-80GB placement table belonging to profile ``pid``."""
+    return A100_80GB.profile_placement_rows(pid)
+
+
+# ---------------------------------------------------------------------------
+# GPU state
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class Allocation:
+    """A committed placement of a workload on a GPU."""
+
+    workload_id: int
+    profile_id: int
+    anchor: int
+
+
+class GPUState:
+    """Occupancy state of one MIG-capable GPU of a given device model."""
+
+    def __init__(self, gpu_id: int = 0, model: DeviceModel = A100_80GB):
+        self.gpu_id = gpu_id
+        self.model = model
+        self.up = True  # a down GPU accepts no placements until recovered
+        self.occupancy = np.zeros(model.num_mem_slices, dtype=np.int32)
+        self.allocations: Dict[int, Allocation] = {}
+
+    # -- queries ------------------------------------------------------------
+    @property
+    def free_slices(self) -> int:
+        return int(self.model.num_mem_slices - self.occupancy.sum())
+
+    @property
+    def used_mem_slices(self) -> int:
+        return int(self.occupancy.sum())
+
+    @property
+    def used_compute_slices(self) -> int:
+        return int(
+            sum(
+                self.model.profiles[a.profile_id].compute
+                for a in self.allocations.values()
+            )
+        )
+
+    @property
+    def is_active(self) -> bool:
+        return bool(self.allocations)
+
+    def feasible_anchors(self, profile_id: int) -> List[int]:
+        """Anchors where ``profile_id`` can be placed right now."""
+        if not self.up:
+            return []  # single choke point: down GPUs are infeasible everywhere
+        prof = self.model.profiles[profile_id]
+        out = []
+        for anchor in prof.anchors:
+            if not self.occupancy[anchor : anchor + prof.mem].any():
+                out.append(anchor)
+        return out
+
+    def can_fit(self, profile_id: int) -> bool:
+        return bool(self.feasible_anchors(profile_id))
+
+    # -- mutation -----------------------------------------------------------
+    def allocate(self, workload_id: int, profile_id: int, anchor: int) -> None:
+        prof = self.model.profiles[profile_id]
+        window = self.occupancy[anchor : anchor + prof.mem]
+        if anchor not in prof.anchors:
+            raise ValueError(
+                f"anchor {anchor} illegal for profile {prof.name} "
+                f"on {self.model.name} (legal: {prof.anchors})"
+            )
+        if window.any():
+            raise ValueError(
+                f"profile {prof.name}@{anchor} overlaps occupied slices on "
+                f"GPU {self.gpu_id}"
+            )
+        window[:] = 1
+        self.allocations[workload_id] = Allocation(workload_id, profile_id, anchor)
+
+    def release(self, workload_id: int) -> None:
+        alloc = self.allocations.pop(workload_id)
+        prof = self.model.profiles[alloc.profile_id]
+        self.occupancy[alloc.anchor : alloc.anchor + prof.mem] = 0
+
+
+class ClusterState:
+    """A MIG GPU cluster — homogeneous by default, mixed via ``spec``."""
+
+    def __init__(self, num_gpus: Optional[int] = None, spec: Optional[ClusterSpec] = None):
+        if spec is None:
+            if num_gpus is None:
+                raise ValueError("need num_gpus or spec")
+            spec = ClusterSpec.homogeneous(A100_80GB, num_gpus)
+        elif num_gpus is not None and num_gpus != spec.num_gpus:
+            raise ValueError(
+                f"num_gpus={num_gpus} contradicts spec ({spec.num_gpus} GPUs)"
+            )
+        self.spec = spec
+        self.gpus = [
+            GPUState(i, spec.model_of(i)) for i in range(spec.num_gpus)
+        ]
+        self._placement_of: Dict[int, int] = {}  # workload_id -> gpu_id
+
+    def __len__(self) -> int:
+        return len(self.gpus)
+
+    @property
+    def num_gpus(self) -> int:
+        return len(self.gpus)
+
+    def occupancy_matrix(self) -> np.ndarray:
+        """(M, S) int32 occupancy bitmap, S = ``spec.num_mem_slices``.
+
+        GPUs of models with fewer slices are zero-padded on the right (their
+        extra columns can never be occupied).
+        """
+        s = self.spec.num_mem_slices
+        out = np.zeros((self.num_gpus, s), dtype=np.int32)
+        for i, g in enumerate(self.gpus):
+            out[i, : g.occupancy.shape[0]] = g.occupancy
+        return out
+
+    def allocate(self, workload_id: int, profile_id: int, gpu_id: int, anchor: int):
+        if workload_id in self._placement_of:
+            raise ValueError(
+                f"workload {workload_id} is already placed on GPU "
+                f"{self._placement_of[workload_id]}; release it before "
+                "re-allocating (a duplicate allocate would orphan its slices)"
+            )
+        self.gpus[gpu_id].allocate(workload_id, profile_id, anchor)
+        self._placement_of[workload_id] = gpu_id
+
+    def release(self, workload_id: int) -> None:
+        if workload_id not in self._placement_of:
+            raise KeyError(
+                f"workload {workload_id} is not placed on this cluster"
+            )
+        gpu_id = self._placement_of.pop(workload_id)
+        self.gpus[gpu_id].release(workload_id)
+
+    def migrate(self, workload_id: int, gpu_id: int, anchor: int) -> Tuple[int, int, int]:
+        """Move a running workload to a new placement (same class, same id).
+
+        The single primitive behind every defrag ``pending_migration``
+        apply (simulator protocols, serving admission, host replay).
+        Returns the old ``(gpu, anchor, profile_id)``; raises like
+        :meth:`allocate` if the target is illegal or occupied.
+        """
+        old_gpu = self._placement_of[workload_id]
+        alloc = self.gpus[old_gpu].allocations[workload_id]
+        old = (old_gpu, alloc.anchor, alloc.profile_id)
+        self.release(workload_id)
+        self.allocate(workload_id, alloc.profile_id, gpu_id, anchor)
+        return old
+
+    def gpu_of(self, workload_id: int) -> Optional[int]:
+        return self._placement_of.get(workload_id)
+
+    # -- faults -------------------------------------------------------------
+    def up_mask(self) -> np.ndarray:
+        """(M,) bool — True for GPUs currently accepting placements."""
+        return np.array([g.up for g in self.gpus], dtype=bool)
+
+    def fail_gpu(self, gpu_id: int) -> List[int]:
+        """Take a GPU down, evicting every live allocation on it.
+
+        Returns the evicted workload ids (insertion order).  The slices are
+        released, so a down GPU reads as empty in every occupancy metric;
+        :meth:`GPUState.feasible_anchors` keeps it out of placement until
+        :meth:`recover_gpu`.
+        """
+        gpu = self.gpus[gpu_id]
+        if not gpu.up:
+            raise ValueError(f"GPU {gpu_id} is already down")
+        evicted = list(gpu.allocations)
+        for wid in evicted:
+            self.release(wid)
+        gpu.up = False
+        return evicted
+
+    def recover_gpu(self, gpu_id: int) -> None:
+        """Bring a failed GPU back into the placement tables (empty)."""
+        gpu = self.gpus[gpu_id]
+        if gpu.up:
+            raise ValueError(f"GPU {gpu_id} is already up")
+        gpu.up = True
+
+    # -- metrics ------------------------------------------------------------
+    @property
+    def active_gpus(self) -> int:
+        return sum(g.is_active for g in self.gpus)
+
+    @property
+    def used_mem_slices(self) -> int:
+        return sum(g.used_mem_slices for g in self.gpus)
+
+    @property
+    def used_compute_slices(self) -> int:
+        return sum(g.used_compute_slices for g in self.gpus)
+
+    @property
+    def total_mem_slices(self) -> int:
+        return self.spec.total_mem_slices

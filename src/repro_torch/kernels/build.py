@@ -25,7 +25,10 @@ KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "repro_torch"
 
 #: sources by library name
-SOURCES = {"fragscore": KERNELS_DIR / "fragscore" / "csrc" / "fragscore.cu"}
+SOURCES = {
+    "fragscore": KERNELS_DIR / "fragscore" / "csrc" / "fragscore.cu",
+    "decode_attention": KERNELS_DIR / "decode_attention" / "csrc" / "decode_attention.cu",
+}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

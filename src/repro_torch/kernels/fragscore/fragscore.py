@@ -25,6 +25,7 @@ import functools
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.wrap import check, launch, on_cpu
 from repro_torch.kernels.fragscore import ref
 
 _METRICS = ("blocked", "partial")
@@ -44,38 +45,10 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _on_cpu(*tensors: torch.Tensor) -> bool:
-    """True when every operand lies on the CPU; raises on a device mix or
-    on a device that is neither the CPU nor CUDA."""
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"operands lie on several devices: {sorted(map(str, devices))}")
-    dev = devices.pop()
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev.type == "cpu"
-
-
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape) -> None:
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous tensor")
-
-
 def _metric_flag(metric: str) -> int:
     if metric not in _METRICS:
         raise ValueError(f"unknown metric {metric!r}")
     return int(metric == "partial")
-
-
-def _launch(fn, *args, device: torch.device) -> None:
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = fn(*args, device.index if device.index is not None else torch.cuda.current_device(), stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn.__name__} failed: cudaError_t {rc}")
 
 
 def fragscore(
@@ -84,18 +57,18 @@ def fragscore(
     """F(m) of every row of ``occ (Q, S)`` under placement table
     ``w (N, S)``, ``v (N,)``: ``(Q,)`` float32."""
     partial = _metric_flag(metric)
-    if _on_cpu(occ, w, v):
+    if on_cpu(occ, w, v):
         return ref.fragscore_ref(occ, w, v, metric)
     q, s = occ.shape
     n = w.shape[0]
-    _check("occ", occ, torch.int32, (q, s))
-    _check("w", w, torch.float32, (n, s))
-    _check("v", v, torch.float32, (n,))
+    check("occ", occ, torch.int32, (q, s))
+    check("w", w, torch.float32, (n, s))
+    check("v", v, torch.float32, (n,))
     out = torch.empty((q,), dtype=torch.float32, device=occ.device)
     if q:
-        _launch(_lib().fragscore_launch, occ.data_ptr(), w.data_ptr(),
-                v.data_ptr(), out.data_ptr(), q, n, s, partial,
-                device=occ.device)
+        launch(_lib().fragscore_launch, occ.data_ptr(), w.data_ptr(),
+               v.data_ptr(), out.data_ptr(), q, n, s, partial,
+               device=occ.device)
         fragscore.launches += 1
     return out
 
@@ -107,13 +80,13 @@ def _table_args(base, free, f, midx, V, maskwin, profile_mem):
     """Shape/dtype checks shared by the ΔF kernels; returns (R, M, N, A, K, P)."""
     r, m, n = base.shape
     k, p, a, _ = maskwin.shape
-    _check("base", base, torch.float32, (r, m, n))
-    _check("free", free, torch.int32, (r, m))
-    _check("f", f, torch.float32, (r, m))
-    _check("midx", midx, torch.int32, (m,))
-    _check("V", V, torch.float32, (k, n))
-    _check("maskwin", maskwin, torch.float32, (k, p, a, n))
-    _check("profile_mem", profile_mem, torch.float32, (k, p))
+    check("base", base, torch.float32, (r, m, n))
+    check("free", free, torch.int32, (r, m))
+    check("f", f, torch.float32, (r, m))
+    check("midx", midx, torch.int32, (m,))
+    check("V", V, torch.float32, (k, n))
+    check("maskwin", maskwin, torch.float32, (k, p, a, n))
+    check("profile_mem", profile_mem, torch.float32, (k, p))
     return r, m, n, a, k, p
 
 
@@ -123,18 +96,18 @@ def delta_from_base(
     """Raw ΔF ``(R, M, A)`` of every anchor dry-run of each replica's
     request ``pid`` (no feasibility mask)."""
     partial = _metric_flag(metric)
-    if _on_cpu(base, free, f, pid, midx, V, maskwin, profile_mem):
+    if on_cpu(base, free, f, pid, midx, V, maskwin, profile_mem):
         return ref.delta_from_base_ref(
             base, free, f, pid, midx, V, maskwin, profile_mem, metric
         )
     r, m, n, a, _, p = _table_args(base, free, f, midx, V, maskwin, profile_mem)
-    _check("pid", pid, torch.int32, (r,))
+    check("pid", pid, torch.int32, (r,))
     out = torch.empty((r, m, a), dtype=torch.float32, device=base.device)
     if r and m:
-        _launch(_lib().delta_from_base_launch, base.data_ptr(), free.data_ptr(),
-                f.data_ptr(), pid.data_ptr(), midx.data_ptr(), V.data_ptr(),
-                maskwin.data_ptr(), profile_mem.data_ptr(), out.data_ptr(),
-                r, m, n, a, p, partial, device=base.device)
+        launch(_lib().delta_from_base_launch, base.data_ptr(), free.data_ptr(),
+               f.data_ptr(), pid.data_ptr(), midx.data_ptr(), V.data_ptr(),
+               maskwin.data_ptr(), profile_mem.data_ptr(), out.data_ptr(),
+               r, m, n, a, p, partial, device=base.device)
         delta_from_base.launches += 1
     return out
 
@@ -171,14 +144,14 @@ def select_from_base(
     partial = _metric_flag(metric)
     operands = (base, free, f, pid, midx, V, maskwin, profile_rows,
                 profile_valid, profile_anchors, profile_mem)
-    if _on_cpu(*operands):
+    if on_cpu(*operands):
         return ref.select_from_base_ref(*operands, keys, metric)
     code = pack_keys(keys)
     r, m, n, a, k, p = _table_args(base, free, f, midx, V, maskwin, profile_mem)
-    _check("pid", pid, torch.int32, (r,))
-    _check("profile_rows", profile_rows, torch.int32, (k, p, a))
-    _check("profile_valid", profile_valid, torch.bool, (k, p, a))
-    _check("profile_anchors", profile_anchors, torch.int32, (k, p, a))
+    check("pid", pid, torch.int32, (r,))
+    check("profile_rows", profile_rows, torch.int32, (k, p, a))
+    check("profile_valid", profile_valid, torch.bool, (k, p, a))
+    check("profile_anchors", profile_anchors, torch.int32, (k, p, a))
     smem = 4 * (k * n + k * a * n + k + 3 * k * a)
     if smem > 48 * 1024:
         raise ValueError(f"select_from_base: tables need {smem} B of shared memory (> 48 KiB)")
@@ -187,10 +160,10 @@ def select_from_base(
     col = torch.empty((r,), dtype=torch.int32, device=dev)
     ok = torch.empty((r,), dtype=torch.bool, device=dev)
     if r:
-        _launch(_lib().select_from_base_launch,
-                *(t.data_ptr() for t in operands),
-                gpu.data_ptr(), col.data_ptr(), ok.data_ptr(),
-                r, m, n, a, p, k, len(keys), code, partial, device=dev)
+        launch(_lib().select_from_base_launch,
+               *(t.data_ptr() for t in operands),
+               gpu.data_ptr(), col.data_ptr(), ok.data_ptr(),
+               r, m, n, a, p, k, len(keys), code, partial, device=dev)
         select_from_base.launches += 1
     return gpu, col, ok
 
@@ -209,19 +182,19 @@ def migrate_refine(
     partial = _metric_flag(metric)
     operands = (base, free, f, base2, free2, f2, rg, rp, kc, midx, V, maskwin,
                 profile_rows, profile_valid, profile_anchors, profile_mem)
-    if _on_cpu(*operands):
+    if on_cpu(*operands):
         return ref.migrate_refine_ref(*operands, keys, metric)
     code = pack_keys(keys)
     r, m, n, a, k, p = _table_args(base, free, f, midx, V, maskwin, profile_mem)
     c = base2.shape[1]
-    _check("base2", base2, torch.float32, (r, c, n))
-    _check("free2", free2, torch.int32, (r, c))
-    _check("f2", f2, torch.float32, (r, c))
+    check("base2", base2, torch.float32, (r, c, n))
+    check("free2", free2, torch.int32, (r, c))
+    check("f2", f2, torch.float32, (r, c))
     for name, t in (("rg", rg), ("rp", rp), ("kc", kc)):
-        _check(name, t, torch.int32, (r, c))
-    _check("profile_rows", profile_rows, torch.int32, (k, p, a))
-    _check("profile_valid", profile_valid, torch.bool, (k, p, a))
-    _check("profile_anchors", profile_anchors, torch.int32, (k, p, a))
+        check(name, t, torch.int32, (r, c))
+    check("profile_rows", profile_rows, torch.int32, (k, p, a))
+    check("profile_valid", profile_valid, torch.bool, (k, p, a))
+    check("profile_anchors", profile_anchors, torch.int32, (k, p, a))
     smem = 4 * max(k * n + k * a * n + k + 3 * k * a, _MIGRATE_THREADS * n)
     if smem > 48 * 1024:
         raise ValueError(f"migrate_refine: tables need {smem} B of shared memory (> 48 KiB)")
@@ -236,9 +209,9 @@ def migrate_refine(
     ap, okp, kp = torch.empty((r, c), **i32), torch.empty((r, c), **b8), torch.empty((r, c, l), **f32)
     outs = (g1, ok1, a1, k1, g2, ok2, a2, k2, ap, okp, kp)
     if r:
-        _launch(_lib().migrate_refine_launch,
-                *(t.data_ptr() for t in operands + outs),
-                r, m, c, n, a, p, k, l, code, partial, device=dev)
+        launch(_lib().migrate_refine_launch,
+               *(t.data_ptr() for t in operands + outs),
+               r, m, c, n, a, p, k, l, code, partial, device=dev)
         migrate_refine.launches += 1
     return outs
 

@@ -112,3 +112,20 @@ def steady_params(cfg: SimConfig) -> Tuple[int, int, int, float]:
     mean_dur = (1 + T) / 2
     rate = cfg.offered_load * cap / (mean_dur * mean_mem)
     return T, cfg.warmup_horizons * T, cfg.measure_horizons * T, rate
+
+
+def jain_fairness(values) -> float:
+    """Jain's fairness index ``(Σx)² / (n·Σx²)`` of per-tenant rates.
+
+    1.0 = perfectly even; 1/n = maximally skewed.  Empty or all-zero
+    inputs (no tenant saw any demand / no tenant was served) return 1.0 —
+    nothing was distributed unevenly.
+    """
+    x = np.asarray(list(values), dtype=np.float64)
+    if x.size == 0:
+        return 1.0
+    sq = float(np.square(x).sum())
+    if sq == 0.0:
+        return 1.0
+    s = float(x.sum())
+    return s * s / (x.size * sq)
