@@ -41,10 +41,27 @@ Phases, each printing its own lines:
    alone; one decode step's attention inputs through the kernel and the
    plain version; prefill and decode times and a profiled window of 16
    decode steps; then ``launch/serve.py`` run as it stands;
-8. a ``{"kernels": [...]}`` JSON line, then the result line.
+8. the ``mfi_delta`` kernel against its plain version on random occupancy
+   at 45 % fill: A100-80GB at M = 100, 1,000, 10,000 and 1,000,000 GPUs,
+   A100-40GB and H200-141GB at M = 10,000, every demand class, both
+   metrics (plus non-binary occupancy at M = 10,000), equal with a
+   tolerance of 0, with its time, bound and plain version's time;
+9. the single-decision path: the host reference engine at the paper's
+   Fig. 4 point (M = 100 A100-80GB, uniform mix, steady, load 1.0, seed 0)
+   driven by a scheduler that decides on the card through
+   ``cluster.mfi_select(use_kernel=True)`` (launch counts reset just
+   before and read just after: ``mfi_delta`` = arrivals), each decision
+   held to the dense lowering on the card and the host MFI scheduler, the
+   result equal to the host MFI run field for field; a card-resident loop
+   of 10,000 decisions at M = 10,000 (``mfi_select(use_kernel=True)``,
+   ``mfi_allocate``, seeded ``release``s, no host sync inside) held
+   decision for decision to ``mfi_allocate`` and at its end to a host
+   ``ClusterState`` replay; decisions/s of both lowerings; then
+   ``api.simulate(engine="batched")`` against ``run_batched``;
+10. a ``{"kernels": [...]}`` JSON line, then the result line.
 
-Every equality of phases 3-5 is exact: all scores are integers held in
-float32.
+Every equality of phases 3-5, 8 and 9 is exact: all scores are integers
+held in float32.
 """
 
 from __future__ import annotations
@@ -118,6 +135,7 @@ SOURCES = {
     "select_from_base": FRAGSCORE_SOURCE,
     "migrate_refine": FRAGSCORE_SOURCE,
     "decode_attention": DECODE_SOURCE,
+    "mfi_delta": FRAGSCORE_SOURCE,
 }
 REPLACES = {
     "fragscore": "src/repro/kernels/fragscore/fragscore.py:76",
@@ -125,6 +143,7 @@ REPLACES = {
     "select_from_base": "src/repro/kernels/fragscore/fragscore.py:473",
     "migrate_refine": "src/repro/kernels/fragscore/fragscore.py:670",
     "decode_attention": "src/repro/kernels/decode_attention/decode_attention.py:73",
+    "mfi_delta": "src/repro/kernels/fragscore/fragscore.py:133",
 }
 
 #: the serving phase: llama3.2-1b at full width behind MIG admission
@@ -140,6 +159,19 @@ F32_ATOL = 1e-5
 BF16_ATOL = BF16_RTOL = 2e-2
 #: victims per replica of the migrate search at M = 100 (min(C, M·S))
 C_LIVE = 800
+#: fleet sizes of the mfi_delta kernel check (A100-80GB): the paper's
+#: M = 100, benchmarks/scheduler_scaling.py's 10^3 and 10^4, and the
+#: kernel's cloud scale 10^6; the occupancy fill of scheduler_scaling.py
+MFI_DELTA_GPUS = (100, 1_000, 10_000, 1_000_000)
+MFI_DELTA_FILL = 0.45
+#: the card-resident decision loop: decisions over a fleet of this size,
+#: which starts with every GPU holding work (up to this many requests each)
+DECISION_GPUS = 10_000
+DECISION_STEPS = 10_000
+DECISION_PREFILL_TRIES = 8
+#: benchmarks/scheduler_scaling.py's fleet sizes, fill and request class
+SCALING_GPUS = (100, 1_000, 10_000)
+SCALING_PID = 2
 
 
 def log(*parts) -> None:
@@ -897,6 +929,355 @@ def serving_phase(device, wrappers):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: mfi_delta against its plain version
+# ---------------------------------------------------------------------------
+
+
+def mfi_delta_bound(occ, out, tables, a):
+    """The least time for one mfi_delta call: occ and the tables read once,
+    the (M, A) table written once; and the fp32 operations the function
+    needs.  Per row: its window counts (2·N·S) and used slices (S) once,
+    F(occ) from those counts (4·N: predicate, eligibility, select, sum) and
+    one overlap test per anchor (the count of the anchor's own window, 1).
+    Per feasible dry run: its counts, the row's plus the anchor's fixed
+    mask·W row (N), its free slices (1), F after (4·N) and ΔF (1)."""
+    m, s = occ.shape
+    n = tables.placement_masks.shape[0]
+    feasible = int((out < 1e29).sum())
+    ops = m * (2 * n * s + s + 4 * n + a) + feasible * (5 * n + 2)
+    nb = nbytes(occ, tables.placement_masks, tables.placement_mem) + 4 * a * (s + 1) + nbytes(out)
+    return bound(nb, ops), nb, ops, feasible
+
+
+def mfi_delta_phase(device):
+    import numpy as np
+    import torch
+    from repro_torch.core import cluster, mig
+    from repro_torch.kernels.fragscore import fragscore as K
+    from repro_torch.kernels.fragscore import ref
+
+    rng = np.random.default_rng(0)
+    cases = [(mig.A100_80GB, m) for m in MFI_DELTA_GPUS]
+    cases += [(mig.A100_40GB, 10_000), (mig.H200_141GB, 10_000)]
+    timed_pid = mig.PROFILE_NAMES.index("1g.10gb")  # the most anchors
+    err = 0.0
+    by_m = {}
+    for model, m in cases:
+        t = cluster.tables_for(model, device=device)
+        occ = torch.as_tensor(
+            (rng.random((m, model.num_mem_slices)) < MFI_DELTA_FILL).astype(np.int32), device=device)
+        occs = [occ]
+        if m == 10_000:  # counts above 1: the dry run's clip is the reference's
+            occs.append(occ * torch.as_tensor(
+                rng.integers(0, 3, occ.shape).astype(np.int32), device=device))
+        for x in occs:
+            for pid in range(mig.NUM_PROFILES):
+                pm = t.profile_masks[pid].to(torch.float32)
+                pv = t.profile_valid[pid].to(torch.float32)
+                for metric in ("blocked", "partial"):
+                    got = K.mfi_delta(x, t.placement_masks, t.placement_mem, pm, pv, metric=metric)
+                    want = ref.mfi_delta_ref(x, t.placement_masks, t.placement_mem, pm, pv, metric)
+                    check(torch.equal(got, want),
+                          f"mfi_delta/{model.name}/M={m}/{mig.PROFILE_NAMES[pid]}/{metric} "
+                          "differs from its plain version")
+                    err = max(err, float((got - want).abs().max()))
+        pm = t.profile_masks[timed_pid].to(torch.float32)
+        pv = t.profile_valid[timed_pid].to(torch.float32)
+        args = (occ, t.placement_masks, t.placement_mem, pm, pv)
+        ms, call_ms, src = timed(lambda: K.mfi_delta(*args), 200, "mfi_delta_kernel")
+        plain_ms, plain_call_ms, _ = timed(lambda: ref.mfi_delta_ref(*args), 20)
+        out = K.mfi_delta(*args)
+        (b_ms, b_by), nb, ops, feasible = mfi_delta_bound(occ, out, t, pm.shape[0])
+        tag = f"{model.name} M={m}"
+        by_m[tag] = dict(ms=ms, call_ms=call_ms, ms_source=src, plain_ms=plain_ms,
+                         plain_call_ms=plain_call_ms, bound_ms=b_ms, bound_by=b_by,
+                         bytes=nb, ops=ops, feasible=feasible)
+        log(f"kernel mfi_delta [{tag}, 1g.10gb, A = {pm.shape[0]}, {feasible} feasible]: "
+            f"device {ms:.5f} ms ({src}), per call {call_ms:.4f} ms; plain device "
+            f"{plain_ms:.5f} ms, per call {plain_call_ms:.4f} ms; bound {b_ms:.6f} ms "
+            f"({b_by}, {nb} bytes, {ops} ops)")
+    log(f"kernel mfi_delta: equal to plain on {len(cases)} fleets x {mig.NUM_PROFILES} classes "
+        f"x 2 metrics (+ non-binary occupancy at M = 10,000); max abs err {err}; library "
+        f"call: none (no single torch call computes it)")
+    main = by_m[f"{mig.A100_80GB.name} M=100"]
+    return dict(max_abs_err=err, library_ms=None, shape="occ (100, 8), A = 7 (1g.10gb)",
+                by_m=by_m, **{k: main[k] for k in ("ms", "call_ms", "ms_source", "plain_ms",
+                                                  "plain_call_ms", "bound_ms", "bound_by")})
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the single-decision path
+# ---------------------------------------------------------------------------
+
+
+def card_scheduler(device):
+    """A host-engine ``Scheduler`` whose every decision is made on the card
+    by ``cluster.mfi_select(use_kernel=True)`` and held to the dense
+    lowering on the card and to the host MFI scheduler on the same state."""
+    import torch
+    from repro_torch.core import cluster
+    from repro_torch.core.schedulers import Scheduler, make_scheduler
+
+    class CardMFI(Scheduler):
+        name = "mfi-card"
+
+        def __init__(self, metric="blocked"):
+            super().__init__(metric)
+            self.host = make_scheduler("mfi", metric)
+            self.calls = 0
+
+        def reset(self):
+            self.host.reset()
+            self.calls = 0
+
+        def select(self, state, profile_id):
+            occ = torch.as_tensor(state.occupancy_matrix(), device=device)
+            d = cluster.mfi_select(occ, profile_id, self.metric, use_kernel=True)
+            dense = cluster.mfi_select(occ, profile_id, self.metric, use_kernel=False)
+            check(all(torch.equal(a, b) for a, b in zip(d, dense)),
+                  f"decision {self.calls}: kernel {d} != dense {dense}")
+            sel = (int(d.gpu), int(d.anchor)) if bool(d.accepted) else None
+            want = self.host.select(state, profile_id)
+            check(sel == want, f"decision {self.calls}: card {sel} != host {want}")
+            self.calls += 1
+            return sel
+
+    return CardMFI()
+
+
+def results_equal(a, b) -> bool:
+    import dataclasses
+
+    import numpy as np
+
+    return all(np.array_equal(getattr(a, f.name), getattr(b, f.name))
+               for f in dataclasses.fields(a))
+
+
+def prefilled_fleet(m, rng):
+    """A valid A100-80GB fleet of ``m`` GPUs in which every GPU holds work:
+    each takes up to ``DECISION_PREFILL_TRIES`` requests of the uniform mix,
+    each at a random feasible anchor.  Returns its placements
+    ``[(gpu, profile, anchor)]`` in allocation order."""
+    from repro_torch.core import mig
+    from repro_torch.sim import distributions
+
+    state = mig.ClusterState(m)
+    tries = DECISION_PREFILL_TRIES
+    pids = distributions.sample_profiles("uniform", m * tries, rng)
+    placed = []
+    for g, gs in enumerate(state.gpus):
+        for pid in pids[g * tries:(g + 1) * tries].tolist():
+            anchors = gs.feasible_anchors(pid)
+            if anchors:
+                a = anchors[int(rng.integers(len(anchors)))]
+                state.allocate(len(placed), pid, g, a)
+                placed.append((g, pid, a))
+    return placed
+
+
+def decision_loop(device, wrappers):
+    """``DECISION_STEPS`` decisions over ``DECISION_GPUS`` GPUs on the card,
+    from a prefilled fleet (so large requests are rejected): seeded releases
+    of prefilled and decided requests, each guarded by its decision's
+    ``accepted``, then ``mfi_select(use_kernel=True)`` and ``mfi_allocate``
+    on the same occupancy; decisions logged on the card and read back once
+    at the end, then replayed on a host ``ClusterState``."""
+    import warnings
+
+    import numpy as np
+    import torch
+    from repro_torch.core import cluster, mig
+    from repro_torch.sim import distributions
+
+    m, steps = DECISION_GPUS, DECISION_STEPS
+    rng = np.random.default_rng(0)
+    placed = prefilled_fleet(m, rng)
+    p0 = len(placed)  # request ids: the prefill 0 .. p0-1, arrival t is p0 + t
+    arrivals = distributions.sample_profiles("uniform", steps, rng).astype(np.int32)
+    releases = [[] for _ in range(steps)]
+    # about a tenth of the prefill leaves during the loop, so the fleet stays full
+    for j, at in enumerate(rng.integers(0, 10 * steps, p0).tolist()):
+        if at < steps:
+            releases[at].append(j)
+    for t, life in enumerate(rng.integers(1, steps // 2 + 1, steps).tolist()):
+        if t + life < steps:
+            releases[t + life].append(p0 + t)
+    host = mig.ClusterState(m)
+    for j, (g, pid, a) in enumerate(placed):
+        host.allocate(j, pid, g, a)
+    pids_np = np.concatenate([np.array([p for _, p, _ in placed], np.int32), arrivals])
+    pids = torch.as_tensor(pids_np, device=device)
+    gpu = torch.as_tensor(np.array([g for g, _, _ in placed] + [0] * steps, np.int32),
+                          device=device)
+    anchor = torch.as_tensor(np.array([a for _, _, a in placed] + [0] * steps, np.int32),
+                             device=device)
+    ok = torch.as_tensor(np.arange(p0 + steps) < p0, device=device)
+    occ = torch.as_tensor(host.occupancy_matrix(), device=device)
+    start_slices = host.used_mem_slices
+    cluster.mfi_allocate(occ, pids[p0])  # warm-up (tables, allocator)
+    cluster.mfi_select(occ, pids[p0], use_kernel=True)
+    agree = torch.ones((), dtype=torch.bool, device=device)
+    torch.cuda.synchronize()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as syncs:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for t in range(steps):
+                for i in releases[t]:
+                    freed = cluster.release(occ, gpu[i], pids[i], anchor[i])
+                    occ = torch.where(ok[i], freed, occ)
+                dk = cluster.mfi_select(occ, pids[p0 + t], use_kernel=True)
+                occ, da = cluster.mfi_allocate(occ, pids[p0 + t])
+                agree &= ((dk.gpu == da.gpu) & (dk.anchor == da.anchor)
+                          & (dk.accepted == da.accepted) & (dk.delta_f == da.delta_f))
+                gpu[p0 + t], anchor[p0 + t], ok[p0 + t] = dk.gpu, dk.anchor, dk.accepted
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {k: fn.launches for k, fn in wrappers.items()}
+    sync_msgs = sorted({str(w.message)[:120] for w in syncs
+                        if "called a synchronizing CUDA operation" in str(w.message)})
+    check(not sync_msgs, f"decision loop: host syncs inside the loop: {sync_msgs}")
+    want = dict.fromkeys(wrappers, 0)
+    want["mfi_delta"] = steps
+    check(counts == want, f"decision loop: launch counts {counts} != expected {want}")
+    check(bool(agree), "decision loop: a kernel decision differs from mfi_allocate's")
+    g, a, k = gpu.cpu().numpy(), anchor.cpu().numpy(), ok.cpu().numpy()
+    for t in range(steps):
+        for i in releases[t]:
+            if k[i]:
+                host.release(i)
+        if k[p0 + t]:
+            host.allocate(p0 + t, int(pids_np[p0 + t]), int(g[p0 + t]), int(a[p0 + t]))
+    check(np.array_equal(host.occupancy_matrix(), occ.cpu().numpy()),
+          "decision loop: the card's occupancy differs from the host replay")
+    accepted = int(k[p0:].sum())
+    n_rel = sum(len(r) for r in releases)
+    guarded = sum(1 for r in releases for i in r if not k[i])
+    check(accepted < steps and guarded > 0,
+          f"decision loop: {steps - accepted} rejections, {guarded} releases of rejected "
+          "requests: the loop must exercise both")
+    log(f"decision loop: {steps} decisions at M = {m} from a prefilled fleet ({p0} requests, "
+        f"{start_slices} of {m * mig.NUM_MEM_SLICES} slices) ({accepted} accepted, "
+        f"{steps - accepted} rejected, {n_rel} releases of which {guarded} guarded off, "
+        f"{host.used_mem_slices} slices in use at the end) in {seconds:.2f} s, "
+        f"{steps / seconds:.1f} steps/s; every kernel decision equals mfi_allocate's, no host "
+        f"sync inside the loop, launches {counts}, end occupancy equals the host replay")
+    return dict(steps=steps, gpus=m, prefill=p0, start_slices=start_slices,
+                seconds=seconds, steps_per_s=steps / seconds, accepted=accepted,
+                releases=n_rel, guarded_releases=guarded, end_slices=host.used_mem_slices,
+                launches=counts["mfi_delta"])
+
+
+def decision_rates(device):
+    """``benchmarks/scheduler_scaling.py``'s decision latency on the card:
+    its random 45 %-fill occupancy (same seed, same draws) at each of its
+    fleet sizes and its profile 2 as a 0-d device tensor, both lowerings of
+    ``mfi_select``, held to each other and to the host MFI scheduler."""
+    import numpy as np
+    import torch
+    from repro_torch.core import cluster, mig
+    from repro_torch.core.schedulers import make_scheduler
+
+    rng = np.random.default_rng(0)
+    pid = torch.tensor(SCALING_PID, dtype=torch.int32, device=device)
+    host = make_scheduler("mfi")
+    rates = {}
+    for m in SCALING_GPUS:
+        occ_np = (rng.random((m, mig.NUM_MEM_SLICES)) < MFI_DELTA_FILL).astype(np.int32)
+        occ = torch.as_tensor(occ_np, device=device)
+        dk = cluster.mfi_select(occ, pid, use_kernel=True)
+        dd = cluster.mfi_select(occ, pid, use_kernel=False)
+        check(all(torch.equal(x, y) for x, y in zip(dk, dd)),
+              f"decision rate M = {m}: kernel {dk} != dense {dd}")
+        state = mig.ClusterState(m)
+        for g, gs in enumerate(state.gpus):
+            gs.occupancy[:] = occ_np[g]
+        want = host.select(state, SCALING_PID)
+        got = (int(dk.gpu), int(dk.anchor)) if bool(dk.accepted) else None
+        check(got == want, f"decision rate M = {m}: card {got} != host {want}")
+        row = {}
+        for name, use_kernel in (("kernel", True), ("dense", False)):
+            def one():
+                return cluster.mfi_select(occ, pid, use_kernel=use_kernel)
+            call_ms = cuda_ms(one, 1000, warm=20)
+            times = device_times(one, 50)
+            row[name] = dict(decisions_per_s=1e3 / call_ms, call_ms=call_ms,
+                             device_ms=sum(t for t, _ in times.values()) / 50 / 1e3,
+                             device_ops=sum(c for _, c in times.values()) / 50)
+        rates[m] = row
+        log(f"decision rate at M = {m} (scheduler_scaling.py's state, profile "
+            f"{SCALING_PID}, decision {got}): "
+            + "; ".join(f"{k} lowering {r['decisions_per_s']:.1f}/s ({r['call_ms']:.4f} ms per "
+                        f"decision, device {r['device_ms']:.4f} ms in {r['device_ops']:.1f} ops)"
+                        for k, r in row.items()))
+    return rates
+
+
+def decision_phase(device, wrappers):
+    import numpy as np
+    from repro_torch import api
+    from repro_torch.core.schedulers import make_scheduler
+    from repro_torch.sim import batched
+    from repro_torch.sim.simulator import SimConfig, run_simulation
+
+    cfg = SimConfig(num_gpus=100, offered_load=1.0, seed=0)
+    host = make_scheduler("mfi")
+    arrivals = [0]
+    host_select = host.select
+
+    def counted(state, pid):
+        arrivals[0] += 1
+        return host_select(state, pid)
+
+    host.select = counted
+    t0 = time.perf_counter()
+    want = run_simulation(host, cfg)
+    host_s = time.perf_counter() - t0
+    sched = card_scheduler(device)
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    got = run_simulation(sched, cfg)
+    card_s = time.perf_counter() - t0
+    counts = {k: fn.launches for k, fn in wrappers.items()}
+    check(results_equal(got, want), f"decision stream: {got} != host MFI {want}")
+    expected = dict.fromkeys(wrappers, 0)
+    expected["mfi_delta"] = arrivals[0]
+    check(counts == expected and sched.calls == arrivals[0],
+          f"decision stream: launch counts {counts} != expected {expected}")
+    log(f"decision stream (M = 100, load 1.0, seed 0): {arrivals[0]} arrivals decided on the "
+        f"card, mfi_delta launches {counts['mfi_delta']}; SimResult equal to the host MFI run "
+        f"(acceptance {got.acceptance_rate:.4f}, allocated {got.allocated_workloads:.0f}, "
+        f"frag {got.frag_severity:.3f}); every decision equal to the dense lowering and the "
+        f"host scheduler; {card_s:.2f} s with three lowerings per arrival, host engine alone "
+        f"{host_s:.2f} s")
+    loop = decision_loop(device, wrappers)
+    rates = decision_rates(device)
+
+    for fn in wrappers.values():
+        fn.launches = 0
+    kw = dict(runs=64, num_gpus=100, offered_load=1.0, seed=0)
+    via_api = api.simulate("mfi", engine="batched", **kw)
+    api_counts = {k: fn.launches for k, fn in wrappers.items()}
+    direct = batched.run_batched("mfi", SimConfig(num_gpus=100, offered_load=1.0, seed=0), runs=64)
+    check(via_api.keys() == direct.keys()
+          and all(np.array_equal(via_api[k], direct[k]) for k in direct),
+          "api.simulate(engine='batched') differs from run_batched")
+    check(api_counts["select_from_base"] > 0 and api_counts["fragscore"] > 0,
+          f"api.simulate(engine='batched') did not run the kernels: {api_counts}")
+    log(f"api.simulate('mfi', engine='batched', runs=64, M=100, load 1.0, seed 0) equals "
+        f"run_batched; launches {api_counts}; acceptance {via_api['acceptance_rate']:.4f}")
+    return dict(arrivals=arrivals[0], launches=counts["mfi_delta"], stream_s=card_s,
+                host_s=host_s, loop=loop, rates=rates, api_launches=api_counts)
+
+
 def main() -> int:
     import torch
 
@@ -931,7 +1312,7 @@ def main() -> int:
     for name, result in built.items():
         log(f"  {result.path.name}: nvcc {result.seconds:.2f} s")
         for line in result.log.splitlines():
-            if "registers" in line or "Compiling entry" in line:
+            if "registers" in line or "Compiling entry" in line or "spill" in line:
                 log(f"  ptxas: {line.strip()}")
 
     rows = kernel_phase(device)
@@ -940,13 +1321,17 @@ def main() -> int:
     rows["decode_attention"] = decode_attention_phase(device)
     wrappers = {"fragscore": K.fragscore, "delta_from_base": K.delta_from_base,
                 "select_from_base": K.select_from_base, "migrate_refine": K.migrate_refine,
-                "decode_attention": D.decode_attention}
+                "decode_attention": D.decode_attention, "mfi_delta": K.mfi_delta}
     serving = serving_phase(device, wrappers)
     totals["decode_attention"] = serving["launches"]
+    rows["mfi_delta"] = mfi_delta_phase(device)
+    decisions = decision_phase(device, wrappers)
+    totals["mfi_delta"] = decisions["launches"]
 
     kernels = []
     for name, row in rows.items():
-        extra = {k: row[k] for k in ("tolerance", "errors", "long", "library_call_ms") if k in row}
+        extra = {k: row[k] for k in ("tolerance", "errors", "long", "library_call_ms", "by_m")
+                 if k in row}
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
             launches=totals[name], max_abs_err=row["max_abs_err"], ms=row["ms"],
@@ -957,6 +1342,7 @@ def main() -> int:
     log(json.dumps({"engine_replica_events_per_s": {
         k: {"kernel": v[0], "plain": v[1]} for k, v in rates.items()}}))
     log(json.dumps({"serving": serving}))
+    log(json.dumps({"decisions": decisions}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,17 @@
-"""Per-device-model placement tables and fragmentation scoring in torch.
+"""Per-device-model placement tables, fragmentation scoring and the
+single-decision MFI scheduler in torch.
 
-The paper's Algorithm 1 is a per-GPU python loop; here it is bitmask
+The paper's Algorithms 1/2 are per-GPU python loops; here they are bitmask
 algebra over a batch of GPUs: occupancy ``X (M, S)`` against the device
 model's placement-window matrix ``Wᵀ (S, N)``, the partial-window
 predicate and a weighted reduction.  Every score is integer-valued, hence
 exact in float32.
+
+:func:`mfi_select` is the one entry point of both lowerings of Algorithm
+2: the dense torch dry run and the hand-written ``mfi_delta`` CUDA kernel
+(``use_kernel=True``).  Every function here follows its tensors' device;
+a profile id may be a Python int or a 0-d integer tensor on ``occ``'s
+device, which is never read back to the host.
 """
 
 from __future__ import annotations
@@ -17,6 +24,10 @@ import torch
 
 from repro_torch.core import mig
 from repro_torch.device import resolve_device
+from repro_torch.kernels.fragscore import fragscore as _k
+from repro_torch.kernels.fragscore.ref import MFI_BIG, first_true
+
+MAX_ANCHORS = max(p.num_placements for p in mig.PROFILES)  # 7
 
 
 class DeviceTables(NamedTuple):
@@ -85,6 +96,11 @@ def tables_for(
     return _tables_for(model, max_anchors, str(resolve_device(device)))
 
 
+def _tables(occ: torch.Tensor, tables: Optional[DeviceTables]) -> DeviceTables:
+    """``tables``, defaulting to the A100-80GB tables on ``occ``'s device."""
+    return tables_for(mig.A100_80GB, device=occ.device) if tables is None else tables
+
+
 def frag_scores(
     occ: torch.Tensor, metric: str = "blocked", tables: Optional[DeviceTables] = None
 ) -> torch.Tensor:
@@ -92,7 +108,7 @@ def frag_scores(
 
     ``tables`` defaults to the A100-80GB tables on ``occ``'s device.
     """
-    t = tables_for(mig.A100_80GB, device=occ.device) if tables is None else tables
+    t = _tables(occ, tables)
     occf = occ.to(torch.float32)
     occ_in_window = occf @ t.placement_masks.T  # (M, N)
     size = t.placement_mem[None, :]
@@ -105,3 +121,162 @@ def frag_scores(
     free = t.num_mem_slices - occf.sum(dim=1, keepdim=True)  # (M, 1)
     eligible = size <= free
     return torch.where(counted & eligible, size, 0.0).sum(dim=1)
+
+
+class MFIDecision(NamedTuple):
+    gpu: torch.Tensor       # int32, -1 when rejected
+    anchor: torch.Tensor    # int32, -1 when rejected
+    accepted: torch.Tensor  # bool
+    delta_f: torch.Tensor   # float32 ΔF of the chosen placement (0 when rejected)
+
+
+def _row(table: torch.Tensor, profile_id) -> torch.Tensor:
+    """``table[profile_id]``; a tensor id is gathered on the device (plain
+    indexing by a 0-d tensor may read it back to the host)."""
+    if isinstance(profile_id, torch.Tensor):
+        return table.index_select(0, profile_id.reshape(1).long())[0]
+    return table[profile_id]
+
+
+def _at(t: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """``t[k]`` of a 1-d tensor at a 0-d index tensor, on the device."""
+    return t.gather(0, k.reshape(1))[0]
+
+
+def placement_feasibility(
+    occ: torch.Tensor, profile_id, tables: Optional[DeviceTables] = None,
+    gpu_ok: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """(M, A) bool — anchors of ``profile_id`` whose window is fully free.
+
+    Columns follow ``tables.profile_anchors[profile_id]`` (ascending anchor
+    order); padded anchor columns are always infeasible.  ``gpu_ok`` is an
+    optional (M,) bool availability mask (False rows — e.g. failed GPUs —
+    are infeasible regardless of occupancy).
+    """
+    t = _tables(occ, tables)
+    masks = _row(t.profile_masks, profile_id)  # (A, S) int32
+    valid = _row(t.profile_valid, profile_id)  # (A,)
+    overlap = occ.to(torch.float32) @ masks.T.to(torch.float32)  # (M, A)
+    feasible = (overlap == 0) & valid[None, :]
+    if gpu_ok is not None:
+        feasible = feasible & gpu_ok[:, None]
+    return feasible
+
+
+def placement_delta_f(
+    occ: torch.Tensor,
+    profile_id,
+    metric: str = "blocked",
+    frag_fn=None,
+    tables: Optional[DeviceTables] = None,
+) -> torch.Tensor:
+    """(M, A) float32 — ΔF of every dry-run placement of ``profile_id``.
+
+    ``frag_fn`` maps an (N, S) occupancy to (N,) scores; defaults to the
+    plain :func:`frag_scores` (the ``fragscore`` kernel is a drop-in — see
+    :mod:`repro_torch.kernels.fragscore.ops`).
+    """
+    t = _tables(occ, tables)
+    if frag_fn is None:
+        frag_fn = functools.partial(frag_scores, metric=metric, tables=t)
+    masks = _row(t.profile_masks, profile_id)  # (A, S) int32
+    f_before = frag_fn(occ)  # (M,)
+    hypo = torch.clamp(occ[:, None, :] + masks[None, :, :], max=1)  # (M, A, S)
+    f_after = frag_fn(hypo.reshape(-1, t.num_mem_slices)).reshape(occ.shape[0], -1)
+    return f_after - f_before[:, None]
+
+
+def mfi_select(
+    occ: torch.Tensor,
+    profile_id,
+    metric: str = "blocked",
+    tables: Optional[DeviceTables] = None,
+    use_kernel: bool = False,
+) -> MFIDecision:
+    """Algorithm 2's argmin over all feasible (GPU, anchor) dry-runs.
+
+    The single entry point for both lowerings: the dense torch dry run
+    (default) and the ``mfi_delta`` CUDA kernel (``use_kernel=True`` —
+    feasibility + ΔF in one launch on a CUDA ``occ``; its plain torch
+    version on a CPU one).  Both produce the identical decision: scores are
+    integer-valued, the argmin's first-occurrence tie-break is shared.  The
+    reference's TPU-only ``interpret`` argument has no counterpart.
+
+    Args:
+      occ: (M, S) int32 occupancy of same-model GPUs (``tables`` selects the
+        model; default A100-80GB on ``occ``'s device).
+      profile_id: Python int or 0-d int tensor on ``occ``'s device.
+    """
+    t = _tables(occ, tables)
+    anchors = _row(t.profile_anchors, profile_id)  # (A,)
+    if use_kernel:
+        big = MFI_BIG  # the kernel's own infeasibility sentinel
+        scored = _k.mfi_delta(
+            occ,
+            t.placement_masks,
+            t.placement_mem,
+            _row(t.profile_masks, profile_id).to(torch.float32),
+            _row(t.profile_valid, profile_id).to(torch.float32),
+            metric=metric,
+        )
+    else:
+        feasible = placement_feasibility(occ, profile_id, t)
+        delta = placement_delta_f(occ, profile_id, metric, tables=t)
+        big = 1e9
+        scored = torch.where(feasible, delta, big)
+    flat = scored.reshape(-1)
+    k = torch.argmin(flat)  # first occurrence == (gpu, anchor) lexicographic tie-break
+    best = _at(flat, k)
+    accepted = best < big
+    a = scored.shape[1]
+    gpu = torch.where(accepted, k // a, -1).to(torch.int32)
+    anchor = torch.where(accepted, _at(anchors, k % a), -1).to(torch.int32)
+    return MFIDecision(gpu, anchor, accepted, torch.where(accepted, best, 0.0))
+
+
+def _with_row(occ: torch.Tensor, row, fn) -> torch.Tensor:
+    """A copy of ``occ`` whose row ``row`` (Python int or 0-d tensor;
+    negative rows wrap, as in the reference) is ``fn(occ[row])``."""
+    if isinstance(row, torch.Tensor):
+        idx = row.reshape(1).long()
+        return occ.index_put((idx,), fn(occ[idx][0])[None])
+    out = occ.clone()
+    out[row] = fn(occ[row])
+    return out
+
+
+def mfi_allocate(
+    occ: torch.Tensor,
+    profile_id,
+    metric: str = "blocked",
+    tables: Optional[DeviceTables] = None,
+) -> Tuple[torch.Tensor, MFIDecision]:
+    """Select (dense lowering) AND commit: returns ``(new_occ, decision)``;
+    ``occ`` itself is not modified."""
+    t = _tables(occ, tables)
+    d = mfi_select(occ, profile_id, metric, t)
+    aidx = first_true(_row(t.profile_anchors, profile_id) == d.anchor)
+    mask = _row(_row(t.profile_masks, profile_id), aidx)
+    mask = mask * d.accepted.to(mask.dtype)  # zero mask when rejected
+    row = torch.where(d.accepted, d.gpu, 0)
+    return _with_row(occ, row, lambda r: torch.clamp(r + mask, max=1)), d
+
+
+def release(
+    occ: torch.Tensor,
+    gpu,
+    profile_id,
+    anchor,
+    tables: Optional[DeviceTables] = None,
+) -> torch.Tensor:
+    """Free a previously committed placement: a copy of ``occ``.
+
+    As in the reference, a rejected decision's ``(gpu, anchor) = (-1, -1)``
+    is not a no-op: row -1 is the last GPU and an anchor that matches no
+    column frees column 0's window.
+    """
+    t = _tables(occ, tables)
+    aidx = first_true(_row(t.profile_anchors, profile_id) == anchor)
+    mask = _row(_row(t.profile_masks, profile_id), aidx)
+    return _with_row(occ, gpu, lambda r: torch.clamp(r - mask, min=0))

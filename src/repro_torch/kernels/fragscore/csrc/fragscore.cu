@@ -1,5 +1,6 @@
-// Fragmentation-scoring kernels of the batched Monte-Carlo engine, written
-// by hand for Hopper (sm_90a), behind a plain C interface loaded with ctypes
+// Fragmentation-scoring kernels of the batched Monte-Carlo engine and of the
+// single-decision scheduler API (mfi_delta), written by hand for Hopper
+// (sm_90a), behind a plain C interface loaded with ctypes
 // (repro_torch/kernels/build.py builds this file with nvcc at first use).
 //
 // Every launcher runs its kernel on the stream it is given, never
@@ -17,6 +18,8 @@
 // (a few microseconds), not by bytes or operations; the designs keep one
 // launch per engine stage and read every table once per block.
 // migrate_refine reads ~40 MB a call, so bytes bound it (see its note).
+// mfi_delta serves one scheduling decision over up to 10^6 GPUs, where its
+// bytes bound it (see its note).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -33,6 +36,7 @@ constexpr int kDeltaThreads = 256;
 constexpr int kSelectThreads = 128;
 constexpr int kMigrateThreads = 128;
 constexpr float kBig = 1e9f;  // the masked-key sentinel (ref.BIG)
+constexpr float kMfiBig = 1e30f;  // mfi_delta's infeasibility sentinel (ref.MFI_BIG)
 
 // ---------------------------------------------------------------------------
 // fragscore — replaces kernels/fragscore/fragscore.py::fragscore (Pallas,
@@ -46,6 +50,26 @@ constexpr float kBig = 1e9f;  // the masked-key sentinel (ref.BIG)
 // thread per row (no cross-thread reduction at all), the (N, S) window
 // table staged once per block in shared memory, the row held in registers.
 // ---------------------------------------------------------------------------
+
+// F of one occupancy row x (its slices past s are 0), used = the row's sum.
+__device__ __forceinline__ float score_row(const float (&x)[kMaxSlices], float used,
+                                           const float* sw, const float* sv, int n,
+                                           int s, int partial) {
+  const float free_slices = static_cast<float>(s) - used;
+  float acc = 0.f;
+  for (int i = 0; i < n; ++i) {
+    float inwin = 0.f;
+#pragma unroll
+    for (int j = 0; j < kMaxSlices; ++j) {
+      if (j < s) inwin += x[j] * sw[i * s + j];
+    }
+    const float vi = sv[i];
+    const bool counted = partial ? (inwin > 0.f && inwin < vi) : (inwin > 0.f);
+    if (counted && vi <= free_slices) acc += vi;
+  }
+  return acc;
+}
+
 __global__ void __launch_bounds__(kFragThreads) fragscore_kernel(
     const int32_t* __restrict__ occ, const float* __restrict__ w,
     const float* __restrict__ v, float* __restrict__ out, int q, int n, int s,
@@ -66,19 +90,81 @@ __global__ void __launch_bounds__(kFragThreads) fragscore_kernel(
     x[j] = j < s ? static_cast<float>(o[j]) : 0.f;
     used += x[j];
   }
-  const float free_slices = static_cast<float>(s) - used;
-  float acc = 0.f;
-  for (int i = 0; i < n; ++i) {
-    float inwin = 0.f;
+  out[row] = score_row(x, used, sw, sv, n, s, partial);
+}
+
+// ---------------------------------------------------------------------------
+// mfi_delta — replaces kernels/fragscore/fragscore.py::mfi_delta (Pallas,
+// _mfi_delta_kernel/_score_block; src/repro/kernels/fragscore/fragscore.py:133)
+// of the JAX package: the ΔF table of one scheduling decision.
+//
+// For every GPU row of raw occupancy occ (M, S) and every anchor k of the
+// requested class: F(min(occ + mask_k, 1)) - F(occ) where the anchor is real
+// and its window holds no occupied slice, exactly 1e30 otherwise.  The
+// reference's float arithmetic is kept (window counts as float dot products,
+// every slice clipped to 1 in the dry run), so the kernel gives its plain
+// version's answer for any occupancy whose sums are exact in float32.
+//
+// Bound: bytes.  Per row it reads S int32 and writes A floats (M = 10^6
+// A100-80GB rows, 1g.10gb: 32 MB + 28 MB, 18 µs at 3.35 TB/s).  On 0/1
+// occupancy the function needs fewer operations than this kernel does: the
+// row's window counts once (2·N·S), F(occ) from them (4·N) and, per
+// feasible anchor, the counts plus the anchor's fixed mask·W row (N) and F
+// after (4·N): ~0.73 GFLOP at 45 % fill, 11 µs at 67 TFLOP/s.  This kernel instead rescores
+// every feasible dry run from its slices, N·(2·S + 3) per anchor.  At
+// M <= 10^4 the launch (a few µs) bounds it.  Design: one thread per row,
+// the row in registers (no cross-thread reduction), the model's window
+// table and the class's anchor masks staged once per block in shared memory
+// (at most N = 31, S = 12, A = 12: 2.2 KB), F of a dry run computed only
+// for a feasible anchor.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kFragThreads) mfi_delta_kernel(
+    const int32_t* __restrict__ occ, const float* __restrict__ w,
+    const float* __restrict__ v, const float* __restrict__ pm,
+    const float* __restrict__ pv, float* __restrict__ out, int m, int n, int s,
+    int a, int partial) {
+  extern __shared__ float sh[];
+  float* sw = sh;
+  float* sv = sw + n * s;
+  float* spm = sv + n;
+  float* spv = spm + a * s;
+  for (int i = threadIdx.x; i < n * s; i += blockDim.x) sw[i] = w[i];
+  for (int i = threadIdx.x; i < n; i += blockDim.x) sv[i] = v[i];
+  for (int i = threadIdx.x; i < a * s; i += blockDim.x) spm[i] = pm[i];
+  for (int i = threadIdx.x; i < a; i += blockDim.x) spv[i] = pv[i];
+  __syncthreads();
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (row >= m) return;
+  const int32_t* o = occ + row * s;
+  float x[kMaxSlices];
+  float used = 0.f;
+#pragma unroll
+  for (int j = 0; j < kMaxSlices; ++j) {
+    x[j] = j < s ? static_cast<float>(o[j]) : 0.f;
+    used += x[j];
+  }
+  const float fb = score_row(x, used, sw, sv, n, s, partial);
+  float* dst = out + row * a;
+  for (int k = 0; k < a; ++k) {
+    const float* mk = spm + k * s;
+    float overlap = 0.f;
 #pragma unroll
     for (int j = 0; j < kMaxSlices; ++j) {
-      if (j < s) inwin += x[j] * sw[i * s + j];
+      if (j < s) overlap += x[j] * mk[j];
     }
-    const float vi = sv[i];
-    const bool counted = partial ? (inwin > 0.f && inwin < vi) : (inwin > 0.f);
-    if (counted && vi <= free_slices) acc += vi;
+    float delta = kMfiBig;
+    if (overlap == 0.f && spv[k] > 0.f) {
+      float h[kMaxSlices];
+      float hused = 0.f;
+#pragma unroll
+      for (int j = 0; j < kMaxSlices; ++j) {
+        h[j] = j < s ? fminf(x[j] + mk[j], 1.f) : 0.f;
+        hused += h[j];
+      }
+      delta = score_row(h, hused, sw, sv, n, s, partial) - fb;
+    }
+    dst[k] = delta;
   }
-  out[row] = acc;
 }
 
 // The ΔF arithmetic shared by delta_from_base and select_from_base.  Window
@@ -631,6 +717,23 @@ int fragscore_launch(const void* occ, const void* w, const void* v, void* out,
   fragscore_kernel<<<blocks, kFragThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(occ), static_cast<const float*>(w),
       static_cast<const float*>(v), static_cast<float*>(out), q, n, s, partial);
+  return cudaGetLastError();
+}
+
+int mfi_delta_launch(const void* occ, const void* w, const void* v,
+                     const void* profile_masks, const void* profile_valid,
+                     void* out, int m, int n, int s, int a, int partial,
+                     int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (m <= 0 || a <= 0 || s > kMaxSlices) return cudaErrorInvalidValue;
+  const int blocks = (m + kFragThreads - 1) / kFragThreads;
+  const size_t smem = sizeof(float) * static_cast<size_t>(n * s + n + a * s + a);
+  mfi_delta_kernel<<<blocks, kFragThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(occ), static_cast<const float*>(w),
+      static_cast<const float*>(v), static_cast<const float*>(profile_masks),
+      static_cast<const float*>(profile_valid), static_cast<float*>(out), m, n,
+      s, a, partial);
   return cudaGetLastError();
 }
 

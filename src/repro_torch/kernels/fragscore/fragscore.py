@@ -1,4 +1,4 @@
-"""Wrappers of the four fragscore CUDA kernels (``csrc/fragscore.cu``).
+"""Wrappers of the five fragscore CUDA kernels (``csrc/fragscore.cu``).
 
 Each wrapper takes its operands in the engine's layout (see
 :mod:`repro_torch.kernels.fragscore.ref`).  For tensors that lie on the CPU
@@ -14,7 +14,10 @@ raises.  There is no fallback from the card to the plain version.
 * :func:`select_from_base` — each replica's whole decision, ΔF plus the
   masked lexicographic argmin (argmin-fusable specs);
 * :func:`migrate_refine` — both refinements of the defrag migrate search
-  (argmin-fusable defrag specs).
+  (argmin-fusable defrag specs);
+* :func:`mfi_delta` — the ``(M, A)`` ΔF table of one scheduling decision
+  from raw occupancy (:func:`repro_torch.core.cluster.mfi_select` with
+  ``use_kernel=True``).
 """
 
 from __future__ import annotations
@@ -39,8 +42,10 @@ def _lib() -> ctypes.CDLL:
     lib.delta_from_base_launch.argtypes = [p] * 9 + [i] * 7 + [p]
     lib.select_from_base_launch.argtypes = [p] * 14 + [i] * 10 + [p]
     lib.migrate_refine_launch.argtypes = [p] * 27 + [i] * 11 + [p]
+    lib.mfi_delta_launch.argtypes = [p] * 6 + [i] * 6 + [p]
     for fn in (lib.fragscore_launch, lib.delta_from_base_launch,
-               lib.select_from_base_launch, lib.migrate_refine_launch):
+               lib.select_from_base_launch, lib.migrate_refine_launch,
+               lib.mfi_delta_launch):
         fn.restype = ctypes.c_int
     return lib
 
@@ -74,6 +79,41 @@ def fragscore(
 
 
 fragscore.launches = 0
+
+
+def mfi_delta(
+    occ: torch.Tensor,
+    w: torch.Tensor,
+    v: torch.Tensor,
+    profile_masks: torch.Tensor,
+    profile_valid: torch.Tensor,
+    *,
+    metric: str = "blocked",
+) -> torch.Tensor:
+    """ΔF ``(M, A)`` of every anchor dry-run of one request on every row of
+    ``occ (M, S)`` int32, under placement table ``w (N, S)``/``v (N,)`` and
+    the requested class's anchor windows ``profile_masks (A, S)`` with
+    ``profile_valid (A,)`` (all float32); exactly ``1e30`` where infeasible."""
+    partial = _metric_flag(metric)
+    if on_cpu(occ, w, v, profile_masks, profile_valid):
+        return ref.mfi_delta_ref(occ, w, v, profile_masks, profile_valid, metric)
+    m, s = occ.shape
+    n, a = w.shape[0], profile_masks.shape[0]
+    check("occ", occ, torch.int32, (m, s))
+    check("w", w, torch.float32, (n, s))
+    check("v", v, torch.float32, (n,))
+    check("profile_masks", profile_masks, torch.float32, (a, s))
+    check("profile_valid", profile_valid, torch.float32, (a,))
+    out = torch.empty((m, a), dtype=torch.float32, device=occ.device)
+    if m and a:
+        launch(_lib().mfi_delta_launch, occ.data_ptr(), w.data_ptr(), v.data_ptr(),
+               profile_masks.data_ptr(), profile_valid.data_ptr(), out.data_ptr(),
+               m, n, s, a, partial, device=occ.device)
+        mfi_delta.launches += 1
+    return out
+
+
+mfi_delta.launches = 0
 
 
 def _table_args(base, free, f, midx, V, maskwin, profile_mem):

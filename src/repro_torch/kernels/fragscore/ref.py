@@ -1,4 +1,4 @@
-"""Plain torch versions of the four fragscore kernels.
+"""Plain torch versions of the five fragscore kernels.
 
 Each function computes exactly what its CUDA kernel in ``csrc/fragscore.cu``
 computes, on the same operands, in plain tensor ops.  The wrappers in
@@ -7,9 +7,14 @@ lie on the CPU; on the card ``chip_smoke.py`` holds each kernel equal to
 its plain version.  Every score is integer-valued, hence exact in float32:
 equality, not tolerance, is the contract.
 
-Operand layout (the engine's own, ``R`` replicas of an ``M``-GPU fleet of
-``K`` device models, ``N`` padded placement windows, ``A`` padded anchors,
-``P`` demand classes):
+``mfi_delta`` takes the single-decision API's operands instead: raw
+``occ (M, S)`` int32 occupancy of same-model GPUs, the model's placement
+table ``w (N, S)``/``v (N,)`` and the requested class's padded anchor
+windows ``profile_masks (A, S)`` with ``profile_valid (A,)``, all float32.
+
+Operand layout of the other four (the engine's own, ``R`` replicas of an
+``M``-GPU fleet of ``K`` device models, ``N`` padded placement windows,
+``A`` padded anchors, ``P`` demand classes):
 
 * ``base (R, M, N)`` float32 — occupied-slice count per placement window;
 * ``free (R, M)`` int32 — free memory slices per GPU;
@@ -55,6 +60,37 @@ def fragscore_ref(
     free = occf.shape[-1] - occf.sum(dim=-1, keepdim=True)
     eligible = v[None, :] <= free
     return torch.where(counted & eligible, v[None, :], 0.0).sum(dim=-1)
+
+
+#: the ``mfi_delta`` kernel's own infeasibility sentinel (the reference's)
+MFI_BIG = 1e30
+
+
+def mfi_delta_ref(
+    occ: torch.Tensor,
+    w: torch.Tensor,
+    v: torch.Tensor,
+    profile_masks: torch.Tensor,
+    profile_valid: torch.Tensor,
+    metric: str = "blocked",
+) -> torch.Tensor:
+    """ΔF of placing the requested class at each anchor of every GPU,
+    ``(M, A)`` float32, exactly :data:`MFI_BIG` where the placement is
+    infeasible (the window overlaps occupancy, or the anchor is padding).
+
+    The reference's arithmetic: ``F(min(occ + mask, 1)) − F(occ)`` with
+    float32 window counts, so any occupancy values give its answer.
+    """
+    occf = occ.to(torch.float32)
+    m, s = occf.shape
+    a = profile_masks.shape[0]
+    masks = profile_masks.to(torch.float32)
+    f_before = fragscore_ref(occf, w, v, metric)                       # (M,)
+    overlap = (occf[:, None, :] * masks[None]).sum(dim=-1)             # (M, A)
+    feasible = (overlap == 0) & (profile_valid > 0)[None, :]
+    hypo = torch.clamp(occf[:, None, :] + masks[None], max=1.0)        # (M, A, S)
+    f_after = fragscore_ref(hypo.reshape(m * a, s), w, v, metric).reshape(m, a)
+    return torch.where(feasible, f_after - f_before[:, None], MFI_BIG)
 
 
 def _delta_dense(base, free, f, v, mw, mem, metric: str) -> torch.Tensor:
