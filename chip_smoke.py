@@ -14,7 +14,8 @@ Phases, each printing its own lines:
    every demand class, both metrics, the fusable key sets, homogeneous and
    four-model tables; for ``migrate_refine`` C_live = 800 victims per
    replica), equal with a tolerance of 0, with its time, its bound on the
-   card and its plain version's time;
+   card and its plain version's time (``migrate_refine`` also alone with
+   no victims, C = 0: its pass 0, and pass 1 by difference);
 4. the pinned golden results of the reference package, mfi-defrag's
    included, reproduced with the kernels on;
 5. the paper's experiment at full width (M = 100 A100-80GB, uniform mix,
@@ -26,12 +27,18 @@ Phases, each printing its own lines:
    the mfi-defrag step;
 6. the ``decode_attention`` kernel against its plain torch version
    (float32: max abs error <= 1e-5; bfloat16: |kernel - plain| <= 2e-2 +
-   2e-2·|plain|, the plain version computed in float32 from the same
-   bfloat16 inputs) at (a) the serving path's shape (B = 4 slots, H = 32,
-   K = 8, D = 64, S = max_len = 161, bf16, length = pos + 1), (b) a long
-   serving shape (B = 8, S = 8192, bf16, ragged lengths from 1 to S) and
-   (c) float32 with a scale override, with its device time, time per
-   call, bound, plain time and the time of ``scaled_dot_product_attention``;
+   2e-2·|plain| and, scale-aware, <= 2^-7·|plain| + 2^-10·rms(plain row),
+   the plain version computed in float32 from the same bfloat16 inputs),
+   two calls on the same inputs equal bit for bit, at
+   (a) the serving path's shape (B = 4 slots, H = 32, K = 8, D = 64,
+   S = max_len = 161, bf16, length = pos + 1), (b) a long serving shape
+   (B = 8, S = 8192, bf16, ragged lengths from 1 to S), (c) B = 4,
+   S = 2048, (d) B = 1, S = 32,768 (67 MB of cache, the split the only
+   parallelism), float32 with a scale override and G = 12, and the
+   split-KV edges (lengths 0, 1, one split and one split ± 1 with S not a
+   multiple of the split; G = 1 and G = 8; bf16 at D = 128 and 256); for
+   (a)-(d) its device time, time per call, bound, plain time and the time
+   of ``scaled_dot_product_attention`` (the kernel must beat it at (b));
 7. the serving path at full width: ``llama3.2-1b`` (bf16, random weights
    from a ``torch.Generator`` seeded 0) behind the MIG admission controller
    (4 A100-80GB GPUs, mfi, 16 requests of the uniform mix, prompts of 128
@@ -157,6 +164,11 @@ SERVE_MAX_LEN = SERVE_PROMPT + SERVE_NEW + 1
 #: tolerances of decode_attention against its plain version (PERF.md)
 F32_ATOL = 1e-5
 BF16_ATOL = BF16_RTOL = 2e-2
+#: and the scale-aware bound every bf16 output is held to beside it: one
+#: rounding to bf16 (at most 2^-8·|plain|) with as much again for the
+#: float32 arithmetic, and 2^-10 of the row's rms where |plain| is near 0
+BF16_TIGHT_RTOL = 2.0 ** -7
+BF16_TIGHT_ROW_ATOL = 2.0 ** -10
 #: victims per replica of the migrate search at M = 100 (min(C, M·S))
 C_LIVE = 800
 #: fleet sizes of the mfi_delta kernel check (A100-80GB): the paper's
@@ -435,6 +447,11 @@ def migrate_kernel_phase(device, rng, homog, four):
     ms, call_ms, src = timed(lambda: K.migrate_refine(*hargs, keys=hkeys), 200,
                              "migrate_refine_kernel")
     plain_ms, plain_call_ms, _ = timed(lambda: ref.migrate_refine_ref(*hargs, hkeys), 10)
+    # pass 0 alone: the same call with no victims (C = 0); pass 1 by difference
+    no_victims = tuple(t[:, :0].contiguous() for t in hargs[3:9])
+    pass0_args = hargs[:3] + no_victims + hargs[9:]
+    pass0_ms, _, _ = timed(lambda: K.migrate_refine(*pass0_args, keys=hkeys), 200,
+                           "migrate_refine_kernel")
     outs = K.migrate_refine(*hargs, keys=hkeys)
     base, _, _, base2, _, _, _, rp, kc, midx32 = hargs[:10]
     tables = batched.spec_tables(homog, device)
@@ -459,8 +476,10 @@ def migrate_kernel_phase(device, rng, homog, four):
         f"mfi-defrag and bf-bi-keyed defrag keys, C_live = {c}); device {ms:.5f} ms ({src}), "
         f"per call {call_ms:.4f} ms; plain device {plain_ms:.5f} ms, per call "
         f"{plain_call_ms:.4f} ms; bound {b_ms:.6f} ms ({b_by}, "
-        f"{nbytes(*hargs) + nbytes(*outs)} bytes, {ops} ops)")
+        f"{nbytes(*hargs) + nbytes(*outs)} bytes, {ops} ops); pass 0 alone (C = 0) "
+        f"{pass0_ms:.5f} ms, pass 1 by difference {ms - pass0_ms:.5f} ms")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                pass0_ms=pass0_ms, pass1_ms=ms - pass0_ms,
                 call_ms=call_ms, plain_call_ms=plain_call_ms, ms_source=src,
                 shape=f"base ({r}, {m}, {nn}), base2 ({r}, {c}, {nn}), A = {a}")
 
@@ -646,18 +665,26 @@ def attention_inputs(b, s, kheads, group, d, dtype, lengths, gen, device):
     return q, k, v, torch.as_tensor(lengths, dtype=torch.int32, device=device)
 
 
-def attention_error(got, want, dtype) -> float:
-    """Max abs error of the kernel's output against the plain version
-    computed in float32; raises past the dtype's tolerance."""
+def attention_error(got, want, dtype):
+    """``(max abs error, worst error / scale-aware limit)`` of the kernel's
+    output against the plain version computed in float32; raises past the
+    dtype's tolerance and, for bf16, past the scale-aware bound
+    ``2^-7·|plain| + 2^-10·rms(plain row)`` (the ratio is None for f32)."""
     import torch
 
-    err = (got.float() - want.float()).abs()
+    want = want.float()
+    err = (got.float() - want).abs()
     if dtype == torch.float32:
         check(float(err.max()) <= F32_ATOL, f"decode_attention f32 error {float(err.max())}")
-    else:
-        bad = err > BF16_ATOL + BF16_RTOL * want.float().abs()
-        check(not bool(bad.any()), f"decode_attention bf16 error {float(err.max())}")
-    return float(err.max())
+        return float(err.max()), None
+    bad = err > BF16_ATOL + BF16_RTOL * want.abs()
+    check(not bool(bad.any()), f"decode_attention bf16 error {float(err.max())}")
+    rms = want.pow(2).mean(dim=-1, keepdim=True).sqrt()
+    limit = BF16_TIGHT_RTOL * want.abs() + BF16_TIGHT_ROW_ATOL * rms
+    ratio = float(torch.where(limit > 0, err / limit, err * float("inf")).nan_to_num(0.0).max())
+    check(ratio <= 1.0, f"decode_attention bf16 error {float(err.max())} is {ratio:.3g} times "
+                        f"its scale-aware limit 2^-7·|plain| + 2^-10·rms(plain row)")
+    return float(err.max()), ratio
 
 
 def attention_bound(q, k, lengths, out):
@@ -690,29 +717,46 @@ def sdpa_call(q, k, v, lengths):
 def decode_attention_phase(device):
     import torch
     from repro_torch.kernels.decode_attention import decode_attention as D
+    from repro_torch.kernels.decode_attention import split
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
     gen = torch.Generator(device).manual_seed(0)
     bf16, f32 = torch.bfloat16, torch.float32
     pos = SERVE_MAX_LEN - 3  # the last decode step of a wave
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    # the split length the kernel plans for the edge cases (B = 6, K = 8,
+    # S = 3000, not a multiple of it): lengths 0, 1 and one split - 1, + 0, + 1
+    edge_len, edge_splits = split.plan_splits(6, 8, 3000, sms)
+    check(3000 % edge_len != 0 and edge_splits > 2, f"edge plan {edge_len} x {edge_splits}")
+    edges = [0, 1, edge_len - 1, edge_len, edge_len + 1, 3000]
     cases = {
         "serving": (SERVE_SLOTS, SERVE_MAX_LEN, 8, 4, 64, bf16, [pos + 1] * SERVE_SLOTS, None),
         "long": (8, 8192, 8, 4, 64, bf16, [1, 8192, 4000, 17, 8191, 5000, 2, 6000], None),
+        "middle": (4, 2048, 8, 4, 64, bf16, [2048, 1500, 700, 2047], None),
+        "b1-32k": (1, 32768, 8, 4, 64, bf16, [32768], None),
         "f32-scale": (4, 1000, 8, 4, 64, f32, [1, 1000, 0, 517], 0.1),
         "f32-wide": (3, 300, 2, 12, 128, f32, [300, 1, 150], 0.3),
+        "split-edges-f32": (6, 3000, 8, 4, 64, f32, edges, None),
+        "split-edges-bf16": (6, 3000, 8, 4, 64, bf16, edges, None),
+        "g1": (4, 1000, 8, 1, 64, bf16, [1000, 1, 0, 333], None),
+        "g8": (4, 1000, 8, 8, 64, bf16, [1000, 64, 65, 999], None),
+        "bf16-d128": (4, 1000, 8, 4, 128, bf16, [1000, 128, 0, 771], None),
+        "bf16-d256": (2, 600, 4, 4, 256, bf16, [600, 257], None),
     }
-    errs = {}
+    timed_cases = ("serving", "long", "middle", "b1-32k")
+    errs, ratios = {}, {}
     row = {}
     for tag, (b, s, kh, g, d, dtype, lengths, scale) in cases.items():
         q, k, v, ln = attention_inputs(b, s, kh, g, d, dtype, lengths, gen, device)
         got = D.decode_attention(q, k, v, ln, scale=scale)
+        again = D.decode_attention(q, k, v, ln, scale=scale)
         want = decode_attention_ref(q.float(), k.float(), v.float(), ln, scale=scale)
         torch.cuda.synchronize()
-        errs[tag] = attention_error(got, want, dtype)
-        if tag not in ("serving", "long"):
+        check(torch.equal(got, again), f"decode_attention [{tag}]: two calls differ")
+        errs[tag], ratios[tag] = attention_error(got, want, dtype)
+        if tag not in timed_cases:
             continue
-        ms, call_ms, src = timed(lambda: D.decode_attention(q, k, v, ln), 200,
-                                 "decode_attention_kernel")
+        ms, call_ms, src = timed(lambda: D.decode_attention(q, k, v, ln), 200, "decode_")
         plain_ms, plain_call_ms, _ = timed(lambda: decode_attention_ref(q, k, v, ln), 50)
         lib = sdpa_call(q, k, v, ln)
         lib_ms, lib_call_ms, _ = timed(lib, 200)
@@ -721,7 +765,9 @@ def decode_attention_phase(device):
         else:
             lib_err = None
         (b_ms, b_by), nb = attention_bound(q, k, ln, got)
-        shape = f"q ({b}, {kh * g}, {d}), k/v ({b}, {s}, {kh}, {d}) {str(dtype)[6:]}, lengths {lengths}"
+        split_len, n_splits = split.plan_splits(b, kh, s, sms)
+        shape = (f"q ({b}, {kh * g}, {d}), k/v ({b}, {s}, {kh}, {d}) {str(dtype)[6:]}, "
+                 f"lengths {lengths}, {n_splits} splits of {split_len}")
         log(f"kernel decode_attention [{tag}]: {shape}: max abs err {errs[tag]:.3e} "
             f"against the f32 plain version; device {ms:.5f} ms ({src}), per call "
             f"{call_ms:.4f} ms; plain device {plain_ms:.5f} ms, per call {plain_call_ms:.4f} ms; "
@@ -730,14 +776,21 @@ def decode_attention_phase(device):
         row[tag] = dict(ms=ms, call_ms=call_ms, ms_source=src, plain_ms=plain_ms,
                         plain_call_ms=plain_call_ms, library_ms=lib_ms, library_call_ms=lib_call_ms,
                         bound_ms=b_ms, bound_by=b_by, shape=shape)
-    log(f"kernel decode_attention: within tolerance on every case "
-        f"(f32 <= {F32_ATOL}; bf16 <= {BF16_ATOL} + {BF16_RTOL}·|plain|): {errs}")
-    serving, long = row["serving"], row["long"]
-    return dict(serving, max_abs_err=max(errs.values()), errors=errs,
+    check(row["long"]["ms"] < row["long"]["library_ms"],
+          "decode_attention at the long shape is slower than SDPA")
+    bf16_ratios = {tag: r for tag, r in ratios.items() if r is not None}
+    log(f"kernel decode_attention: within tolerance and bit-identical across two calls "
+        f"on every case (f32 <= {F32_ATOL}; bf16 <= {BF16_ATOL} + {BF16_RTOL}·|plain|): {errs}")
+    log(f"kernel decode_attention: bf16 error / scale-aware limit (2^-7·|plain| + "
+        f"2^-10·rms(plain row)), worst element per case: {bf16_ratios}")
+    serving = row["serving"]
+    return dict(serving, max_abs_err=max(errs.values()), errors=errs, bound_ratios=bf16_ratios,
                 tolerance=f"f32 max abs <= {F32_ATOL}; bf16 |err| <= {BF16_ATOL} + "
-                          f"{BF16_RTOL}*|plain| against the f32 plain version",
-                long={k: long[k] for k in ("ms", "call_ms", "plain_ms", "library_ms",
-                                           "bound_ms", "bound_by", "shape")})
+                          f"{BF16_RTOL}*|plain| and <= 2^-7*|plain| + 2^-10*rms(plain row) "
+                          f"against the f32 plain version",
+                **{tag.replace("-", "_"): {k: row[tag][k] for k in (
+                    "ms", "call_ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "shape")}
+                   for tag in timed_cases[1:]})
 
 
 # ---------------------------------------------------------------------------
@@ -870,15 +923,17 @@ def serving_phase(device, wrappers):
         common.decode_gqa_attention = direct
     check(len(captured) == cfg.n_layers, "serving: capture missed layers")
     check(bool(torch.isfinite(logits).all()), "serving: non-finite logits")
-    err = 0.0
+    err = ratio = 0.0
     for q, k, v, length in captured:
         got = ops.gqa_decode_attention(q, k, v, length, use_kernel=True)
         want_f32 = ops.gqa_decode_attention(q.float(), k.float(), v.float(), length,
                                             use_kernel=False)
-        err = max(err, attention_error(got, want_f32, torch.bfloat16))
+        e, r = attention_error(got, want_f32, torch.bfloat16)
+        err, ratio = max(err, e), max(ratio, r)
     log(f"serving: one decode step's attention inputs ({cfg.n_layers} layers, q "
         f"{tuple(captured[0][0].shape)}, cache {tuple(captured[0][1].shape)}, length "
-        f"{captured[0][3].tolist()}): kernel vs plain max abs err {err:.3e}")
+        f"{captured[0][3].tolist()}): kernel vs plain max abs err {err:.3e}, "
+        f"{ratio:.3f} of the scale-aware limit")
 
     # a profiled window of 16 decode steps on that cache
     window = 16
@@ -1330,7 +1385,8 @@ def main() -> int:
 
     kernels = []
     for name, row in rows.items():
-        extra = {k: row[k] for k in ("tolerance", "errors", "long", "library_call_ms", "by_m")
+        extra = {k: row[k] for k in ("tolerance", "errors", "bound_ratios", "long", "middle", "b1_32k",
+                                     "library_call_ms", "by_m", "pass0_ms", "pass1_ms")
                  if k in row}
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],

@@ -17,7 +17,7 @@
 // thousand float operations, so on an H100 each is bound by its launch
 // (a few microseconds), not by bytes or operations; the designs keep one
 // launch per engine stage and read every table once per block.
-// migrate_refine reads ~40 MB a call, so bytes bound it (see its note).
+// migrate_refine reads ~48 MB a call, so bytes bound it (see its note).
 // mfi_delta serves one scheduling decision over up to 10^6 GPUs, where its
 // bytes bound it (see its note).
 
@@ -34,7 +34,7 @@ constexpr int kMaxKeys = 8;     // effective scoring keys of a fused spec
 constexpr int kFragThreads = 256;
 constexpr int kDeltaThreads = 256;
 constexpr int kSelectThreads = 128;
-constexpr int kMigrateThreads = 128;
+constexpr int kMigrateThreads = 256;
 constexpr float kBig = 1e9f;  // the masked-key sentinel (ref.BIG)
 constexpr float kMfiBig = 1e30f;  // mfi_delta's infeasibility sentinel (ref.MFI_BIG)
 
@@ -457,23 +457,40 @@ __global__ void __launch_bounds__(kSelectThreads) select_from_base_kernel(
 // ---------------------------------------------------------------------------
 // migrate_refine — replaces kernels/fragscore/fragscore.py::migrate_refine
 // (Pallas, _migrate_refine_kernel: _class_pass_impl and _victim_pass_impl
-// with _refine_cols, _tile_top2 and _delta_rows) and its host-side merge
+// with _refine_cols, _tile_top2 and _delta_rows; src/repro/kernels/
+// fragscore/fragscore.py:670, calls :755 and :819) and its host-side merge
 // sim/batched.py::_merge_top2 of the JAX package.
 //
 // Both refinements of the factored defrag search in ONE launch with two
-// block ranges; the wrapper's `launches` counts that one launch.
-//  * Blocks [0, R·P), pass 0: one block per (replica, demand class), one
-//    thread per GPU row of the untouched cluster.  A thread refines its row
-//    along the anchors (feasibility, ΔF and keys as in select_from_base;
-//    ties to the first column), then a per-thread, warp-shuffle and
-//    shared-memory top-2 by (keys..., gpu) yields the class's best and
-//    runner-up rows: the reference's in-tile _tile_top2 and host
-//    _merge_top2 in one reduction.  The class's tables of every model are
-//    staged in shared memory, so a mixed fleet is the same single launch.
-//  * Blocks [R·P, R·P + ceil(R·C / 128)), pass 1: one thread per (replica,
-//    victim) refines the victim's patched row, gathering its own model's
-//    and class's tables through kc/rp (the reference's wrapper built
-//    per-victim (C, A, N) tables for this; nothing of the kind is built).
+// block ranges; the wrapper's `launches` counts that one launch.  Every
+// block first stages the tables of every (model, class) in shared memory
+// once, with cp.async: window sizes, the anchors' window counts, slice
+// demand, and one word per anchor (validity, window row, anchor value);
+// from them it derives bit sets over the N <= 32 windows: the windows each
+// anchor touches, the windows of size <= t for t = -1..32, and the bit
+// planes of the window sizes.
+//  * Blocks [0, R), pass 0: one block per replica for all P <= 8 classes.
+//    The replica's (M, N) rows are staged in runs of 256 with cp.async, and
+//    each row's occupied-window bits are taken once.  Every thread refines
+//    (class, row) pairs along the anchors (feasibility, ΔF, keys; ties to
+//    the first column); then warp p folds class p's rows into per-lane
+//    top-2 lists by (keys..., gpu) and merges them in a shuffle tree, two
+//    comparisons a merge on the rows' sort keys.
+//  * Blocks [R, R + B1), pass 1: B1 blocks (as many as the card holds at
+//    once) walk the R·C victims in runs of 256, the next run's patched rows
+//    and per-victim scalars in flight (cp.async, two buffers) while a
+//    thread per victim refines its row along the anchors from the tables in
+//    shared memory (nothing is gathered per victim from device memory),
+//    keeping the first column on ties.  (A group of lanes per victim, one
+//    per anchor, was built first and measured slower: PERF.md.)
+// ΔF under the "blocked" metric is a sum of window sizes over bit sets:
+// F after = Σ v over (occupied | the anchor's windows) & eligible, eligible
+// meaning v <= free slices after the placement.  Window sizes are whole
+// slices, at most 32, so eligibility is one of 34 bit sets of the model
+// and a sum is Σ_q 2^q·popcount(bits & plane q).  Every key is an integer
+// held in float32, so each sum is exact in any order and the kernel equals
+// its plain version bit for bit.  The "partial" metric scores each window
+// from the counts (N steps per anchor).
 // Masked outputs: pass 0 writes gpu = col = 0 and keys = 1e9 where no row
 // is feasible (ok = 0); pass 1 writes column 0 and the UNMASKED keys of
 // column 0 where no anchor is feasible — the plain version's conventions.
@@ -482,191 +499,498 @@ __global__ void __launch_bounds__(kSelectThreads) select_from_base_kernel(
 // reads base2 (28.8 MB), five per-victim scalars (8 MB) and the replica
 // state (4 MB), and writes 6.8 MB: about 48 MB, 14 µs at 3.35 TB/s, while
 // its float work (a few hundred MFLOP) takes a few µs at 67 TFLOP/s.  The
-// dominant stream, base2, is read once and in order: each pass-1 block
-// stages its 128 rows through shared memory with coalesced loads.
+// tables are read from L2 once per block; base2 is read once, in order.
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void top2_insert(const float (&key)[kMaxKeys], int g, int col,
-                                            float (&k1)[kMaxKeys], int& g1, int& c1,
-                                            float (&k2)[kMaxKeys], int& g2, int& c2,
-                                            int nkeys) {
-  if (lex_less(key, g, k1, g1, nkeys)) {
-    copy_keys(k2, k1);
-    g2 = g1;
-    c2 = c1;
-    copy_keys(k1, key);
-    g1 = g;
-    c1 = col;
-  } else if (lex_less(key, g, k2, g2, nkeys)) {
-    copy_keys(k2, key);
-    g2 = g;
-    c2 = col;
-  }
+// One candidate placement of a refinement: its key bases and its place.
+struct Cand {
+  float delta, fa, anc;  // ΔF, free slices after, anchor value
+  int gpu, col;
+  bool ok;
+};
+
+// Key i of a candidate under the packed key code (3 bits per key, as
+// decode_keys reads it), decoded arithmetically so that nothing is indexed
+// at run time (an indexed array would live in local memory).
+__device__ __forceinline__ float key_of(int keycode, int i, const Cand& c) {
+  const int code = (keycode >> (3 * i)) & 7;
+  const int base = code & 3;
+  const float v = base == 0 ? c.delta : base == 1 ? c.fa : base == 2 ? static_cast<float>(c.gpu) : c.anc;
+  return (code & 4) ? -v : v;
 }
 
-__device__ __forceinline__ void migrate_class_pass(
-    float* sh, int r, int p, const float* __restrict__ base,
-    const int32_t* __restrict__ free, const float* __restrict__ f,
-    const int32_t* __restrict__ midx, const float* __restrict__ V,
-    const float* __restrict__ maskwin, const int32_t* __restrict__ profile_rows,
-    const uint8_t* __restrict__ profile_valid,
-    const int32_t* __restrict__ profile_anchors,
-    const float* __restrict__ profile_mem, int32_t* __restrict__ out_g1,
-    uint8_t* __restrict__ out_ok1, int32_t* __restrict__ out_a1,
-    float* __restrict__ out_k1, int32_t* __restrict__ out_g2,
-    uint8_t* __restrict__ out_ok2, int32_t* __restrict__ out_a2,
-    float* __restrict__ out_k2, int m, int n, int a, int p_count, int k_count,
-    int nkeys, const KeyCode& keys, int partial) {
-  const ClassTables t = stage_class_tables(sh, V, maskwin, profile_rows, profile_valid,
-                                           profile_anchors, profile_mem, p, k_count,
-                                           p_count, n, a);
-  float k1[kMaxKeys], k2[kMaxKeys];
-#pragma unroll
-  for (int i = 0; i < kMaxKeys; ++i) k1[i] = k2[i] = CUDART_INF_F;
-  int g1 = INT_MAX, c1 = 0, g2 = INT_MAX, c2 = 0;
+// c ? a : b, field by field (a struct-valued branch would go to local memory)
+__device__ __forceinline__ Cand pick(bool c, const Cand& a, const Cand& b) {
+  return {c ? a.delta : b.delta, c ? a.fa : b.fa, c ? a.anc : b.anc,
+          c ? a.gpu : b.gpu,     c ? a.col : b.col, c ? a.ok : b.ok};
+}
 
-  const float* base_r = base + static_cast<int64_t>(r) * m * n;
-  for (int g = threadIdx.x; g < m; g += blockDim.x) {
-    const int k = midx[g];
-    const float* b = base_r + static_cast<int64_t>(g) * n;
-    const float* v = t.v + k * n;
-    const int64_t rg = static_cast<int64_t>(r) * m + g;
-    const float free_after = static_cast<float>(free[rg]) - t.mem[k];
-    const float fb = f[rg];
-    const float s_occ =
-        (keys.need_delta && !partial) ? occupied_sum(b, v, n, free_after) : 0.f;
-    float best[kMaxKeys];
+// Two columns of one row differ only in ΔF and the anchor value (free
+// slices and gpu are the row's), so the refinement along a row compares the
+// distinct ones among those keys, in key order, each as d·ΔF + a·anchor
+// (d, a in {0, ±1}: exact).
+struct ColOrder {
+  float d0, a0, d1, a1;
+  int n;
+};
+
+__device__ __forceinline__ ColOrder col_order(int keycode, int nkeys) {
+  ColOrder o = {0.f, 0.f, 0.f, 0.f, 0};
+  int seen = 0;
+  for (int i = 0; i < nkeys; ++i) {
+    const int code = (keycode >> (3 * i)) & 7, base = code & 3;
+    if ((base != 0 && base != 3) || ((seen >> base) & 1)) continue;
+    seen |= 1 << base;
+    const float sgn = (code & 4) ? -1.f : 1.f;
+    const float d = base == 0 ? sgn : 0.f, a = base == 3 ? sgn : 0.f;
+    if (o.n == 0) {
+      o.d0 = d;
+      o.a0 = a;
+    } else {
+      o.d1 = d;
+      o.a1 = a;
+    }
+    ++o.n;
+  }
+  return o;
+}
+
+// column x before column y of the same row (ties keep the earlier column)
+__device__ __forceinline__ bool col_less(const ColOrder& o, const Cand& x, const Cand& y) {
+  const float x0 = o.d0 * x.delta + o.a0 * x.anc, y0 = o.d0 * y.delta + o.a0 * y.anc;
+  if (o.n > 0 && x0 != y0) return x0 < y0;
+  const float x1 = o.d1 * x.delta + o.a1 * x.anc, y1 = o.d1 * y.delta + o.a1 * y.anc;
+  return o.n > 1 && x1 < y1;
+}
+
+// Pass 0 orders rows by (keys..., gpu).  A row in sort form holds the
+// values of the distinct key bases in key order (a repeated base decides
+// nothing), so that a comparison is a few float compares.
+struct RowOrder {
+  int code;  // key code of the distinct bases, in order
+  int n;     // their number (at most 4)
+  int map;   // per key of the tuple: its slot (2 bits) and a sign flip (1 bit)
+};
+
+struct RowCand {
+  float kv[4];
+  int gpu, col;
+  bool ok;
+};
+
+__device__ __forceinline__ RowOrder row_order(int keycode, int nkeys) {
+  RowOrder o = {0, 0, 0};
+  int seen = 0, slot_of = 0;  // the bases taken, and the slot of each (2 bits)
+  for (int i = 0; i < nkeys; ++i) {
+    const int code = (keycode >> (3 * i)) & 7, base = code & 3;
+    if (!((seen >> base) & 1)) {
+      seen |= 1 << base;
+      slot_of |= o.n << (2 * base);
+      o.code |= code << (3 * o.n++);
+    }
+    const int j = (slot_of >> (2 * base)) & 3;
+    const int flip = ((code ^ (o.code >> (3 * j))) >> 2) & 1;
+    o.map |= (j | flip << 2) << (3 * i);
+  }
+  return o;
+}
+
+__device__ __forceinline__ RowCand row_cand(const RowOrder& o, const Cand& c) {
+  RowCand r;
 #pragma unroll
-    for (int i = 0; i < kMaxKeys; ++i) best[i] = CUDART_INF_F;
-    int best_col = INT_MAX;
-    for (int j = 0; j < a; ++j) {
-      const int kj = k * a + j;
-      if (!t.val[kj] || b[t.row[kj]] != 0.f) continue;  // infeasible anchor
-      const float delta =
-          keys.need_delta
-              ? anchor_delta(b, v, t.mw + kj * n, n, free_after, s_occ, fb, partial)
-              : 0.f;
-      float cand[kMaxKeys];
-      key_vector(keys, delta, free_after, static_cast<float>(g),
-                 static_cast<float>(t.anc[kj]), cand);
-      if (lex_less(cand, j, best, best_col, nkeys)) {
-        copy_keys(best, cand);
-        best_col = j;
+  for (int j = 0; j < 4; ++j) r.kv[j] = j < o.n ? key_of(o.code, j, c) : 0.f;
+  r.gpu = c.gpu;
+  r.col = c.col;
+  r.ok = c.ok;
+  return r;
+}
+
+// key i of the tuple
+__device__ __forceinline__ float row_key(const RowOrder& o, const RowCand& r, int i) {
+  const int m = (o.map >> (3 * i)) & 7, j = m & 3;
+  const float v = j == 0 ? r.kv[0] : j == 1 ? r.kv[1] : j == 2 ? r.kv[2] : r.kv[3];
+  return (m & 4) ? -v : v;
+}
+
+// feasible first, then (keys..., gpu)
+__device__ __forceinline__ bool row_less(const RowOrder& o, const RowCand& a, const RowCand& b) {
+  if (a.ok != b.ok) return a.ok;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (j < o.n && a.kv[j] != b.kv[j]) return a.kv[j] < b.kv[j];
+  return a.gpu < b.gpu;
+}
+
+__device__ __forceinline__ RowCand pick(bool c, const RowCand& a, const RowCand& b) {
+  RowCand r;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) r.kv[j] = c ? a.kv[j] : b.kv[j];
+  r.gpu = c ? a.gpu : b.gpu;
+  r.col = c ? a.col : b.col;
+  r.ok = c ? a.ok : b.ok;
+  return r;
+}
+
+__device__ __forceinline__ RowCand shfl_down(const RowCand& c, int off) {
+  RowCand o;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) o.kv[j] = __shfl_down_sync(0xffffffffu, c.kv[j], off);
+  o.gpu = __shfl_down_sync(0xffffffffu, c.gpu, off);
+  o.col = __shfl_down_sync(0xffffffffu, c.col, off);
+  o.ok = __shfl_down_sync(0xffffffffu, static_cast<int>(c.ok), off) != 0;
+  return o;
+}
+
+// (c1, c2) becomes the top-2 of the union of two sorted top-2 lists of
+// distinct rows, (c1, c2) and (o1, o2): two comparisons
+__device__ __forceinline__ void top2_merge(const RowOrder& o, const RowCand& o1,
+                                           const RowCand& o2, RowCand& c1, RowCand& c2) {
+  const bool o_first = row_less(o, o1, c1);
+  const RowCand a = pick(o_first, c1, c2), b = pick(o_first, o2, o1);  // the runner-up is one
+  c2 = pick(row_less(o, b, a), b, a);
+  c1 = pick(o_first, o1, c1);
+}
+
+// Σ v[i] over the set bits i of `bits`, from the bit planes of the window
+// sizes (plane q holds the windows whose size has bit q set): exact, as the
+// sizes are whole slices.
+constexpr int kSizeBits = 6;  // window sizes below 64 slices
+struct Planes {
+  uint32_t q[kSizeBits];
+};
+
+__device__ __forceinline__ float window_sum(uint32_t bits, const Planes& planes) {
+  int sum = 0;
+#pragma unroll
+  for (int q = 0; q < kSizeBits; ++q) sum += __popc(bits & planes.q[q]) << q;
+  return static_cast<float>(sum);
+}
+
+// ΔF of an anchor under the "partial" metric, from the window counts
+__device__ __forceinline__ float partial_delta(const float* b, const float* v, const float* mw,
+                                               int n, float fa, float fb) {
+  float f_after = 0.f;
+  for (int i = 0; i < n; ++i) {
+    const float ba = b[i] + mw[i];
+    if (ba > 0.f && ba < v[i] && v[i] <= fa) f_after += v[i];
+  }
+  return f_after - fb;
+}
+
+constexpr int kMigrateRun = 256;  // rows of a pass-0 run, victims of a pass-1 run
+
+// Copy `words` 4-byte words to shared memory with cp.async (16 bytes a copy
+// where both sides are 16-byte aligned), so that every load of a run is in
+// flight at once; the caller commits and waits.
+__device__ __forceinline__ void stage_async(void* dst, const void* src, int words) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const char* s = static_cast<const char*>(src);
+  int done = 0;
+  if (((reinterpret_cast<uintptr_t>(src) | d) & 15) == 0) {
+    done = words & ~3;
+    for (int c = threadIdx.x; c < done / 4; c += blockDim.x)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d + 16 * c),
+                   "l"(s + 16 * c));
+  }
+  for (int i = done + threadIdx.x; i < words; i += blockDim.x)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d + 4 * i), "l"(s + 4 * i));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+constexpr int kMigrateClasses = 8;  // demand classes pass 0 takes (a warp each)
+
+// Every (model, class) table of the migrate search in shared memory.
+struct MigrateTables {
+  const float* v;     // (K, N) window sizes
+  const float* mw;    // (K, P, A, N) window counts each anchor adds
+  const float* mem;   // (K, P) slice demand
+  const int* meta;    // (K, P, A) anchor: valid + 2·window row + 64·anchor value
+  const uint32_t* mwb;  // (K, P, A) bits of the windows each anchor touches
+  const uint32_t* elig;  // (K, kEligSteps) bits of the windows with v <= t, t = -1..32
+  const uint32_t* planes;  // (K, kSizeBits) bit planes of the window sizes
+};
+
+// Window sizes are whole slices in [0, 32], so "v <= free slices after" is
+// "v <= floor(free after)", one of kEligSteps bit sets per model.
+constexpr int kEligSteps = 34;
+
+__device__ __forceinline__ Planes planes_of(const MigrateTables& t, int k) {
+  Planes p;
+#pragma unroll
+  for (int q = 0; q < kSizeBits; ++q) p.q[q] = t.planes[k * kSizeBits + q];
+  return p;
+}
+
+__device__ __forceinline__ uint32_t eligible(const MigrateTables& t, int k, float fa) {
+  const float ft = fminf(fmaxf(floorf(fa), -1.f), 32.f);
+  return t.elig[k * kEligSteps + static_cast<int>(ft) + 1];
+}
+
+__host__ __device__ inline size_t migrate_tables_words(int k_count, int p_count, int a, int n) {
+  const size_t kpa = static_cast<size_t>(k_count) * p_count * a;
+  const size_t words = static_cast<size_t>(k_count) * n + kpa * n +
+                       static_cast<size_t>(k_count) * p_count + 4 * kpa +
+                       static_cast<size_t>(k_count) * (kEligSteps + kSizeBits);
+  return (words + 3) & ~static_cast<size_t>(3);  // the run area starts 16-byte aligned
+}
+
+// the tables, then the run area: pass 0's rows, five words per row and its
+// refined columns (three words per class and row), or pass 1's two run
+// buffers of rows and five words per victim
+inline size_t migrate_smem_bytes(int k_count, int p_count, int a, int n) {
+  const size_t pass0 = n + 5 + 3 * kMigrateClasses, pass1 = 2 * (n + 5);
+  return 4 * (migrate_tables_words(k_count, p_count, a, n) +
+              static_cast<size_t>(kMigrateRun) * (pass0 > pass1 ? pass0 : pass1));
+}
+
+__device__ __forceinline__ MigrateTables stage_migrate_tables(
+    uint32_t* sh, const float* __restrict__ V, const float* __restrict__ maskwin,
+    const int32_t* __restrict__ profile_rows, const uint8_t* __restrict__ profile_valid,
+    const int32_t* __restrict__ profile_anchors, const float* __restrict__ profile_mem,
+    int k_count, int p_count, int a, int n) {
+  const int kpa = k_count * p_count * a;
+  float* sv = reinterpret_cast<float*>(sh);
+  float* smw = sv + k_count * n;
+  float* smem = smw + kpa * n;
+  int* srow = reinterpret_cast<int*>(smem + k_count * p_count);
+  int* sanc = srow + kpa;
+  int* sval = sanc + kpa;
+  uint32_t* smwb = reinterpret_cast<uint32_t*>(sval + kpa);
+  uint32_t* selig = smwb + kpa;
+  uint32_t* splanes = selig + k_count * kEligSteps;
+  stage_async(sv, V, k_count * n);
+  stage_async(smw, maskwin, kpa * n);
+  stage_async(smem, profile_mem, k_count * p_count);
+  stage_async(srow, profile_rows, kpa);
+  stage_async(sanc, profile_anchors, kpa);
+  cp_async_commit();
+  for (int i = threadIdx.x; i < kpa; i += blockDim.x) sval[i] = profile_valid[i];
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int i = threadIdx.x; i < kpa; i += blockDim.x)  // one word per anchor
+    srow[i] = (sval[i] ? 1 : 0) + (srow[i] & 31) * 2 + sanc[i] * 64;
+  for (int i = threadIdx.x; i < kpa; i += blockDim.x) {
+    uint32_t bits = 0;
+    for (int w = 0; w < n; ++w) bits |= (smw[i * n + w] > 0.f ? 1u : 0u) << w;
+    smwb[i] = bits;
+  }
+  for (int i = threadIdx.x; i < k_count * kEligSteps; i += blockDim.x) {
+    const int k = i / kEligSteps;
+    const float th = static_cast<float>(i % kEligSteps - 1);
+    uint32_t bits = 0;
+    for (int w = 0; w < n; ++w) bits |= (sv[k * n + w] <= th ? 1u : 0u) << w;
+    selig[i] = bits;
+  }
+  for (int i = threadIdx.x; i < k_count * kSizeBits; i += blockDim.x) {
+    const int k = i / kSizeBits, q = i % kSizeBits;
+    uint32_t bits = 0;
+    for (int w = 0; w < n; ++w) bits |= ((static_cast<int>(sv[k * n + w]) >> q) & 1u) << w;
+    splanes[i] = bits;
+  }
+  return MigrateTables{sv, smw, smem, srow, smwb, selig, splanes};
+}
+
+// Pass 0: block r refines every GPU row of replica r for every class.
+__device__ __forceinline__ void migrate_class_pass(
+    const MigrateTables& t, uint32_t* run, int r, const float* __restrict__ base,
+    const int32_t* __restrict__ free, const float* __restrict__ f,
+    const int32_t* __restrict__ midx, int32_t* __restrict__ out_g1,
+    uint8_t* __restrict__ out_ok1, int32_t* __restrict__ out_a1, float* __restrict__ out_k1,
+    int32_t* __restrict__ out_g2, uint8_t* __restrict__ out_ok2, int32_t* __restrict__ out_a2,
+    float* __restrict__ out_k2, int m, int n, int a, int p_count, int nkeys, int keycode,
+    const ColOrder& cols, bool need_delta, int partial) {
+  float* rows = reinterpret_cast<float*>(run);  // [run][N]
+  int* rfree = reinterpret_cast<int*>(rows + kMigrateRun * n);
+  float* rf = reinterpret_cast<float*>(rfree + kMigrateRun);
+  int* rmodel = reinterpret_cast<int*>(rf + kMigrateRun);
+  uint32_t* rpos = reinterpret_cast<uint32_t*>(rmodel + kMigrateRun);  // bits of b > 0
+  uint32_t* rnz = rpos + kMigrateRun;                                   // bits of b != 0
+  // each (class, row)'s refined column: ΔF, anchor value, column (-1: none)
+  float* bdelta = reinterpret_cast<float*>(rnz + kMigrateRun);          // [P][run]
+  float* banc = bdelta + kMigrateClasses * kMigrateRun;
+  int* bcol = reinterpret_cast<int*>(banc + kMigrateClasses * kMigrateRun);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const RowOrder order = row_order(keycode, nkeys);
+  const RowCand none = {{0.f, 0.f, 0.f, 0.f}, 0, 0, false};
+  RowCand c1 = none, c2 = none;  // this lane's top-2 of class p (warp p)
+  for (int g0 = 0; g0 < m; g0 += kMigrateRun) {
+    const int cnt = min(kMigrateRun, m - g0);
+    __syncthreads();  // the previous run is used up
+    const int64_t row0 = static_cast<int64_t>(r) * m + g0;
+    stage_async(rows, base + row0 * n, cnt * n);
+    stage_async(rfree, free + row0, cnt);
+    stage_async(rf, f + row0, cnt);
+    stage_async(rmodel, midx + g0, cnt);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    for (int i = threadIdx.x; i < cnt; i += blockDim.x) {
+      uint32_t pos = 0, nz = 0;
+      for (int w = 0; w < n; ++w) {
+        const float b = rows[i * n + w];
+        pos |= (b > 0.f ? 1u : 0u) << w;
+        nz |= (b != 0.f ? 1u : 0u) << w;
+      }
+      rpos[i] = pos;
+      rnz[i] = nz;
+    }
+    __syncthreads();
+    // refine every (class, row) pair along its anchors; ties to the first column
+    for (int q = threadIdx.x; q < p_count * cnt; q += blockDim.x) {
+      const int p = q / cnt, i = q % cnt;
+      const int k = rmodel[i];
+      const float fa = static_cast<float>(rfree[i]) - t.mem[k * p_count + p];
+      const float fb = rf[i];
+      const uint32_t elig = eligible(t, k, fa);
+      const uint32_t pos = rpos[i], nz = rnz[i];
+      const Planes planes = planes_of(t, k);
+      const float s_occ = (need_delta && !partial) ? window_sum(pos & elig, planes) : 0.f;
+      Cand best = {0.f, fa, 0.f, g0 + i, -1, false};
+      for (int j = 0; j < a; ++j) {
+        const int kpj = (k * p_count + p) * a + j;
+        const int mt = t.meta[kpj];
+        if (!(mt & 1) || ((nz >> ((mt >> 1) & 31)) & 1u)) continue;  // infeasible anchor
+        float delta = 0.f;
+        if (need_delta)
+          delta = partial ? partial_delta(rows + i * n, t.v + k * n, t.mw + kpj * n, n, fa, fb)
+                          : (s_occ + window_sum(t.mwb[kpj] & ~pos & elig, planes)) - fb;
+        const Cand c = {delta, fa, static_cast<float>(mt >> 6), g0 + i, j, true};
+        best = pick(!best.ok || col_less(cols, c, best), c, best);
+      }
+      bdelta[p * kMigrateRun + i] = best.delta;
+      banc[p * kMigrateRun + i] = best.anc;
+      bcol[p * kMigrateRun + i] = best.ok ? best.col : -1;
+    }
+    __syncthreads();
+    if (warp < p_count) {  // warp p folds class p's rows into its lanes' top-2
+      const int p = warp;
+      for (int i = lane; i < cnt; i += 32) {
+        const int col = bcol[p * kMigrateRun + i];
+        const int k = rmodel[i];
+        const Cand c = {bdelta[p * kMigrateRun + i],
+                        static_cast<float>(rfree[i]) - t.mem[k * p_count + p],
+                        banc[p * kMigrateRun + i], g0 + i, col, col >= 0};
+        top2_merge(order, row_cand(order, c), none, c1, c2);
       }
     }
-    if (best_col != INT_MAX) top2_insert(best, g, best_col, k1, g1, c1, k2, g2, c2, nkeys);
   }
-
-  // warp-shuffle merge of the per-thread top-2 lists
+  if (warp >= p_count) return;
+  // the warp's lists, merged in a shuffle tree
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
-    float o1[kMaxKeys], o2[kMaxKeys];
-#pragma unroll
-    for (int i = 0; i < kMaxKeys; ++i) {
-      o1[i] = __shfl_down_sync(0xffffffffu, k1[i], off);
-      o2[i] = __shfl_down_sync(0xffffffffu, k2[i], off);
+    const RowCand o1 = shfl_down(c1, off);
+    const RowCand o2 = shfl_down(c2, off);
+    if (lane + off < 32) top2_merge(order, o1, o2, c1, c2);
+  }
+  if (lane == 0) {  // lane 0 holds the class's top-2
+    const int64_t o = static_cast<int64_t>(r) * p_count + warp;
+    out_g1[o] = c1.ok ? c1.gpu : 0;
+    out_ok1[o] = c1.ok ? 1 : 0;
+    out_a1[o] = c1.ok ? c1.col : 0;
+    out_g2[o] = c2.ok ? c2.gpu : 0;
+    out_ok2[o] = c2.ok ? 1 : 0;
+    out_a2[o] = c2.ok ? c2.col : 0;
+    for (int i = 0; i < nkeys; ++i) {
+      out_k1[o * nkeys + i] = c1.ok ? row_key(order, c1, i) : kBig;
+      out_k2[o * nkeys + i] = c2.ok ? row_key(order, c2, i) : kBig;
     }
-    const int og1 = __shfl_down_sync(0xffffffffu, g1, off);
-    const int oc1 = __shfl_down_sync(0xffffffffu, c1, off);
-    const int og2 = __shfl_down_sync(0xffffffffu, g2, off);
-    const int oc2 = __shfl_down_sync(0xffffffffu, c2, off);
-    top2_insert(o1, og1, oc1, k1, g1, c1, k2, g2, c2, nkeys);
-    top2_insert(o2, og2, oc2, k1, g1, c1, k2, g2, c2, nkeys);
-  }
-
-  // then across the block's warps in shared memory
-  constexpr int kWarps = kMigrateThreads / 32;
-  __shared__ float wkeys[kWarps][2][kMaxKeys];
-  __shared__ int wrow[kWarps][4];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) {
-    copy_keys(wkeys[warp][0], k1);
-    copy_keys(wkeys[warp][1], k2);
-    wrow[warp][0] = g1;
-    wrow[warp][1] = c1;
-    wrow[warp][2] = g2;
-    wrow[warp][3] = c2;
-  }
-  __syncthreads();
-  if (threadIdx.x != 0) return;
-  for (int w = 1; w < kWarps; ++w) {
-    top2_insert(wkeys[w][0], wrow[w][0], wrow[w][1], k1, g1, c1, k2, g2, c2, nkeys);
-    top2_insert(wkeys[w][1], wrow[w][2], wrow[w][3], k1, g1, c1, k2, g2, c2, nkeys);
-  }
-  const int64_t o = static_cast<int64_t>(r) * p_count + p;
-  const bool ok1 = g1 != INT_MAX;
-  const bool ok2 = g2 != INT_MAX;
-  out_g1[o] = ok1 ? g1 : 0;
-  out_ok1[o] = ok1 ? 1 : 0;
-  out_a1[o] = ok1 ? c1 : 0;
-  out_g2[o] = ok2 ? g2 : 0;
-  out_ok2[o] = ok2 ? 1 : 0;
-  out_a2[o] = ok2 ? c2 : 0;
-  for (int i = 0; i < nkeys; ++i) {
-    out_k1[o * nkeys + i] = ok1 ? k1[i] : kBig;
-    out_k2[o * nkeys + i] = ok2 ? k2[i] : kBig;
   }
 }
 
-__device__ __forceinline__ void migrate_victim_pass(
-    float* sh, int64_t first, int64_t total, const float* __restrict__ base2,
-    const int32_t* __restrict__ free2, const float* __restrict__ f2,
-    const int32_t* __restrict__ rg, const int32_t* __restrict__ rp,
-    const int32_t* __restrict__ kc, const float* __restrict__ V,
-    const float* __restrict__ maskwin, const int32_t* __restrict__ profile_rows,
-    const uint8_t* __restrict__ profile_valid,
-    const int32_t* __restrict__ profile_anchors,
-    const float* __restrict__ profile_mem, int32_t* __restrict__ out_ap,
-    uint8_t* __restrict__ out_okp, float* __restrict__ out_kp, int n, int a,
-    int p_count, int nkeys, const KeyCode& keys, int partial) {
-  // coalesced staging of this block's consecutive base2 rows
-  const int rows_here = static_cast<int>(
-      total - first < static_cast<int64_t>(blockDim.x) ? total - first : blockDim.x);
-  const float* src = base2 + first * n;
-  for (int i = threadIdx.x; i < rows_here * n; i += blockDim.x) sh[i] = src[i];
-  __syncthreads();
-  if (static_cast<int>(threadIdx.x) >= rows_here) return;
-
-  const int64_t vi = first + threadIdx.x;
-  const float* b = sh + threadIdx.x * n;
-  const int k = kc[vi];
-  const int64_t cls = static_cast<int64_t>(k) * p_count + rp[vi];
-  const float* v = V + static_cast<int64_t>(k) * n;
-  const float* mw = maskwin + cls * a * n;
-  const float free_after = static_cast<float>(free2[vi]) - profile_mem[cls];
-  const float fb = f2[vi];
-  const float gpu = static_cast<float>(rg[vi]);
-  const float s_occ =
-      (keys.need_delta && !partial) ? occupied_sum(b, v, n, free_after) : 0.f;
-  float best[kMaxKeys], col0[kMaxKeys];
-#pragma unroll
-  for (int i = 0; i < kMaxKeys; ++i) best[i] = col0[i] = CUDART_INF_F;
-  int best_col = INT_MAX;
+// Refine one victim's patched row `b` along its anchors: the best feasible
+// column, or column 0 and its unmasked keys where none is.
+__device__ __forceinline__ void score_victim(
+    const MigrateTables& t, const float* b, int k, int p, int free_slices, float fb, int gpu,
+    int64_t gi, int32_t* __restrict__ out_ap, uint8_t* __restrict__ out_okp,
+    float* __restrict__ out_kp, int n, int a, int p_count, int nkeys, int keycode,
+    const ColOrder& cols, bool need_delta, int partial) {
+  const float fa = static_cast<float>(free_slices) - t.mem[k * p_count + p];
+  const uint32_t elig = eligible(t, k, fa);
+  uint32_t pos = 0, nz = 0;
+  for (int w = 0; w < n; ++w) {
+    pos |= (b[w] > 0.f ? 1u : 0u) << w;
+    nz |= (b[w] != 0.f ? 1u : 0u) << w;
+  }
+  const Planes planes = planes_of(t, k);
+  const float s_occ = (need_delta && !partial) ? window_sum(pos & elig, planes) : 0.f;
+  Cand best = {0.f, fa, 0.f, gpu, 0, false}, col0 = best;
   for (int j = 0; j < a; ++j) {
-    const int64_t cj = cls * a + j;
-    const bool feasible = profile_valid[cj] && b[profile_rows[cj]] == 0.f;
+    const int kpj = (k * p_count + p) * a + j;
+    const int mt = t.meta[kpj];
+    const bool feasible = (mt & 1) && !((nz >> ((mt >> 1) & 31)) & 1u);
     if (!feasible && j != 0) continue;  // column 0 is the all-infeasible fallback
-    const float delta =
-        keys.need_delta
-            ? anchor_delta(b, v, mw + static_cast<int64_t>(j) * n, n, free_after, s_occ,
-                           fb, partial)
-            : 0.f;
-    float cand[kMaxKeys];
-    key_vector(keys, delta, free_after, gpu, static_cast<float>(profile_anchors[cj]), cand);
-    if (j == 0) copy_keys(col0, cand);
-    if (feasible && lex_less(cand, j, best, best_col, nkeys)) {
-      copy_keys(best, cand);
-      best_col = j;
-    }
+    float delta = 0.f;
+    if (need_delta)
+      delta = partial ? partial_delta(b, t.v + k * n, t.mw + kpj * n, n, fa, fb)
+                      : (s_occ + window_sum(t.mwb[kpj] & ~pos & elig, planes)) - fb;
+    const Cand c = {delta, fa, static_cast<float>(mt >> 6), gpu, j, feasible};
+    col0 = pick(j == 0, c, col0);
+    best = pick(feasible && (!best.ok || col_less(cols, c, best)), c, best);
   }
-  const bool ok = best_col != INT_MAX;
-  out_ap[vi] = ok ? best_col : 0;
-  out_okp[vi] = ok ? 1 : 0;
-  for (int i = 0; i < nkeys; ++i) out_kp[vi * nkeys + i] = ok ? best[i] : col0[i];
+  out_ap[gi] = best.ok ? best.col : 0;
+  out_okp[gi] = best.ok ? 1 : 0;
+  const Cand out = pick(best.ok, best, col0);
+  for (int q = 0; q < nkeys; ++q) out_kp[gi * nkeys + q] = key_of(keycode, q, out);
 }
 
-__global__ void __launch_bounds__(kMigrateThreads) migrate_refine_kernel(
+// Stage run `run_i` of the victims into `area`: rows, then model, class,
+// free slices, F and GPU of each victim; one cp.async group either way.
+__device__ __forceinline__ void stage_victims(uint32_t* area, int64_t run_i, int64_t runs,
+                                              int64_t total, const float* base2,
+                                              const int32_t* free2, const float* f2,
+                                              const int32_t* rg, const int32_t* rp,
+                                              const int32_t* kc, int n) {
+  if (run_i < runs) {
+    const int64_t first = run_i * kMigrateRun;
+    const int cnt = static_cast<int>(min(static_cast<int64_t>(kMigrateRun), total - first));
+    uint32_t* scal = area + kMigrateRun * n;
+    stage_async(area, base2 + first * n, cnt * n);
+    stage_async(scal, kc + first, cnt);
+    stage_async(scal + kMigrateRun, rp + first, cnt);
+    stage_async(scal + 2 * kMigrateRun, free2 + first, cnt);
+    stage_async(scal + 3 * kMigrateRun, f2 + first, cnt);
+    stage_async(scal + 4 * kMigrateRun, rg + first, cnt);
+  }
+  cp_async_commit();
+}
+
+// Pass 1: this block's runs of the R·C victims, a thread per victim.
+__device__ __forceinline__ void migrate_victim_pass(
+    const MigrateTables& t, uint32_t* run, int64_t block, int64_t blocks, int64_t total,
+    const float* __restrict__ base2, const int32_t* __restrict__ free2,
+    const float* __restrict__ f2, const int32_t* __restrict__ rg,
+    const int32_t* __restrict__ rp, const int32_t* __restrict__ kc,
+    int32_t* __restrict__ out_ap, uint8_t* __restrict__ out_okp, float* __restrict__ out_kp,
+    int n, int a, int p_count, int nkeys, int keycode, const ColOrder& cols,
+    bool need_delta, int partial) {
+  const int64_t runs = (total + kMigrateRun - 1) / kMigrateRun;
+  const int buf_words = kMigrateRun * (n + 5);
+  stage_victims(run, block, runs, total, base2, free2, f2, rg, rp, kc, n);
+  int buf = 0;
+  for (int64_t run_i = block; run_i < runs; run_i += blocks, buf ^= 1) {
+    // the next run flies while this one is scored
+    stage_victims(run + (buf ^ 1) * buf_words, run_i + blocks, runs, total, base2, free2, f2,
+                  rg, rp, kc, n);
+    cp_async_wait<1>();
+    __syncthreads();
+    const int64_t first = run_i * kMigrateRun;
+    const int cnt = static_cast<int>(min(static_cast<int64_t>(kMigrateRun), total - first));
+    const float* rows = reinterpret_cast<const float*>(run + buf * buf_words);  // [run][N]
+    const int* vmodel = reinterpret_cast<const int*>(rows + kMigrateRun * n);
+    const int* vclass = vmodel + kMigrateRun;
+    const int* vfree = vclass + kMigrateRun;
+    const float* vf = reinterpret_cast<const float*>(vfree + kMigrateRun);
+    const int* vgpu = reinterpret_cast<const int*>(vf + kMigrateRun);
+    const int i = threadIdx.x;
+    if (i < cnt) score_victim(t, rows + i * n, vmodel[i], vclass[i], vfree[i], vf[i], vgpu[i],
+                              first + i, out_ap, out_okp, out_kp, n, a, p_count, nkeys, keycode,
+                              cols, need_delta, partial);
+    __syncthreads();  // the next iteration prefetches into this buffer
+  }
+}
+
+__global__ void __launch_bounds__(kMigrateThreads, 4) migrate_refine_kernel(
     const float* __restrict__ base, const int32_t* __restrict__ free,
     const float* __restrict__ f, const float* __restrict__ base2,
     const int32_t* __restrict__ free2, const float* __restrict__ f2,
@@ -684,21 +1008,23 @@ __global__ void __launch_bounds__(kMigrateThreads) migrate_refine_kernel(
     uint8_t* __restrict__ out_okp, float* __restrict__ out_kp, int r_count, int m,
     int c_count, int n, int a, int p_count, int k_count, int nkeys, int keycode,
     int partial) {
-  extern __shared__ float sh[];
-  const KeyCode keys = decode_keys(keycode, nkeys);
-  const int pass0_blocks = r_count * p_count;
-  if (static_cast<int>(blockIdx.x) < pass0_blocks) {
-    migrate_class_pass(sh, blockIdx.x / p_count, blockIdx.x % p_count, base, free, f,
-                       midx, V, maskwin, profile_rows, profile_valid, profile_anchors,
-                       profile_mem, out_g1, out_ok1, out_a1, out_k1, out_g2, out_ok2,
-                       out_a2, out_k2, m, n, a, p_count, k_count, nkeys, keys, partial);
+  extern __shared__ uint32_t msh[];
+  bool need_delta = false;  // a key is ΔF
+  for (int i = 0; i < nkeys; ++i) need_delta |= ((keycode >> (3 * i)) & 3) == 0;
+  const ColOrder cols = col_order(keycode, nkeys);
+  const MigrateTables t = stage_migrate_tables(msh, V, maskwin, profile_rows, profile_valid,
+                                               profile_anchors, profile_mem, k_count, p_count,
+                                               a, n);
+  uint32_t* run = msh + migrate_tables_words(k_count, p_count, a, n);
+  if (static_cast<int>(blockIdx.x) < r_count) {
+    migrate_class_pass(t, run, blockIdx.x, base, free, f, midx, out_g1, out_ok1, out_a1,
+                       out_k1, out_g2, out_ok2, out_a2, out_k2, m, n, a, p_count, nkeys,
+                       keycode, cols, need_delta, partial);
   } else {
-    const int64_t first =
-        static_cast<int64_t>(blockIdx.x - pass0_blocks) * kMigrateThreads;
-    migrate_victim_pass(sh, first, static_cast<int64_t>(r_count) * c_count, base2,
-                        free2, f2, rg, rp, kc, V, maskwin, profile_rows, profile_valid,
-                        profile_anchors, profile_mem, out_ap, out_okp, out_kp, n, a,
-                        p_count, nkeys, keys, partial);
+    migrate_victim_pass(t, run, blockIdx.x - r_count, gridDim.x - r_count,
+                        static_cast<int64_t>(r_count) * c_count, base2, free2, f2, rg, rp, kc,
+                        out_ap, out_okp, out_kp, n, a, p_count, nkeys, keycode, cols,
+                        need_delta, partial);
   }
 }
 
@@ -796,18 +1122,28 @@ int migrate_refine_launch(
     int nkeys, int keycode, int partial, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (r_count <= 0 || c_count < 0 || nkeys < 0 || nkeys > kMaxKeys) {
+  // window bits fit one 32-bit word; a class takes one warp of pass 0
+  if (r_count <= 0 || m <= 0 || c_count < 0 || nkeys < 0 || nkeys > kMaxKeys || n <= 0 ||
+      n > 32 || a <= 0 || p_count <= 0 || p_count > kMigrateClasses) {
     return cudaErrorInvalidValue;
   }
-  const int64_t pass0 = static_cast<int64_t>(r_count) * p_count;
-  const int64_t pass1 =
-      (static_cast<int64_t>(r_count) * c_count + kMigrateThreads - 1) / kMigrateThreads;
-  if (pass0 + pass1 > INT_MAX) return cudaErrorInvalidValue;
-  const size_t floats = class_tables_floats(k_count, n, a);
-  const size_t smem = sizeof(float) * (floats > static_cast<size_t>(kMigrateThreads) * n
-                                           ? floats
-                                           : static_cast<size_t>(kMigrateThreads) * n);
-  migrate_refine_kernel<<<static_cast<int>(pass0 + pass1), kMigrateThreads, smem,
+  const size_t smem = migrate_smem_bytes(k_count, p_count, a, n);
+  err = cudaFuncSetAttribute(migrate_refine_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  int per_sm = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, migrate_refine_kernel,
+                                                      kMigrateThreads, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  // pass 1: as many blocks as the card holds at once, each walking runs
+  const int64_t runs = (static_cast<int64_t>(r_count) * c_count + kMigrateRun - 1) / kMigrateRun;
+  const int64_t pass1 = runs < static_cast<int64_t>(per_sm > 0 ? per_sm : 1) * sms
+                            ? runs
+                            : static_cast<int64_t>(per_sm > 0 ? per_sm : 1) * sms;
+  if (r_count + pass1 > INT_MAX) return cudaErrorInvalidValue;
+  migrate_refine_kernel<<<static_cast<int>(r_count + pass1), kMigrateThreads, smem,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(base), static_cast<const int32_t*>(free),
       static_cast<const float*>(f), static_cast<const float*>(base2),

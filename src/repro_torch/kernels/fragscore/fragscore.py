@@ -156,8 +156,6 @@ delta_from_base.launches = 0
 
 #: most effective keys the select kernel compares (its ``kMaxKeys``)
 MAX_KEYS = 8
-#: threads per block of the migrate kernel (its ``kMigrateThreads``)
-_MIGRATE_THREADS = 128
 
 
 def pack_keys(keys) -> int:
@@ -218,7 +216,12 @@ def migrate_refine(
     """Both refinements of the migrate search in one launch: per replica
     and demand class the best and runner-up untouched GPU rows, per victim
     its patched row (see :func:`ref.migrate_refine_ref` for the operands and
-    the ``(g1, ok1, a1, k1, g2, ok2, a2, k2, ap, okp, kp)`` outputs)."""
+    the ``(g1, ok1, a1, k1, g2, ok2, a2, k2, ap, okp, kp)`` outputs).
+
+    The kernel takes N <= 32 windows and P <= 8 classes, and every window
+    size in ``V`` must be a whole number of slices in [0, 32]: it sums
+    windows as bit sets of those sizes (``spec_tables`` builds no other).
+    The launcher refuses tables that do not fit the card's shared memory."""
     partial = _metric_flag(metric)
     operands = (base, free, f, base2, free2, f2, rg, rp, kc, midx, V, maskwin,
                 profile_rows, profile_valid, profile_anchors, profile_mem)
@@ -235,9 +238,8 @@ def migrate_refine(
     check("profile_rows", profile_rows, torch.int32, (k, p, a))
     check("profile_valid", profile_valid, torch.bool, (k, p, a))
     check("profile_anchors", profile_anchors, torch.int32, (k, p, a))
-    smem = 4 * max(k * n + k * a * n + k + 3 * k * a, _MIGRATE_THREADS * n)
-    if smem > 48 * 1024:
-        raise ValueError(f"migrate_refine: tables need {smem} B of shared memory (> 48 KiB)")
+    if n > 32 or p > 8:
+        raise ValueError(f"migrate_refine: N = {n} must be <= 32 and P = {p} <= 8")
     dev = base.device
     l = len(keys)
     i32 = dict(dtype=torch.int32, device=dev)

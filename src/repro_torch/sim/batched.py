@@ -190,6 +190,9 @@ def _spec_tables_np(spec: mig.ClusterSpec) -> Dict[str, np.ndarray]:
         for pid in range(P):
             s = m.profile_placement_rows(pid)
             rows_t[k, pid, : s.stop - s.start] = np.arange(s.start, s.stop)
+    # the migrate kernel sums windows as bit sets of their sizes
+    if not (np.all(V == np.floor(V)) and np.all((V >= 0) & (V <= 32))):
+        raise ValueError(f"window sizes must be whole slices in [0, 32]: {np.unique(V)}")
     # occupied-slice count each profile anchor adds to every placement window
     maskwin = np.einsum("kpas,kns->kpan", masks_t.astype(np.float32), W)
     return dict(

@@ -8,6 +8,9 @@ rounding step (2^-7 relative) of outputs that both sides compute in
 float32 and round once.  A row of length 0 gives 0 in the TPU kernel and
 in the port; the reference's ``ref.py`` gives NaN there, so that case is
 held against the kernel only.
+
+The kernel's split-KV plan (``split.py``) is held here too: every key in
+exactly one split, and the grid within CUDA's limits.
 """
 
 import jax.numpy as jnp
@@ -21,6 +24,7 @@ from repro.models import common as jcommon
 
 from repro_torch.kernels.decode_attention import decode_attention as T
 from repro_torch.kernels.decode_attention import ops as tops
+from repro_torch.kernels.decode_attention import split as tsplit
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref as t_ref
 from repro_torch.models import common as tcommon
 
@@ -158,3 +162,22 @@ def test_linear_cache_decode_is_the_kernel_with_length_pos_plus_one(pos):
     got = tcommon.decode_gqa_attention(torch.as_tensor(q), torch.as_tensor(k),
                                        torch.as_tensor(v), length)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL["float32"])
+
+
+#: (B, K, S, SM count): the serving and long shapes, B = 1 at S = 32,768,
+#: an empty cache, one SM, and batches far past the card's width
+PLANS = [(4, 8, 161, 132), (8, 8, 8192, 132), (1, 8, 32768, 132), (2, 2, 0, 132),
+         (1, 1, 1, 132), (3, 4, 1000, 1), (4096, 8, 4096, 132), (1, 1, 10**7, 132),
+         (5, 3, 65, 16), (1, 1, 64, 132)]
+
+
+@pytest.mark.parametrize("b,kheads,s,sms", PLANS, ids=lambda x: str(x))
+def test_plan_splits_covers_every_key_once(b, kheads, s, sms):
+    split_len, n = tsplit.plan_splits(b, kheads, s, sms)
+    assert n >= 1 and split_len >= 1 and split_len % tsplit.SPLIT_ALIGN == 0
+    # splits [j·L, (j+1)·L) for j < n: they tile [0, S) with none empty
+    assert split_len * n >= s and (n - 1) * split_len < max(s, 1)
+    assert n <= tsplit.MAX_SPLITS  # gridDim.y
+    assert b * kheads <= 2**31 - 1  # gridDim.x (one block per (b, kh) and group chunk)
+    if s >= 2 * tsplit.MIN_SPLIT and b * kheads < sms:
+        assert n >= 2  # a narrow batch is spread over more blocks than rows

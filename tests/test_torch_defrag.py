@@ -4,6 +4,7 @@ single-decision defrag search of ``policy_select_full`` against the
 reference package's (the textbook scenario and 40 random clusters).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -154,14 +155,21 @@ def test_search_gated_by_want():
 
 PID = {name: i for i, name in enumerate(jmig.PROFILE_NAMES)}
 
+#: the reference's decision compiled as one program per cluster shape and
+#: workload list; called op by op it compiles each primitive anew for every
+#: new shape of the random clusters, which costs twice as long
+reference_select_full = jax.jit(
+    jb.policy_select_full,
+    static_argnames=("policy", "metric", "spec", "cursor", "workloads"))
+
 
 def assert_decisions_equal(occ, pid, text, workloads):
     spec = tmig.ClusterSpec.parse(text) if text else None
     jspec = jmig.ClusterSpec.parse(text) if text else None
     got = tb.policy_select_full(occ, pid, "mfi-defrag", spec=spec, workloads=workloads,
                                 device="cpu")
-    want = jb.policy_select_full(jnp.asarray(occ), jnp.int32(pid), "mfi-defrag",
-                                 spec=jspec, workloads=workloads)
+    want = reference_select_full(jnp.asarray(occ), jnp.int32(pid), "mfi-defrag",
+                                 spec=jspec, workloads=tuple(map(tuple, workloads)))
     for name in tb.PolicyDecision._fields:
         g, w = getattr(got, name), np.asarray(getattr(want, name))
         assert g.numpy().dtype == w.dtype and g.item() == w.item(), name

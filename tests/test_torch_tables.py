@@ -246,6 +246,16 @@ def test_spec_tables_equal(fleet):
         assert torch.equal(got, want)
 
 
+def test_spec_tables_refuse_windows_the_migrate_kernel_cannot_sum():
+    """The migrate kernel sums windows as bit sets of their sizes, so the
+    tables carry only window sizes of 0 to 32 whole slices."""
+    wide = dataclasses.replace(
+        tmig.A100_80GB, name="wide", num_mem_slices=40,
+        profiles=tmig.PROFILES[:-1] + (tmig.MIGProfile("33s", compute=1, mem=33, anchors=(0,)),))
+    with pytest.raises(ValueError, match="whole slices"):
+        tb.spec_tables(tmig.ClusterSpec.homogeneous(wide, 2), "cpu")
+
+
 # ---------------------------------------------------------------------------
 # Host presampling
 # ---------------------------------------------------------------------------
