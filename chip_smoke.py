@@ -15,7 +15,11 @@ Phases, each printing its own lines:
    four-model tables; for ``migrate_refine`` C_live = 800 victims per
    replica), equal with a tolerance of 0, with its time, its bound on the
    card and its plain version's time (``migrate_refine`` also alone with
-   no victims, C = 0: its pass 0, and pass 1 by difference);
+   no victims, C = 0: its pass 0, and pass 1 by difference); besides,
+   ``fragscore`` on all 2^S occupancy patterns of every device model and on
+   rows with entries outside {0, 1}, and ``select_from_base`` on empty,
+   full and one-feasible fleets, R = 1, R = 499 and M = 33, each kernel
+   giving the same bits on two calls;
 4. the pinned golden results of the reference package, mfi-defrag's
    included, reproduced with the kernels on;
 5. the paper's experiment at full width (M = 100 A100-80GB, uniform mix,
@@ -24,7 +28,8 @@ Phases, each printing its own lines:
    counts reset just before and read just after) and once through the
    plain lowering over the same events: traces equal, launch counts
    matching the events; then a profiled 256-event window of the mfi and
-   the mfi-defrag step;
+   the mfi-defrag step, each also run unprofiled, the kernel path's event
+   loop under ``torch.cuda.set_sync_debug_mode("error")`` (no host sync);
 6. the ``decode_attention`` kernel against its plain torch version
    (float32: max abs error <= 1e-5; bfloat16: |kernel - plain| <= 2e-2 +
    2e-2·|plain| and, scale-aware, <= 2^-7·|plain| + 2^-10·rms(plain row),
@@ -132,6 +137,8 @@ GOLDEN_AGGREGATES = {
 RECORDED_FIG4_MFI = "fig4,mfi,1.0,0.9322,891.6,0.8735,98.0,4.67"
 
 RUNS = 500
+#: phase 3's mixed fleet of four device models
+FOUR_MODEL_FLEET = "a100-80:30,a100-40:30,h100-96:20,h100-80:20"
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
 FRAGSCORE_SOURCE = "src/repro_torch/kernels/fragscore/csrc/fragscore.cu"
@@ -270,17 +277,16 @@ def nbytes(*tensors) -> int:
 # ---------------------------------------------------------------------------
 
 
-def random_state(spec, tables, rng, device):
-    """Engine-layout (base, free, f) of R random fills of ``spec``."""
+def fleet_state(spec, tables, occ, device):
+    """Engine-layout ``(occ, base, free, f)`` of the occupancy ``occ (R, M, S)``
+    of ``spec`` (slices a smaller model lacks are zeroed)."""
     import numpy as np
     import torch
     from repro_torch.sim import batched
 
     midx = np.asarray(spec.model_index)
-    s = spec.num_mem_slices
-    fill = (np.arange(RUNS) / RUNS)[:, None, None]
-    occ = (rng.random((RUNS, spec.num_gpus, s)) < fill).astype(np.int32)
-    for g in range(spec.num_gpus):  # zero the slices a smaller model lacks
+    occ = np.array(occ, dtype=np.int32)
+    for g in range(spec.num_gpus):
         occ[:, g, spec.models[midx[g]].num_mem_slices:] = 0
     occ_t = torch.as_tensor(occ, device=device)
     mi = torch.as_tensor(midx, device=device).long()
@@ -288,6 +294,82 @@ def random_state(spec, tables, rng, device):
     free = (tables.slices[mi] - occ_t.sum(dim=2, dtype=torch.int32)).contiguous()
     f = batched._frag_from_base(base, free, "blocked", tables.V[mi])
     return occ_t, base.contiguous(), free, f.contiguous()
+
+
+def random_state(spec, tables, rng, device, runs=None):
+    """Engine-layout (occ, base, free, f) of ``runs`` (default ``RUNS``)
+    random fills of ``spec``, replica r filled to r / runs."""
+    import numpy as np
+
+    runs = RUNS if runs is None else runs
+    fill = (np.arange(runs) / runs)[:, None, None]
+    occ = rng.random((runs, spec.num_gpus, spec.num_mem_slices)) < fill
+    return fleet_state(spec, tables, occ, device)
+
+
+def single_feasible(spec, tables, pid, rng):
+    """An occupancy where each replica r has exactly one feasible anchor for
+    class ``pid[r]``: every GPU full but one, which holds everything outside
+    one valid anchor's window."""
+    import numpy as np
+
+    midx = np.asarray(spec.model_index)
+    valid = tables.profile_valid.cpu().numpy()        # (K, P, A)
+    masks = tables.profile_masks.cpu().numpy()        # (K, P, A, S)
+    occ = np.ones((len(pid), spec.num_gpus, spec.num_mem_slices), np.int32)
+    for r, p in enumerate(pid):
+        g = rng.choice(np.flatnonzero(valid[midx, p].any(axis=1)))
+        j = rng.choice(np.flatnonzero(valid[midx[g], p]))
+        occ[r, g] = 1 - masks[midx[g], p, j]
+    return occ
+
+
+def select_cases(device, rng, pid_np):
+    """select_from_base's operand sets where ties, masks and the block layout
+    decide: empty fleets (every ΔF ties, the flat index decides), full fleets
+    (nothing feasible), one feasible anchor per replica, on the homogeneous
+    and the four-model fleet; R = 1 and R = 499 (not a multiple of the
+    replicas a block takes); M = 33."""
+    import numpy as np
+    import torch
+    from repro_torch.core import mig
+    from repro_torch.sim import batched
+
+    cases = {}
+    for tag, spec in (("homog", mig.ClusterSpec.homogeneous(mig.A100_80GB, 100)),
+                      ("four-model", mig.ClusterSpec.parse(FOUR_MODEL_FLEET))):
+        tables = batched.spec_tables(spec, device)
+        shape = (RUNS, spec.num_gpus, spec.num_mem_slices)
+        for name, occ in (("empty", np.zeros(shape, np.int32)), ("full", np.ones(shape, np.int32)),
+                          ("single", single_feasible(spec, tables, pid_np, rng))):
+            cases[f"{tag}/{name}"] = (spec, tables, fleet_state(spec, tables, occ, device)[1:],
+                                      pid_np)
+    spec = mig.ClusterSpec.homogeneous(mig.A100_80GB, 100)
+    tables = batched.spec_tables(spec, device)
+    state = random_state(spec, tables, rng, device)[1:]
+    for runs in (1, 499):
+        cases[f"R = {runs}"] = (spec, tables, tuple(t[:runs].contiguous() for t in state),
+                                pid_np[:runs])
+    spec = mig.ClusterSpec.homogeneous(mig.A100_80GB, 33)
+    tables = batched.spec_tables(spec, device)
+    cases["M = 33"] = (spec, tables, random_state(spec, tables, rng, device)[1:], pid_np)
+    out = {}
+    for name, (spec, tables, (base, free, f), pids) in cases.items():
+        midx32 = torch.as_tensor(spec.model_index, device=device)
+        out[name] = (base, free, f, torch.as_tensor(pids, dtype=torch.int32, device=device),
+                     midx32, tables.V, tables.maskwin, tables.profile_rows,
+                     tables.profile_valid, tables.profile_anchors, tables.profile_mem)
+    return out
+
+
+def feasible_counts(sargs):
+    """Feasible anchors of each replica's request, ``(R,)``."""
+    import torch
+
+    base, _, _, pid, midx32, _, _, rows, valid = sargs[:9]
+    mi, pi = midx32.long()[None, :], pid.long()[:, None]
+    sel = rows[mi, pi].long()
+    return ((torch.gather(base, 2, sel) == 0) & valid[mi, pi]).sum(dim=(1, 2))
 
 
 def kernel_phase(device):
@@ -301,7 +383,7 @@ def kernel_phase(device):
 
     rng = np.random.default_rng(0)
     homog = mig.ClusterSpec.homogeneous(mig.A100_80GB, 100)
-    four = mig.ClusterSpec.parse("a100-80:30,a100-40:30,h100-96:20,h100-80:20")
+    four = mig.ClusterSpec.parse(FOUR_MODEL_FLEET)
     pid = torch.as_tensor(np.arange(RUNS) % mig.NUM_PROFILES, dtype=torch.int32, device=device)
     rows = {}
 
@@ -317,6 +399,25 @@ def kernel_phase(device):
             want = ref.fragscore_ref(x, w, v, metric)
             check(torch.equal(got, want), f"fragscore/{metric}/{tuple(x.shape)} differs from its plain version")
             err = max(err, float((got - want).abs().max()))
+    # every occupancy pattern of every device model (the kernel's bit path),
+    # rows with entries outside {0, 1} (its count path), each twice
+    models = {m.name: m for m in mig.DEVICE_MODELS.values()}
+    for name, model in sorted(models.items()):
+        sm = model.num_mem_slices
+        pats = (np.arange(1 << sm)[:, None] >> np.arange(sm)) & 1
+        odd = rng.integers(-2, 4, (256, sm))
+        wm = torch.tensor(model.placement_masks, dtype=torch.float32, device=device)
+        vm = torch.tensor(model.placement_mem, dtype=torch.float32, device=device)
+        for metric in ("blocked", "partial"):
+            for tag, rows_np in (("all patterns", pats), ("entries outside {0, 1}", odd)):
+                xm = torch.as_tensor(rows_np.astype(np.int32), device=device)
+                got = K.fragscore(xm, wm, vm, metric=metric)
+                check(torch.equal(got, ref.fragscore_ref(xm, wm, vm, metric)),
+                      f"fragscore/{name}/{metric}/{tag} differs from its plain version")
+                check(torch.equal(got, K.fragscore(xm, wm, vm, metric=metric)),
+                      f"fragscore/{name}/{metric}/{tag}: two calls differ")
+    log(f"kernel fragscore: equal to plain on all 2^S patterns of {sorted(models)} and on rows "
+        "with entries outside {0, 1}, both metrics; the same bits on two calls")
     x = expire_rows
     ms, call_ms, src = timed(lambda: K.fragscore(x, w, v), 200, "fragscore_kernel")
     plain_ms, plain_call_ms, _ = timed(lambda: ref.fragscore_ref(x, w, v), 50)
@@ -353,6 +454,9 @@ def kernel_phase(device):
                     check(torch.equal(g.long(), wv.long()),
                           f"select_from_base/{tag}/{metric}/{policy} differs from its plain version")
                     err_s = max(err_s, float((g.long() - wv.long()).abs().max()))
+                again = K.select_from_base(*sargs, keys=keys, metric=metric)
+                check(all(torch.equal(g, h) for g, h in zip(got, again)),
+                      f"select_from_base/{tag}/{metric}/{policy}: two calls differ")
         if tag == "homog":
             r, m, nn = base.shape
             a = tables.maskwin.shape[2]
@@ -371,6 +475,29 @@ def kernel_phase(device):
             rows_sel = tables.profile_rows[midx32.long()[None, :], pid.long()[:, None]].long()
             feasible = int(((torch.gather(base, 2, rows_sel) == 0)
                             & tables.profile_valid[midx32.long()[None, :], pid.long()[:, None]]).sum())
+    pid_np = pid.cpu().numpy()
+    for tag, sargs in select_cases(device, rng, pid_np).items():
+        feasible_n = feasible_counts(sargs)
+        if tag.endswith("/full"):
+            check(int(feasible_n.max()) == 0, f"select case {tag}: a feasible anchor")
+        if tag.endswith("/single"):
+            check(bool((feasible_n == 1).all()), f"select case {tag}: not one feasible anchor each")
+        for metric in ("blocked", "partial"):
+            for policy in ("mfi", "ff", "bf-bi", "wf-bi"):
+                keys = batched._effective_keys(resolve(policy))
+                got = K.select_from_base(*sargs, keys=keys, metric=metric)
+                want = ref.select_from_base_ref(*sargs, keys, metric)
+                again = K.select_from_base(*sargs, keys=keys, metric=metric)
+                for g, wv, h in zip(got, want, again):
+                    check(torch.equal(g.long(), wv.long()),
+                          f"select_from_base/{tag}/{metric}/{policy} differs from its plain version")
+                    check(torch.equal(g, h), f"select_from_base/{tag}/{metric}/{policy}: two calls differ")
+                if tag.endswith("/full"):
+                    check(not bool(got[2].any()) and not bool(got[0].any()) and not bool(got[1].any()),
+                          f"select_from_base/{tag}/{metric}/{policy}: not (0, 0, false)")
+    log("kernel select_from_base: equal to plain and the same bits on two calls on "
+        "empty, full and one-feasible fleets (homog, four-model), R = 1, R = 499, M = 33, "
+        "both metrics, mfi/ff/bf-bi/wf-bi keys")
     (ms, call_ms, src), (plain_ms, plain_call_ms, _), dargs = timing["delta_from_base"]
     b_ms, b_by = bound(nbytes(*dargs) + 4 * r * m * a, 2 * r * m * nn * (a + 1))
     rows["delta_from_base"] = dict(max_abs_err=err_d, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
@@ -637,7 +764,15 @@ def full_width_phase(device):
 
         times = device_times(run, 1)
         t0 = time.perf_counter()
-        run()
+        loop = batched._setup_run(window, policy=policy, use_kernel=use_kernel, **common)
+        if use_kernel:  # sim/batched.py's claim: nothing in the loop waits for the device
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            batched._event_loop(*loop)
+        except RuntimeError as e:
+            check(False, f"engine window {policy}: a host sync inside the event loop: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
         busy_ms = sum(t for t, _ in times.values()) / 1e3
@@ -646,7 +781,9 @@ def full_width_phase(device):
         log(f"engine window {policy} {'kernel' if use_kernel else 'plain'} "
             f"({n} events, R={RUNS}): "
             f"device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms wall "
-            f"({100 * busy_ms / wall_ms:.1f}% busy), {launches / n:.1f} device ops/event; top: "
+            f"({100 * busy_ms / wall_ms:.1f}% busy), {launches / n:.1f} device ops/event"
+            + ("; no host sync in the loop (set_sync_debug_mode error)" if use_kernel else "")
+            + "; top: "
             + "; ".join(f"{k[:48]} {t / c:.1f} us x{c}" for k, (t, c) in top))
     return totals, rates
 

@@ -7,19 +7,19 @@
 // synchronises, allocates nothing, and returns cudaGetLastError() so the
 // Python wrapper can raise on a refused launch.
 //
-// Every score is an integer held in float32 (window sizes <= 12 slices,
-// sums <= 31 windows), so each kernel reproduces its plain torch version
+// Every score is an integer held in float32 (window sizes <= 32 slices,
+// sums <= 32 windows), so each kernel reproduces its plain torch version
 // (repro_torch/kernels/fragscore/ref.py) bit for bit in any summation order.
 //
 // Shapes on the engine's main path (M = 100 A100-80GB GPUs, R = 500
-// replicas): N = 18 windows, A = 7 anchors, S = 8 slices.  The first three
-// kernels move a few megabytes a call at most and do a few hundred
-// thousand float operations, so on an H100 each is bound by its launch
-// (a few microseconds), not by bytes or operations; the designs keep one
-// launch per engine stage and read every table once per block.
-// migrate_refine reads ~48 MB a call, so bytes bound it (see its note).
-// mfi_delta serves one scheduling decision over up to 10^6 GPUs, where its
-// bytes bound it (see its note).
+// replicas): N = 18 windows, A = 7 anchors, S = 8 slices.  fragscore,
+// delta_from_base and select_from_base move a few megabytes a call at most
+// and do a few million float operations, so on an H100 a chain of dependent
+// loads and instructions inside one block, not bytes or operations, sets
+// their time (a few microseconds); the designs keep one launch per engine
+// stage and read every table once per block.  migrate_refine reads ~48 MB a
+// call, so bytes bound it (see its note).  mfi_delta serves one scheduling
+// decision over up to 10^6 GPUs, where its bytes bound it (see its note).
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -31,27 +31,59 @@ namespace {
 
 constexpr int kMaxSlices = 16;  // S <= 12 (the H200-141GB geometry)
 constexpr int kMaxKeys = 8;     // effective scoring keys of a fused spec
-constexpr int kFragThreads = 256;
+constexpr int kFragThreads = 32;
+constexpr int kMfiThreads = 256;
 constexpr int kDeltaThreads = 256;
-constexpr int kSelectThreads = 128;
+constexpr int kSelectThreads = 128;  // a select block per replica, a thread per GPU row
 constexpr int kMigrateThreads = 256;
 constexpr float kBig = 1e9f;  // the masked-key sentinel (ref.BIG)
 constexpr float kMfiBig = 1e30f;  // mfi_delta's infeasibility sentinel (ref.MFI_BIG)
 
 // ---------------------------------------------------------------------------
-// fragscore — replaces kernels/fragscore/fragscore.py::fragscore (Pallas,
-// _fragscore_kernel/_score_block) of the JAX package.
-//
-// F(m) of each occupancy row: window counts occ · Wᵀ, the blocked/partial
-// predicate, the eligibility of each window against the row's free slices,
-// and the eligible sum.  Bound: launch.  On the main path a call scores the
-// R·E expire rows (500·12·8 int32 = 192 KB in, 24 KB out) or the R commit
-// rows, i.e. well under 0.1 µs of HBM time at 3.35 TB/s.  Design: one
-// thread per row (no cross-thread reduction at all), the (N, S) window
-// table staged once per block in shared memory, the row held in registers.
+// Windows as bit sets.  Where N <= 32 and every window size is a whole
+// number of slices in [0, 32], a set of windows is one 32-bit word and the
+// sizes are kSizeBits bit planes (plane q: the windows whose size has bit q
+// set).  A sum of sizes is then a sum of popcounts, and the windows of size
+// <= t a bit-sliced comparison of the planes with t.
 // ---------------------------------------------------------------------------
 
-// F of one occupancy row x (its slices past s are 0), used = the row's sum.
+// Σ v[i] over the set bits i of `bits`, from the bit planes of the window
+// sizes (plane q holds the windows whose size has bit q set): exact, as the
+// sizes are whole slices.
+constexpr int kMaxWindows = 32;  // a set of windows is one 32-bit word
+constexpr int kSizeBits = 6;     // window sizes below 64 slices
+struct Planes {
+  uint32_t q[kSizeBits];
+};
+
+__device__ __forceinline__ float window_sum(uint32_t bits, const Planes& planes) {
+  int sum = 0;
+#pragma unroll
+  for (int q = 0; q < kSizeBits; ++q) sum += __popc(bits & planes.q[q]) << q;
+  return static_cast<float>(sum);
+}
+
+// The windows whose size is <= free (sizes are whole, so <= floor(free)):
+// the planes compared with t = floor(free), most significant bit first.
+// Bits past the last window are set too; every caller masks them off.
+__device__ __forceinline__ uint32_t windows_le(const Planes& planes, float free_slices) {
+  const int t = static_cast<int>(fminf(fmaxf(floorf(free_slices), -1.f), 63.f));
+  uint32_t lt = 0, eq = ~0u;  // windows already below t; equal to t so far
+#pragma unroll
+  for (int q = kSizeBits - 1; q >= 0; --q) {
+    const uint32_t pq = planes.q[q];
+    if ((t >> q) & 1) {
+      lt |= eq & ~pq;
+      eq &= pq;
+    } else {
+      eq &= ~pq;
+    }
+  }
+  return t < 0 ? 0u : lt | eq;
+}
+
+// The float count arithmetic of F over one occupancy row x (its slices past
+// s are 0; used = the row's sum), for any values and any window table.
 __device__ __forceinline__ float score_row(const float (&x)[kMaxSlices], float used,
                                            const float* sw, const float* sv, int n,
                                            int s, int partial) {
@@ -70,27 +102,136 @@ __device__ __forceinline__ float score_row(const float (&x)[kMaxSlices], float u
   return acc;
 }
 
+// ---------------------------------------------------------------------------
+// fragscore — replaces kernels/fragscore/fragscore.py::fragscore (Pallas,
+// _fragscore_kernel/_score_block; src/repro/kernels/fragscore/fragscore.py:76,
+// call :100) of the JAX package.
+//
+// F(m) of each occupancy row: window counts occ · Wᵀ, the blocked/partial
+// predicate, the eligibility of each window against the row's free slices,
+// and the eligible sum.  Bound: bytes, well under 0.1 µs (the main path
+// scores the R·E = 6,000 expire rows, 192 KB in and 24 KB out, or the R
+// commit rows), so the launch and one chain of dependent steps set the
+// time.  The design shortens that chain:
+//  * a block is one warp, so 6,000 rows spread over all SMs (188 blocks);
+//  * a thread's row comes in 16-byte loads issued before the table is
+//    read, so that the two latencies overlap;
+//  * every warp reads the window table, lane i window i, and keeps its bit
+//    sets in registers by ballot: the windows holding each slice and the
+//    bit planes of the sizes (only the count path below reads the table
+//    from shared memory);
+//  * a row of 0/1 entries (every row the engine makes) is a slice mask: its
+//    occupied windows are the OR of its slices' windows, the eligible ones
+//    a bit-sliced comparison of the planes with S − used, and F under
+//    "blocked" a popcount sum; "partial" also counts each window's slices;
+//  * any other row, or a table that is not 0/1 windows of whole sizes in
+//    [0, 32] with N <= 32, takes the float count arithmetic (score_row) on
+//    the table in shared memory, so the kernel equals its plain version on
+//    any row whose sums are exact in float32, not only on the engine's.
+// ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(kFragThreads) fragscore_kernel(
     const int32_t* __restrict__ occ, const float* __restrict__ w,
     const float* __restrict__ v, float* __restrict__ out, int q, int n, int s,
     int partial) {
   extern __shared__ float sh[];
-  float* sw = sh;
-  float* sv = sh + n * s;
-  for (int i = threadIdx.x; i < n * s; i += blockDim.x) sw[i] = w[i];
-  for (int i = threadIdx.x; i < n; i += blockDim.x) sv[i] = v[i];
-  __syncthreads();
+  float* sw = sh;         // (N, S) window slices, for the count path
+  float* sv = sw + n * s;  // (N,) window sizes
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= q) return;
-  const int32_t* o = occ + static_cast<int64_t>(row) * s;
-  float x[kMaxSlices];
-  float used = 0.f;
+  const int lane = threadIdx.x % 32;
+  int x[kMaxSlices];
+#pragma unroll
+  for (int j = 0; j < kMaxSlices; ++j) x[j] = 0;
+  if (row < q) {  // the row first: its loads fly while the table is read
+    const int32_t* o = occ + static_cast<int64_t>(row) * s;
+    if ((s & 3) == 0 && (reinterpret_cast<uintptr_t>(occ) & 15) == 0) {
+#pragma unroll
+      for (int c = 0; c < kMaxSlices / 4; ++c) {
+        if (4 * c < s) {
+          const int4 u = __ldg(reinterpret_cast<const int4*>(o) + c);
+          x[4 * c] = u.x;
+          x[4 * c + 1] = u.y;
+          x[4 * c + 2] = u.z;
+          x[4 * c + 3] = u.w;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kMaxSlices; ++j)
+        if (j < s) x[j] = o[j];
+    }
+  }
+  // Every warp reads the table, lane i window i, and keeps its bit sets in
+  // registers; the table also goes to shared memory for the count path.
+  bool ok = n <= kMaxWindows;  // the table is 0/1 windows of whole sizes in [0, 32]
+  float vl = 0.f;     // the lane's window size
+  uint32_t wb = 0;    // the lane's window, as slice bits
+  for (int i = lane; i < n; i += 32) {
+    float wi[kMaxSlices];
+#pragma unroll
+    for (int j = 0; j < kMaxSlices; ++j) wi[j] = j < s ? w[i * s + j] : 0.f;
+    const float vi = v[i];
+    uint32_t bits = 0;
+#pragma unroll
+    for (int j = 0; j < kMaxSlices; ++j) {
+      if (j < s) {
+        if (threadIdx.x < 32) sw[i * s + j] = wi[j];
+        ok &= wi[j] == 0.f || wi[j] == 1.f;
+        bits |= (wi[j] != 0.f ? 1u : 0u) << j;
+      }
+    }
+    ok &= vi == floorf(vi) && vi >= 0.f && vi <= 32.f;
+    if (threadIdx.x < 32) sv[i] = vi;
+    if (i == lane) {
+      vl = vi;
+      wb = bits;
+    }
+  }
+  ok = __all_sync(0xffffffffu, ok);
+  const bool mine = lane < n;
+  uint32_t swin[kMaxSlices];  // the windows holding slice j
+#pragma unroll
+  for (int j = 0; j < kMaxSlices; ++j)
+    swin[j] = j < s ? __ballot_sync(0xffffffffu, mine && ((wb >> j) & 1)) : 0u;
+  Planes planes;
+  const int vi = ok && mine ? static_cast<int>(vl) : 0;
+#pragma unroll
+  for (int qb = 0; qb < kSizeBits; ++qb) planes.q[qb] = __ballot_sync(0xffffffffu, (vi >> qb) & 1);
+  uint32_t mask = 0;
+  bool binary = true;
 #pragma unroll
   for (int j = 0; j < kMaxSlices; ++j) {
-    x[j] = j < s ? static_cast<float>(o[j]) : 0.f;
-    used += x[j];
+    binary &= (x[j] & ~1) == 0;
+    mask |= static_cast<uint32_t>(x[j] & 1) << j;
   }
-  out[row] = score_row(x, used, sw, sv, n, s, partial);
+  const int used = __popc(mask);
+  uint32_t full = 0;  // "partial": the windows whose count reaches their size
+  if (partial && ok) {
+    for (int i = 0; i < n; ++i) {
+      const uint32_t wbi = __shfl_sync(0xffffffffu, wb, i);
+      const float vw = __shfl_sync(0xffffffffu, vl, i);
+      full |= (static_cast<float>(__popc(mask & wbi)) >= vw ? 1u : 0u) << i;
+    }
+  }
+  __syncthreads();  // the count path's table in place
+  if (row >= q) return;
+  float score;
+  if (ok && binary) {
+    uint32_t occupied = 0;  // the windows holding a used slice
+#pragma unroll
+    for (int j = 0; j < kMaxSlices; ++j) occupied |= ((mask >> j) & 1) ? swin[j] : 0u;
+    const uint32_t elig = windows_le(planes, static_cast<float>(s - used));
+    score = window_sum((partial ? occupied & ~full : occupied) & elig, planes);
+  } else {
+    float xf[kMaxSlices];
+    float usedf = 0.f;
+#pragma unroll
+    for (int j = 0; j < kMaxSlices; ++j) {
+      xf[j] = static_cast<float>(x[j]);
+      usedf += xf[j];
+    }
+    score = score_row(xf, usedf, sw, sv, n, s, partial);
+  }
+  out[row] = score;
 }
 
 // ---------------------------------------------------------------------------
@@ -118,7 +259,7 @@ __global__ void __launch_bounds__(kFragThreads) fragscore_kernel(
 // (at most N = 31, S = 12, A = 12: 2.2 KB), F of a dry run computed only
 // for a feasible anchor.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kFragThreads) mfi_delta_kernel(
+__global__ void __launch_bounds__(kMfiThreads) mfi_delta_kernel(
     const int32_t* __restrict__ occ, const float* __restrict__ w,
     const float* __restrict__ v, const float* __restrict__ pm,
     const float* __restrict__ pv, float* __restrict__ out, int m, int n, int s,
@@ -241,266 +382,111 @@ __global__ void __launch_bounds__(kDeltaThreads) delta_from_base_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// select_from_base — replaces kernels/fragscore/fragscore.py::select_from_base
-// (Pallas, _select_from_base_kernel/_key_tile) and its host-side tile merge
-// sim/batched.py::_lex_pick_rows of the JAX package.
-//
-// One replica's whole decision: feasibility (the anchor's window holds no
-// occupied slice), ΔF, and the lexicographic minimum over
-// (keys..., gpu, col) of the feasible candidates — the total order of the
-// reference's masked refinement, whose remaining ties go to the lowest flat
-// index gpu·A + col.  Bound: launch.  At R = 500, M = 100 it reads base
-// (3.6 MB, about 1.1 µs at 3.35 TB/s) and writes 9 bytes per replica.
-// Design: one block per replica (grid R), threads striding over the GPU
-// rows, the replica's demand-class tables of every model staged in shared
-// memory, each thread's best candidate kept in registers, then a
-// warp-shuffle and a shared-memory reduction.  No host merge and one launch
-// for a mixed fleet; an all-infeasible replica resolves to (0, 0, false).
+// Tables and sort forms shared by select_from_base and migrate_refine.
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ bool lex_less(const float (&ka)[kMaxKeys], int fa,
-                                         const float (&kb)[kMaxKeys], int fb,
-                                         int nkeys) {
-#pragma unroll
-  for (int i = 0; i < kMaxKeys; ++i) {
-    if (i < nkeys) {
-      if (ka[i] < kb[i]) return true;
-      if (ka[i] > kb[i]) return false;
-    }
+// Copy `words` 4-byte words to shared memory with cp.async (16 bytes a copy
+// where both sides are 16-byte aligned), so that every load of a run is in
+// flight at once; the caller commits and waits.
+__device__ __forceinline__ void stage_async(void* dst, const void* src, int words) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const char* s = static_cast<const char*>(src);
+  int done = 0;
+  if (((reinterpret_cast<uintptr_t>(src) | d) & 15) == 0) {
+    done = words & ~3;
+    for (int c = threadIdx.x; c < done / 4; c += blockDim.x)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d + 16 * c),
+                   "l"(s + 16 * c));
   }
-  return fa < fb;
+  for (int i = done + threadIdx.x; i < words; i += blockDim.x)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d + 4 * i), "l"(s + 4 * i));
 }
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
-// One demand class's tables of every model, staged in shared memory.
-struct ClassTables {
-  const float* v;    // (K, N) window sizes
-  const float* mw;   // (K, A, N) slices each anchor adds per window
-  const float* mem;  // (K,) slice demand
-  const int* row;    // (K, A) window row of each anchor
-  const int* anc;    // (K, A) anchor value
-  const int* val;    // (K, A) anchor validity
+// Every (model, class) table in shared memory, with the bit sets
+// derived from them (stage_spec_tables).
+struct SpecTables {
+  const float* v;     // (K, N) window sizes
+  const float* mw;    // (K, P, A, N) window counts each anchor adds
+  const float* mem;   // (K, P) slice demand
+  const int* meta;    // (K, P, A) anchor: valid + 2·window row + 64·anchor value
+  const uint32_t* mwb;  // (K, P, A) bits of the windows each anchor touches
+  const uint32_t* planes;  // (K, kSizeBits) bit planes of the window sizes
 };
 
-inline size_t class_tables_floats(int k_count, int n, int a) {
-  return static_cast<size_t>(k_count) * n + static_cast<size_t>(k_count) * a * n +
-         k_count + 3 * static_cast<size_t>(k_count) * a;
+__device__ __forceinline__ Planes planes_of(const SpecTables& t, int k) {
+  Planes p;
+#pragma unroll
+  for (int q = 0; q < kSizeBits; ++q) p.q[q] = t.planes[k * kSizeBits + q];
+  return p;
 }
 
-// Stage class p's tables into sh; ends with a block barrier.
-__device__ ClassTables stage_class_tables(
-    float* sh, const float* __restrict__ V, const float* __restrict__ maskwin,
-    const int32_t* __restrict__ profile_rows,
-    const uint8_t* __restrict__ profile_valid,
-    const int32_t* __restrict__ profile_anchors,
-    const float* __restrict__ profile_mem, int p, int k_count, int p_count, int n,
-    int a) {
-  float* sv = sh;
+__host__ __device__ inline size_t spec_tables_words(int k_count, int p_count, int a, int n) {
+  const size_t kpa = static_cast<size_t>(k_count) * p_count * a;
+  const size_t words = static_cast<size_t>(k_count) * n + kpa * n +
+                       static_cast<size_t>(k_count) * p_count + 4 * kpa +
+                       static_cast<size_t>(k_count) * kSizeBits;
+  return (words + 3) & ~static_cast<size_t>(3);  // the run area starts 16-byte aligned
+}
+
+// Stage the tables into sh with cp.async (it waits for every copy in flight,
+// the caller's too) and derive the bit sets: the anchor words and the
+// windows each anchor touches, of every class or only of class p_only >= 0,
+// and the size planes of every model.  blockDim is a multiple of 32; the
+// caller syncs the block before reading the derived sets.
+__device__ __forceinline__ SpecTables stage_spec_tables(
+    uint32_t* sh, const float* __restrict__ V, const float* __restrict__ maskwin,
+    const int32_t* __restrict__ profile_rows, const uint8_t* __restrict__ profile_valid,
+    const int32_t* __restrict__ profile_anchors, const float* __restrict__ profile_mem,
+    int k_count, int p_count, int a, int n, int p_only) {
+  const int kpa = k_count * p_count * a;
+  float* sv = reinterpret_cast<float*>(sh);
   float* smw = sv + k_count * n;
-  float* smem = smw + k_count * a * n;
-  int* srow = reinterpret_cast<int*>(smem + k_count);
-  int* sanc = srow + k_count * a;
-  int* sval = sanc + k_count * a;
-  for (int i = threadIdx.x; i < k_count * n; i += blockDim.x) sv[i] = V[i];
-  for (int i = threadIdx.x; i < k_count * a * n; i += blockDim.x) {
-    const int k = i / (a * n);
-    smw[i] = maskwin[(static_cast<int64_t>(k) * p_count + p) * a * n + i % (a * n)];
-  }
-  for (int i = threadIdx.x; i < k_count; i += blockDim.x) {
-    smem[i] = profile_mem[i * p_count + p];
-  }
-  for (int i = threadIdx.x; i < k_count * a; i += blockDim.x) {
-    const int64_t src = (static_cast<int64_t>(i / a) * p_count + p) * a + i % a;
-    srow[i] = profile_rows[src];
-    sanc[i] = profile_anchors[src];
-    sval[i] = profile_valid[src];
-  }
+  float* smem = smw + kpa * n;
+  int* srow = reinterpret_cast<int*>(smem + k_count * p_count);
+  int* sanc = srow + kpa;
+  int* sval = sanc + kpa;
+  uint32_t* smwb = reinterpret_cast<uint32_t*>(sval + kpa);
+  uint32_t* splanes = smwb + kpa;
+  stage_async(sv, V, k_count * n);
+  stage_async(smw, maskwin, kpa * n);
+  stage_async(smem, profile_mem, k_count * p_count);
+  stage_async(srow, profile_rows, kpa);
+  stage_async(sanc, profile_anchors, kpa);
+  cp_async_commit();
+  // the anchors to derive: (k, p, j) of every class, or (k, p_only, j)
+  const int pick_count = p_only >= 0 ? k_count * a : kpa;
+  const auto anchor = [&](int i) {
+    return p_only >= 0 ? ((i / a) * p_count + p_only) * a + i % a : i;
+  };
+  for (int i = threadIdx.x; i < pick_count; i += blockDim.x)
+    sval[anchor(i)] = profile_valid[anchor(i)];
+  cp_async_wait<0>();
   __syncthreads();
-  return ClassTables{sv, smw, smem, srow, sanc, sval};
+  for (int i = threadIdx.x; i < pick_count; i += blockDim.x) {  // one word per anchor
+    const int x = anchor(i);
+    srow[x] = (sval[x] ? 1 : 0) + (srow[x] & 31) * 2 + sanc[x] * 64;
+  }
+  // the bit sets, a ballot each (lane w holds window w): the windows each
+  // anchor touches, then the size planes of every model
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, warps = blockDim.x / 32;
+#pragma unroll 4
+  for (int i = warp; i < pick_count; i += warps) {
+    const int x = anchor(i);
+    const uint32_t bits = __ballot_sync(0xffffffffu, lane < n && smw[x * n + lane] > 0.f);
+    if (lane == 0) smwb[x] = bits;
+  }
+#pragma unroll 2
+  for (int i = warp; i < k_count * kSizeBits; i += warps) {
+    const int k = i / kSizeBits, q = i % kSizeBits;
+    const int vw = lane < n ? static_cast<int>(sv[k * n + lane]) : 0;
+    const uint32_t bits = __ballot_sync(0xffffffffu, (vw >> q) & 1);
+    if (lane == 0) splanes[i] = bits;
+  }
+  return SpecTables{sv, smw, smem, srow, smwb, splanes};
 }
-
-// keycode packs 3 bits per key: bits 0-1 the base (0 frag-delta,
-// 1 free-slices, 2 gpu, 3 anchor), bit 2 the "-" direction
-struct KeyCode {
-  int base[kMaxKeys];
-  bool neg[kMaxKeys];
-  bool need_delta;
-};
-
-__device__ __forceinline__ KeyCode decode_keys(int keycode, int nkeys) {
-  KeyCode kc;
-  kc.need_delta = false;
-#pragma unroll
-  for (int i = 0; i < kMaxKeys; ++i) {
-    const int c = (keycode >> (3 * i)) & 7;
-    kc.base[i] = c & 3;
-    kc.neg[i] = (c & 4) != 0;
-    if (i < nkeys && kc.base[i] == 0) kc.need_delta = true;
-  }
-  return kc;
-}
-
-// The signed key vector of one candidate.
-__device__ __forceinline__ void key_vector(const KeyCode& kc, float delta,
-                                           float free_after, float gpu,
-                                           float anchor, float (&out)[kMaxKeys]) {
-#pragma unroll
-  for (int i = 0; i < kMaxKeys; ++i) {
-    float val;
-    switch (kc.base[i]) {
-      case 0: val = delta; break;
-      case 1: val = free_after; break;
-      case 2: val = gpu; break;
-      default: val = anchor; break;
-    }
-    out[i] = kc.neg[i] ? -val : val;
-  }
-}
-
-__device__ __forceinline__ void copy_keys(float (&dst)[kMaxKeys],
-                                          const float (&src)[kMaxKeys]) {
-#pragma unroll
-  for (int i = 0; i < kMaxKeys; ++i) dst[i] = src[i];
-}
-
-__global__ void __launch_bounds__(kSelectThreads) select_from_base_kernel(
-    const float* __restrict__ base, const int32_t* __restrict__ free,
-    const float* __restrict__ f, const int32_t* __restrict__ pid,
-    const int32_t* __restrict__ midx, const float* __restrict__ V,
-    const float* __restrict__ maskwin, const int32_t* __restrict__ profile_rows,
-    const uint8_t* __restrict__ profile_valid,
-    const int32_t* __restrict__ profile_anchors,
-    const float* __restrict__ profile_mem, int32_t* __restrict__ out_gpu,
-    int32_t* __restrict__ out_col, uint8_t* __restrict__ out_ok, int m, int n,
-    int a, int p_count, int k_count, int nkeys, int keycode, int partial) {
-  extern __shared__ float sh[];
-  const int r = blockIdx.x;
-  const ClassTables t = stage_class_tables(sh, V, maskwin, profile_rows, profile_valid,
-                                           profile_anchors, profile_mem, pid[r],
-                                           k_count, p_count, n, a);
-  const KeyCode kc = decode_keys(keycode, nkeys);
-
-  float best[kMaxKeys];
-#pragma unroll
-  for (int i = 0; i < kMaxKeys; ++i) best[i] = CUDART_INF_F;
-  int best_flat = INT_MAX;
-
-  const float* base_r = base + static_cast<int64_t>(r) * m * n;
-  for (int g = threadIdx.x; g < m; g += blockDim.x) {
-    const int k = midx[g];
-    const float* b = base_r + static_cast<int64_t>(g) * n;
-    const float* v = t.v + k * n;
-    const int64_t rg = static_cast<int64_t>(r) * m + g;
-    const float free_after = static_cast<float>(free[rg]) - t.mem[k];
-    const float fb = f[rg];
-    const float s_occ =
-        (kc.need_delta && !partial) ? occupied_sum(b, v, n, free_after) : 0.f;
-    for (int j = 0; j < a; ++j) {
-      const int kj = k * a + j;
-      if (!t.val[kj] || b[t.row[kj]] != 0.f) continue;  // infeasible anchor
-      const float delta =
-          kc.need_delta
-              ? anchor_delta(b, v, t.mw + kj * n, n, free_after, s_occ, fb, partial)
-              : 0.f;
-      float cand[kMaxKeys];
-      key_vector(kc, delta, free_after, static_cast<float>(g),
-                 static_cast<float>(t.anc[kj]), cand);
-      const int flat = g * a + j;
-      if (lex_less(cand, flat, best, best_flat, nkeys)) {
-        copy_keys(best, cand);
-        best_flat = flat;
-      }
-    }
-  }
-
-  // warp-shuffle reduction of the per-thread winners
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    float other[kMaxKeys];
-#pragma unroll
-    for (int i = 0; i < kMaxKeys; ++i) {
-      other[i] = __shfl_down_sync(0xffffffffu, best[i], off);
-    }
-    const int other_flat = __shfl_down_sync(0xffffffffu, best_flat, off);
-    if (lex_less(other, other_flat, best, best_flat, nkeys)) {
-#pragma unroll
-      for (int i = 0; i < kMaxKeys; ++i) best[i] = other[i];
-      best_flat = other_flat;
-    }
-  }
-
-  // then across the block's warps in shared memory
-  __shared__ float wkeys[kSelectThreads / 32][kMaxKeys];
-  __shared__ int wflat[kSelectThreads / 32];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) {
-#pragma unroll
-    for (int i = 0; i < kMaxKeys; ++i) wkeys[warp][i] = best[i];
-    wflat[warp] = best_flat;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int w = 1; w < kSelectThreads / 32; ++w) {
-      if (lex_less(wkeys[w], wflat[w], best, best_flat, nkeys)) {
-#pragma unroll
-        for (int i = 0; i < kMaxKeys; ++i) best[i] = wkeys[w][i];
-        best_flat = wflat[w];
-      }
-    }
-    const bool ok = best_flat != INT_MAX;
-    out_gpu[r] = ok ? best_flat / a : 0;
-    out_col[r] = ok ? best_flat % a : 0;
-    out_ok[r] = ok ? 1 : 0;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// migrate_refine — replaces kernels/fragscore/fragscore.py::migrate_refine
-// (Pallas, _migrate_refine_kernel: _class_pass_impl and _victim_pass_impl
-// with _refine_cols, _tile_top2 and _delta_rows; src/repro/kernels/
-// fragscore/fragscore.py:670, calls :755 and :819) and its host-side merge
-// sim/batched.py::_merge_top2 of the JAX package.
-//
-// Both refinements of the factored defrag search in ONE launch with two
-// block ranges; the wrapper's `launches` counts that one launch.  Every
-// block first stages the tables of every (model, class) in shared memory
-// once, with cp.async: window sizes, the anchors' window counts, slice
-// demand, and one word per anchor (validity, window row, anchor value);
-// from them it derives bit sets over the N <= 32 windows: the windows each
-// anchor touches, the windows of size <= t for t = -1..32, and the bit
-// planes of the window sizes.
-//  * Blocks [0, R), pass 0: one block per replica for all P <= 8 classes.
-//    The replica's (M, N) rows are staged in runs of 256 with cp.async, and
-//    each row's occupied-window bits are taken once.  Every thread refines
-//    (class, row) pairs along the anchors (feasibility, ΔF, keys; ties to
-//    the first column); then warp p folds class p's rows into per-lane
-//    top-2 lists by (keys..., gpu) and merges them in a shuffle tree, two
-//    comparisons a merge on the rows' sort keys.
-//  * Blocks [R, R + B1), pass 1: B1 blocks (as many as the card holds at
-//    once) walk the R·C victims in runs of 256, the next run's patched rows
-//    and per-victim scalars in flight (cp.async, two buffers) while a
-//    thread per victim refines its row along the anchors from the tables in
-//    shared memory (nothing is gathered per victim from device memory),
-//    keeping the first column on ties.  (A group of lanes per victim, one
-//    per anchor, was built first and measured slower: PERF.md.)
-// ΔF under the "blocked" metric is a sum of window sizes over bit sets:
-// F after = Σ v over (occupied | the anchor's windows) & eligible, eligible
-// meaning v <= free slices after the placement.  Window sizes are whole
-// slices, at most 32, so eligibility is one of 34 bit sets of the model
-// and a sum is Σ_q 2^q·popcount(bits & plane q).  Every key is an integer
-// held in float32, so each sum is exact in any order and the kernel equals
-// its plain version bit for bit.  The "partial" metric scores each window
-// from the counts (N steps per anchor).
-// Masked outputs: pass 0 writes gpu = col = 0 and keys = 1e9 where no row
-// is feasible (ok = 0); pass 1 writes column 0 and the UNMASKED keys of
-// column 0 where no anchor is feasible — the plain version's conventions.
-//
-// Bound: bytes.  At R = 500, M = 100, C_live = 800, N = 18, L = 3 a call
-// reads base2 (28.8 MB), five per-victim scalars (8 MB) and the replica
-// state (4 MB), and writes 6.8 MB: about 48 MB, 14 µs at 3.35 TB/s, while
-// its float work (a few hundred MFLOP) takes a few µs at 67 TFLOP/s.  The
-// tables are read from L2 once per block; base2 is read once, in order.
-// ---------------------------------------------------------------------------
 
 // One candidate placement of a refinement: its key bases and its place.
 struct Cand {
@@ -534,7 +520,7 @@ struct ColOrder {
   int n;
 };
 
-__device__ __forceinline__ ColOrder col_order(int keycode, int nkeys) {
+__host__ __device__ inline ColOrder col_order(int keycode, int nkeys) {
   ColOrder o = {0.f, 0.f, 0.f, 0.f, 0};
   int seen = 0;
   for (int i = 0; i < nkeys; ++i) {
@@ -570,6 +556,7 @@ struct RowOrder {
   int code;  // key code of the distinct bases, in order
   int n;     // their number (at most 4)
   int map;   // per key of the tuple: its slot (2 bits) and a sign flip (1 bit)
+  int cut;   // the leading bases that decide between rows of distinct GPUs (below)
 };
 
 struct RowCand {
@@ -578,8 +565,8 @@ struct RowCand {
   bool ok;
 };
 
-__device__ __forceinline__ RowOrder row_order(int keycode, int nkeys) {
-  RowOrder o = {0, 0, 0};
+__host__ __device__ inline RowOrder row_order(int keycode, int nkeys) {
+  RowOrder o = {0, 0, 0, -1};
   int seen = 0, slot_of = 0;  // the bases taken, and the slot of each (2 bits)
   for (int i = 0; i < nkeys; ++i) {
     const int code = (keycode >> (3 * i)) & 7, base = code & 3;
@@ -592,6 +579,13 @@ __device__ __forceinline__ RowOrder row_order(int keycode, int nkeys) {
     const int flip = ((code ^ (o.code >> (3 * j))) >> 2) & 1;
     o.map |= (j | flip << 2) << (3 * i);
   }
+  // Rows of distinct GPUs are decided at the gpu base at the latest: "gpu"
+  // orders them as the flat index gpu·A + col does, "-gpu" decides alone.
+  for (int j = 0; j < o.n && o.cut < 0; ++j) {
+    const int code = (o.code >> (3 * j)) & 7;
+    if ((code & 3) == 2) o.cut = (code & 4) ? j + 1 : j;
+  }
+  if (o.cut < 0) o.cut = o.n;
   return o;
 }
 
@@ -651,21 +645,6 @@ __device__ __forceinline__ void top2_merge(const RowOrder& o, const RowCand& o1,
   c1 = pick(o_first, o1, c1);
 }
 
-// Σ v[i] over the set bits i of `bits`, from the bit planes of the window
-// sizes (plane q holds the windows whose size has bit q set): exact, as the
-// sizes are whole slices.
-constexpr int kSizeBits = 6;  // window sizes below 64 slices
-struct Planes {
-  uint32_t q[kSizeBits];
-};
-
-__device__ __forceinline__ float window_sum(uint32_t bits, const Planes& planes) {
-  int sum = 0;
-#pragma unroll
-  for (int q = 0; q < kSizeBits; ++q) sum += __popc(bits & planes.q[q]) << q;
-  return static_cast<float>(sum);
-}
-
 // ΔF of an anchor under the "partial" metric, from the window counts
 __device__ __forceinline__ float partial_delta(const float* b, const float* v, const float* mw,
                                                int n, float fa, float fb) {
@@ -677,129 +656,280 @@ __device__ __forceinline__ float partial_delta(const float* b, const float* v, c
   return f_after - fb;
 }
 
-constexpr int kMigrateRun = 256;  // rows of a pass-0 run, victims of a pass-1 run
+// What a refinement computes, fixed per launch: no ΔF key, or ΔF under the
+// "blocked" or the "partial" metric.
+constexpr int kNoDelta = 0, kBlocked = 1, kPartial = 2;
 
-// Copy `words` 4-byte words to shared memory with cp.async (16 bytes a copy
-// where both sides are 16-byte aligned), so that every load of a run is in
-// flight at once; the caller commits and waits.
-__device__ __forceinline__ void stage_async(void* dst, const void* src, int words) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const char* s = static_cast<const char*>(src);
-  int done = 0;
-  if (((reinterpret_cast<uintptr_t>(src) | d) & 15) == 0) {
-    done = words & ~3;
-    for (int c = threadIdx.x; c < done / 4; c += blockDim.x)
-      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d + 16 * c),
-                   "l"(s + 16 * c));
+__host__ __device__ inline int refine_mode(int keycode, int nkeys, int partial) {
+  bool delta = false;  // a key is ΔF
+  for (int i = 0; i < nkeys; ++i) delta |= ((keycode >> (3 * i)) & 3) == 0;
+  return !delta ? kNoDelta : partial ? kPartial : kBlocked;
+}
+
+// Refine column j of one GPU row of model k for class p into `best` (ties
+// keep the earlier column).  `b` holds the row's window counts, `pos` and
+// `nz` its bits of b > 0 and b != 0, `elig` its windows of size <= fa, fa
+// and fb its free slices after the placement and its F; `live` is false for
+// a padding row.  Under "blocked", F after a placement = Σ v over
+// (occupied | the anchor's windows) & eligible.
+template <int kMode>
+__device__ __forceinline__ void refine_col(const SpecTables& t, const float* b, uint32_t pos,
+                                           uint32_t nz, uint32_t elig, const Planes& planes,
+                                           int k, int p, int j, float fa, float fb, int gpu,
+                                           bool live, int n, int a, int p_count,
+                                           const ColOrder& cols, Cand& best) {
+  const int kpj = (k * p_count + p) * a + j;
+  const int mt = t.meta[kpj];
+  const bool feasible = live && (mt & 1) && !((nz >> ((mt >> 1) & 31)) & 1u);
+  float delta = 0.f;
+  if (kMode == kBlocked) delta = window_sum((pos | t.mwb[kpj]) & elig, planes) - fb;
+  if (kMode == kPartial && feasible)
+    delta = partial_delta(b, t.v + k * n, t.mw + kpj * n, n, fa, fb);
+  const Cand c = {delta, fa, static_cast<float>(mt >> 6), gpu, j, true};
+  best = pick(feasible && (!best.ok || col_less(cols, c, best)), c, best);
+}
+
+// The best feasible column of one GPU row (ok = false where no anchor is
+// feasible), its arguments as refine_col's.
+template <int kMode>
+__device__ __forceinline__ Cand refine_row(const SpecTables& t, const float* b, uint32_t pos,
+                                           uint32_t nz, int k, int p, float fa, float fb,
+                                           int gpu, int n, int a, int p_count,
+                                           const ColOrder& cols) {
+  const Planes planes = planes_of(t, k);
+  const uint32_t elig = windows_le(planes, fa);
+  Cand best = {0.f, fa, 0.f, gpu, -1, false};
+  for (int j = 0; j < a; ++j)
+    refine_col<kMode>(t, b, pos, nz, elig, planes, k, p, j, fa, fb, gpu, true, n, a, p_count,
+                      cols, best);
+  return best;
+}
+
+// the bits of b > 0 and of b != 0 over a row's n window counts
+__device__ __forceinline__ void row_bits(const float* b, int n, uint32_t& pos, uint32_t& nz) {
+  pos = nz = 0;
+  for (int w = 0; w < n; ++w) {
+    pos |= (b[w] > 0.f ? 1u : 0u) << w;
+    nz |= (b[w] != 0.f ? 1u : 0u) << w;
   }
-  for (int i = done + threadIdx.x; i < words; i += blockDim.x)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d + 4 * i), "l"(s + 4 * i));
 }
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-constexpr int kMigrateClasses = 8;  // demand classes pass 0 takes (a warp each)
 
-// Every (model, class) table of the migrate search in shared memory.
-struct MigrateTables {
-  const float* v;     // (K, N) window sizes
-  const float* mw;    // (K, P, A, N) window counts each anchor adds
-  const float* mem;   // (K, P) slice demand
-  const int* meta;    // (K, P, A) anchor: valid + 2·window row + 64·anchor value
-  const uint32_t* mwb;  // (K, P, A) bits of the windows each anchor touches
-  const uint32_t* elig;  // (K, kEligSteps) bits of the windows with v <= t, t = -1..32
-  const uint32_t* planes;  // (K, kSizeBits) bit planes of the window sizes
-};
+// An order-preserving unsigned image of a float that is not NaN: x < y iff
+// ordered(x) < ordered(y), and -0 and +0 map alike.
+__device__ __forceinline__ uint32_t ordered(float x) {
+  const uint32_t u = __float_as_uint(x + 0.f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
 
-// Window sizes are whole slices in [0, 32], so "v <= free slices after" is
-// "v <= floor(free after)", one of kEligSteps bit sets per model.
-constexpr int kEligSteps = 34;
-
-__device__ __forceinline__ Planes planes_of(const MigrateTables& t, int k) {
-  Planes p;
+// The flat index gpu·A + col of the lexicographic minimum of (keys..., gpu,
+// col) over the warp's candidates with ok, which lie on distinct GPUs, or -1
+// where none has: one min-reduction per deciding key (RowOrder::cut), then
+// one over the flat index.
+__device__ __forceinline__ int warp_argmin(const RowOrder& o, const RowCand& c, int a) {
+  bool live = c.ok;
 #pragma unroll
-  for (int q = 0; q < kSizeBits; ++q) p.q[q] = t.planes[k * kSizeBits + q];
-  return p;
+  for (int j = 0; j < 4; ++j) {
+    if (j < o.cut) {
+      const uint32_t key = live ? ordered(c.kv[j]) : 0xffffffffu;
+      const uint32_t least = __reduce_min_sync(0xffffffffu, key);  // every lane takes part
+      live = live && key == least;
+    }
+  }
+  const uint32_t flat = live ? static_cast<uint32_t>(c.gpu * a + c.col) : 0xffffffffu;
+  return static_cast<int>(__reduce_min_sync(0xffffffffu, flat));
 }
 
-__device__ __forceinline__ uint32_t eligible(const MigrateTables& t, int k, float fa) {
-  const float ft = fminf(fmaxf(floorf(fa), -1.f), 32.f);
-  return t.elig[k * kEligSteps + static_cast<int>(ft) + 1];
+// ---------------------------------------------------------------------------
+// select_from_base — replaces kernels/fragscore/fragscore.py::select_from_base
+// (Pallas, _select_from_base_kernel/_key_tile; src/repro/kernels/fragscore/
+// fragscore.py:473, call :527) and its host-side tile merge
+// sim/batched.py::_lex_pick_rows of the JAX package.
+//
+// One replica's whole decision: feasibility (the anchor's window holds no
+// occupied slice), ΔF, and the lexicographic minimum over (keys..., gpu,
+// col) of the feasible candidates — the total order of the reference's
+// masked refinement, whose remaining ties go to the lowest flat index
+// gpu·A + col; an all-infeasible replica resolves to (0, 0, false).
+//
+// Bound: bytes.  At R = 500, M = 100 it reads base (3.6 MB) and the replica
+// state, about 1.2 µs at 3.35 TB/s; its float work is a few MFLOP.  Its
+// time is one block's chain of dependent instructions (thousands of cycles
+// on an H100, with little to overlap them), so the design cuts that chain:
+//  * a block per replica, a thread per GPU row (runs of kSelectRun rows);
+//  * the replica's rows, free slices, F and the GPUs' models come by
+//    16-byte cp.async, in flight with the tables, which every block stages
+//    once (stage_spec_tables, shared with migrate_refine) with the bit sets
+//    of its replica's class only: an anchor's windows by one ballot, the
+//    size planes by six a model;
+//  * a thread refines its row along the anchors in bit arithmetic
+//    (refine_row): feasibility is one bit of the row's nonzero windows, the
+//    eligible windows a bit-sliced comparison of the size planes with the
+//    free slices, and ΔF under "blocked" a popcount sum;
+//  * the metric and whether a key is ΔF are template arguments, and the
+//    key order (row_order, col_order) is decoded on the host;
+//  * the argmin is a min-reduction per deciding key over order-preserving
+//    unsigned images of the keys (__reduce_min_sync), then one over the
+//    flat index: in each warp, then across the block's four warps.
+// Measured and dropped (PERF.md): a warp per replica (four rows a lane,
+// four replicas a block, a shuffle tree, no block barrier; its lanes' rows
+// one after another made the chain about four times as long), the same
+// with the four rows interleaved, and two threads a row (half the anchors
+// each).
+// Preconditions (the launcher refuses N > 32; spec_tables builds no other
+// sizes): N <= 32 windows of whole sizes in [0, 32].
+// ---------------------------------------------------------------------------
+
+constexpr int kSelectRun = kSelectThreads;  // GPU rows of a run, a thread each
+
+// words of a select run area: the rows, their free slices, F and models
+inline size_t select_run_words(int run, int n) {
+  return static_cast<size_t>(run) * (n + 3);
 }
 
-__host__ __device__ inline size_t migrate_tables_words(int k_count, int p_count, int a, int n) {
-  const size_t kpa = static_cast<size_t>(k_count) * p_count * a;
-  const size_t words = static_cast<size_t>(k_count) * n + kpa * n +
-                       static_cast<size_t>(k_count) * p_count + 4 * kpa +
-                       static_cast<size_t>(k_count) * (kEligSteps + kSizeBits);
-  return (words + 3) & ~static_cast<size_t>(3);  // the run area starts 16-byte aligned
+// Stage rows [g0, g0 + cnt) of replica r; one cp.async group.
+__device__ __forceinline__ void stage_select_run(uint32_t* area, int run, int r, int g0, int cnt,
+                                                 const float* base, const int32_t* free,
+                                                 const float* f, const int32_t* midx, int m,
+                                                 int n) {
+  const int64_t row0 = static_cast<int64_t>(r) * m + g0;
+  stage_async(area, base + row0 * n, cnt * n);
+  stage_async(area + run * n, free + row0, cnt);
+  stage_async(area + run * n + run, f + row0, cnt);
+  stage_async(area + run * n + 2 * run, midx + g0, cnt);
+  cp_async_commit();
 }
+
+template <int kMode>
+__global__ void __launch_bounds__(kSelectThreads) select_from_base_kernel(
+    const float* __restrict__ base, const int32_t* __restrict__ free,
+    const float* __restrict__ f, const int32_t* __restrict__ pid,
+    const int32_t* __restrict__ midx, const float* __restrict__ V,
+    const float* __restrict__ maskwin, const int32_t* __restrict__ profile_rows,
+    const uint8_t* __restrict__ profile_valid,
+    const int32_t* __restrict__ profile_anchors,
+    const float* __restrict__ profile_mem, int32_t* __restrict__ out_gpu,
+    int32_t* __restrict__ out_col, uint8_t* __restrict__ out_ok, int m, int n, int a,
+    int p_count, int k_count, int run, RowOrder order, ColOrder cols) {
+  extern __shared__ uint32_t ssh[];
+  __shared__ RowCand warp_best[kSelectThreads / 32];
+  const int r = blockIdx.x, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  uint32_t* area = ssh + spec_tables_words(k_count, p_count, a, n);
+  stage_select_run(area, run, r, 0, min(run, m), base, free, f, midx, m, n);
+  const int p = pid[r];
+  // waits for every copy in flight, the first run's too
+  const SpecTables t = stage_spec_tables(ssh, V, maskwin, profile_rows, profile_valid,
+                                         profile_anchors, profile_mem, k_count, p_count, a, n, p);
+  const float* rows = reinterpret_cast<const float*>(area);  // [run][N]
+  const int* rfree = reinterpret_cast<const int*>(rows + run * n);
+  const float* rf = reinterpret_cast<const float*>(rfree + run);
+  const int* rmodel = reinterpret_cast<const int*>(rf + run);
+  const RowCand none = {{0.f, 0.f, 0.f, 0.f}, 0, 0, false};
+  RowCand best = none;  // this thread's best row
+  for (int g0 = 0; g0 < m; g0 += run) {
+    const int cnt = min(run, m - g0);
+    if (g0 > 0) {
+      __syncthreads();  // the previous run is used up
+      stage_select_run(area, run, r, g0, cnt, base, free, f, midx, m, n);
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // the run (and, the first time, the derived tables) in place
+    const int i = threadIdx.x;
+    if (i < cnt) {
+      uint32_t pos, nz;
+      row_bits(rows + i * n, n, pos, nz);
+      const int k = rmodel[i];
+      const float fa = static_cast<float>(rfree[i]) - t.mem[k * p_count + p];
+      const Cand c = refine_row<kMode>(t, rows + i * n, pos, nz, k, p, fa, rf[i], g0 + i, n, a,
+                                       p_count, cols);
+      const RowCand rc = row_cand(order, c);
+      best = pick(c.ok && (!best.ok || row_less(order, rc, best)), rc, best);
+    }
+  }
+  // each warp's minimum, then the warps' minimum in warp 0
+  const int flat = warp_argmin(order, best, a);
+  if (flat < 0 ? lane == 0 : best.ok && best.gpu * a + best.col == flat) {
+    warp_best[warp] = flat < 0 ? none : best;
+  }
+  __syncthreads();
+  if (warp > 0) return;
+  const int win = warp_argmin(order, lane < kSelectThreads / 32 ? warp_best[lane] : none, a);
+  if (lane == 0) {
+    out_gpu[r] = win >= 0 ? win / a : 0;
+    out_col[r] = win >= 0 ? win % a : 0;
+    out_ok[r] = win >= 0 ? 1 : 0;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// migrate_refine — replaces kernels/fragscore/fragscore.py::migrate_refine
+// (Pallas, _migrate_refine_kernel: _class_pass_impl and _victim_pass_impl
+// with _refine_cols, _tile_top2 and _delta_rows; src/repro/kernels/
+// fragscore/fragscore.py:670, calls :755 and :819) and its host-side merge
+// sim/batched.py::_merge_top2 of the JAX package.
+//
+// Both refinements of the factored defrag search in ONE launch with two
+// block ranges; the wrapper's `launches` counts that one launch.  Every
+// block first stages the tables of every (model, class) in shared memory
+// once (stage_spec_tables), with cp.async: window sizes, the anchors' window
+// counts, slice demand, and one word per anchor (validity, window row,
+// anchor value); from them it derives bit sets over the N <= 32 windows:
+// the windows each anchor touches, the windows of size <= t for t = -1..32,
+// and the bit planes of the window sizes.
+//  * Blocks [0, R), pass 0: one block per replica for all P <= 8 classes.
+//    The replica's (M, N) rows are staged in runs of 256 with cp.async, and
+//    each row's occupied-window bits are taken once.  Every thread refines
+//    (class, row) pairs along the anchors (feasibility, ΔF, keys; ties to
+//    the first column); then warp p folds class p's rows into per-lane
+//    top-2 lists by (keys..., gpu) and merges them in a shuffle tree, two
+//    comparisons a merge on the rows' sort keys.
+//  * Blocks [R, R + B1), pass 1: B1 blocks (as many as the card holds at
+//    once) walk the R·C victims in runs of 256, the next run's patched rows
+//    and per-victim scalars in flight (cp.async, two buffers) while a
+//    thread per victim refines its row along the anchors from the tables in
+//    shared memory (nothing is gathered per victim from device memory),
+//    keeping the first column on ties.  (A group of lanes per victim, one
+//    per anchor, was built first and measured slower: PERF.md.)
+// ΔF under the "blocked" metric is a sum of window sizes over bit sets:
+// F after = Σ v over (occupied | the anchor's windows) & eligible, eligible
+// meaning v <= free slices after the placement.  Window sizes are whole
+// slices, at most 32, so eligibility is one of 34 bit sets of the model
+// and a sum is Σ_q 2^q·popcount(bits & plane q).  Every key is an integer
+// held in float32, so each sum is exact in any order and the kernel equals
+// its plain version bit for bit.  The "partial" metric scores each window
+// from the counts (N steps per anchor).
+// Masked outputs: pass 0 writes gpu = col = 0 and keys = 1e9 where no row
+// is feasible (ok = 0); pass 1 writes column 0 and the UNMASKED keys of
+// column 0 where no anchor is feasible — the plain version's conventions.
+//
+// Bound: bytes.  At R = 500, M = 100, C_live = 800, N = 18, L = 3 a call
+// reads base2 (28.8 MB), five per-victim scalars (8 MB) and the replica
+// state (4 MB), and writes 6.8 MB: about 48 MB, 14 µs at 3.35 TB/s, while
+// its float work (a few hundred MFLOP) takes a few µs at 67 TFLOP/s.  The
+// tables are read from L2 once per block; base2 is read once, in order.
+// ---------------------------------------------------------------------------
+
+constexpr int kMigrateRun = 256;  // rows of a pass-0 run, victims of a pass-1 run
+constexpr int kMigrateClasses = 8;  // demand classes pass 0 takes (a warp each)
 
 // the tables, then the run area: pass 0's rows, five words per row and its
 // refined columns (three words per class and row), or pass 1's two run
 // buffers of rows and five words per victim
 inline size_t migrate_smem_bytes(int k_count, int p_count, int a, int n) {
   const size_t pass0 = n + 5 + 3 * kMigrateClasses, pass1 = 2 * (n + 5);
-  return 4 * (migrate_tables_words(k_count, p_count, a, n) +
+  return 4 * (spec_tables_words(k_count, p_count, a, n) +
               static_cast<size_t>(kMigrateRun) * (pass0 > pass1 ? pass0 : pass1));
 }
 
-__device__ __forceinline__ MigrateTables stage_migrate_tables(
-    uint32_t* sh, const float* __restrict__ V, const float* __restrict__ maskwin,
-    const int32_t* __restrict__ profile_rows, const uint8_t* __restrict__ profile_valid,
-    const int32_t* __restrict__ profile_anchors, const float* __restrict__ profile_mem,
-    int k_count, int p_count, int a, int n) {
-  const int kpa = k_count * p_count * a;
-  float* sv = reinterpret_cast<float*>(sh);
-  float* smw = sv + k_count * n;
-  float* smem = smw + kpa * n;
-  int* srow = reinterpret_cast<int*>(smem + k_count * p_count);
-  int* sanc = srow + kpa;
-  int* sval = sanc + kpa;
-  uint32_t* smwb = reinterpret_cast<uint32_t*>(sval + kpa);
-  uint32_t* selig = smwb + kpa;
-  uint32_t* splanes = selig + k_count * kEligSteps;
-  stage_async(sv, V, k_count * n);
-  stage_async(smw, maskwin, kpa * n);
-  stage_async(smem, profile_mem, k_count * p_count);
-  stage_async(srow, profile_rows, kpa);
-  stage_async(sanc, profile_anchors, kpa);
-  cp_async_commit();
-  for (int i = threadIdx.x; i < kpa; i += blockDim.x) sval[i] = profile_valid[i];
-  cp_async_wait<0>();
-  __syncthreads();
-  for (int i = threadIdx.x; i < kpa; i += blockDim.x)  // one word per anchor
-    srow[i] = (sval[i] ? 1 : 0) + (srow[i] & 31) * 2 + sanc[i] * 64;
-  for (int i = threadIdx.x; i < kpa; i += blockDim.x) {
-    uint32_t bits = 0;
-    for (int w = 0; w < n; ++w) bits |= (smw[i * n + w] > 0.f ? 1u : 0u) << w;
-    smwb[i] = bits;
-  }
-  for (int i = threadIdx.x; i < k_count * kEligSteps; i += blockDim.x) {
-    const int k = i / kEligSteps;
-    const float th = static_cast<float>(i % kEligSteps - 1);
-    uint32_t bits = 0;
-    for (int w = 0; w < n; ++w) bits |= (sv[k * n + w] <= th ? 1u : 0u) << w;
-    selig[i] = bits;
-  }
-  for (int i = threadIdx.x; i < k_count * kSizeBits; i += blockDim.x) {
-    const int k = i / kSizeBits, q = i % kSizeBits;
-    uint32_t bits = 0;
-    for (int w = 0; w < n; ++w) bits |= ((static_cast<int>(sv[k * n + w]) >> q) & 1u) << w;
-    splanes[i] = bits;
-  }
-  return MigrateTables{sv, smw, smem, srow, smwb, selig, splanes};
-}
-
 // Pass 0: block r refines every GPU row of replica r for every class.
+template <int kMode>
 __device__ __forceinline__ void migrate_class_pass(
-    const MigrateTables& t, uint32_t* run, int r, const float* __restrict__ base,
+    const SpecTables& t, uint32_t* run, int r, const float* __restrict__ base,
     const int32_t* __restrict__ free, const float* __restrict__ f,
     const int32_t* __restrict__ midx, int32_t* __restrict__ out_g1,
     uint8_t* __restrict__ out_ok1, int32_t* __restrict__ out_a1, float* __restrict__ out_k1,
     int32_t* __restrict__ out_g2, uint8_t* __restrict__ out_ok2, int32_t* __restrict__ out_a2,
     float* __restrict__ out_k2, int m, int n, int a, int p_count, int nkeys, int keycode,
-    const ColOrder& cols, bool need_delta, int partial) {
+    const ColOrder& cols) {
   float* rows = reinterpret_cast<float*>(run);  // [run][N]
   int* rfree = reinterpret_cast<int*>(rows + kMigrateRun * n);
   float* rf = reinterpret_cast<float*>(rfree + kMigrateRun);
@@ -825,39 +955,15 @@ __device__ __forceinline__ void migrate_class_pass(
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
-    for (int i = threadIdx.x; i < cnt; i += blockDim.x) {
-      uint32_t pos = 0, nz = 0;
-      for (int w = 0; w < n; ++w) {
-        const float b = rows[i * n + w];
-        pos |= (b > 0.f ? 1u : 0u) << w;
-        nz |= (b != 0.f ? 1u : 0u) << w;
-      }
-      rpos[i] = pos;
-      rnz[i] = nz;
-    }
+    for (int i = threadIdx.x; i < cnt; i += blockDim.x) row_bits(rows + i * n, n, rpos[i], rnz[i]);
     __syncthreads();
     // refine every (class, row) pair along its anchors; ties to the first column
     for (int q = threadIdx.x; q < p_count * cnt; q += blockDim.x) {
       const int p = q / cnt, i = q % cnt;
       const int k = rmodel[i];
       const float fa = static_cast<float>(rfree[i]) - t.mem[k * p_count + p];
-      const float fb = rf[i];
-      const uint32_t elig = eligible(t, k, fa);
-      const uint32_t pos = rpos[i], nz = rnz[i];
-      const Planes planes = planes_of(t, k);
-      const float s_occ = (need_delta && !partial) ? window_sum(pos & elig, planes) : 0.f;
-      Cand best = {0.f, fa, 0.f, g0 + i, -1, false};
-      for (int j = 0; j < a; ++j) {
-        const int kpj = (k * p_count + p) * a + j;
-        const int mt = t.meta[kpj];
-        if (!(mt & 1) || ((nz >> ((mt >> 1) & 31)) & 1u)) continue;  // infeasible anchor
-        float delta = 0.f;
-        if (need_delta)
-          delta = partial ? partial_delta(rows + i * n, t.v + k * n, t.mw + kpj * n, n, fa, fb)
-                          : (s_occ + window_sum(t.mwb[kpj] & ~pos & elig, planes)) - fb;
-        const Cand c = {delta, fa, static_cast<float>(mt >> 6), g0 + i, j, true};
-        best = pick(!best.ok || col_less(cols, c, best), c, best);
-      }
+      const Cand best = refine_row<kMode>(t, rows + i * n, rpos[i], rnz[i], k, p, fa, rf[i],
+                                          g0 + i, n, a, p_count, cols);
       bdelta[p * kMigrateRun + i] = best.delta;
       banc[p * kMigrateRun + i] = best.anc;
       bcol[p * kMigrateRun + i] = best.ok ? best.col : -1;
@@ -900,20 +1006,17 @@ __device__ __forceinline__ void migrate_class_pass(
 
 // Refine one victim's patched row `b` along its anchors: the best feasible
 // column, or column 0 and its unmasked keys where none is.
+template <int kMode>
 __device__ __forceinline__ void score_victim(
-    const MigrateTables& t, const float* b, int k, int p, int free_slices, float fb, int gpu,
+    const SpecTables& t, const float* b, int k, int p, int free_slices, float fb, int gpu,
     int64_t gi, int32_t* __restrict__ out_ap, uint8_t* __restrict__ out_okp,
     float* __restrict__ out_kp, int n, int a, int p_count, int nkeys, int keycode,
-    const ColOrder& cols, bool need_delta, int partial) {
+    const ColOrder& cols) {
   const float fa = static_cast<float>(free_slices) - t.mem[k * p_count + p];
-  const uint32_t elig = eligible(t, k, fa);
-  uint32_t pos = 0, nz = 0;
-  for (int w = 0; w < n; ++w) {
-    pos |= (b[w] > 0.f ? 1u : 0u) << w;
-    nz |= (b[w] != 0.f ? 1u : 0u) << w;
-  }
+  uint32_t pos, nz;
+  row_bits(b, n, pos, nz);
   const Planes planes = planes_of(t, k);
-  const float s_occ = (need_delta && !partial) ? window_sum(pos & elig, planes) : 0.f;
+  const uint32_t elig = windows_le(planes, fa);
   Cand best = {0.f, fa, 0.f, gpu, 0, false}, col0 = best;
   for (int j = 0; j < a; ++j) {
     const int kpj = (k * p_count + p) * a + j;
@@ -921,9 +1024,8 @@ __device__ __forceinline__ void score_victim(
     const bool feasible = (mt & 1) && !((nz >> ((mt >> 1) & 31)) & 1u);
     if (!feasible && j != 0) continue;  // column 0 is the all-infeasible fallback
     float delta = 0.f;
-    if (need_delta)
-      delta = partial ? partial_delta(b, t.v + k * n, t.mw + kpj * n, n, fa, fb)
-                      : (s_occ + window_sum(t.mwb[kpj] & ~pos & elig, planes)) - fb;
+    if (kMode == kPartial) delta = partial_delta(b, t.v + k * n, t.mw + kpj * n, n, fa, fb);
+    if (kMode == kBlocked) delta = window_sum((pos | t.mwb[kpj]) & elig, planes) - fb;
     const Cand c = {delta, fa, static_cast<float>(mt >> 6), gpu, j, feasible};
     col0 = pick(j == 0, c, col0);
     best = pick(feasible && (!best.ok || col_less(cols, c, best)), c, best);
@@ -956,14 +1058,14 @@ __device__ __forceinline__ void stage_victims(uint32_t* area, int64_t run_i, int
 }
 
 // Pass 1: this block's runs of the R·C victims, a thread per victim.
+template <int kMode>
 __device__ __forceinline__ void migrate_victim_pass(
-    const MigrateTables& t, uint32_t* run, int64_t block, int64_t blocks, int64_t total,
+    const SpecTables& t, uint32_t* run, int64_t block, int64_t blocks, int64_t total,
     const float* __restrict__ base2, const int32_t* __restrict__ free2,
     const float* __restrict__ f2, const int32_t* __restrict__ rg,
     const int32_t* __restrict__ rp, const int32_t* __restrict__ kc,
     int32_t* __restrict__ out_ap, uint8_t* __restrict__ out_okp, float* __restrict__ out_kp,
-    int n, int a, int p_count, int nkeys, int keycode, const ColOrder& cols,
-    bool need_delta, int partial) {
+    int n, int a, int p_count, int nkeys, int keycode, const ColOrder& cols) {
   const int64_t runs = (total + kMigrateRun - 1) / kMigrateRun;
   const int buf_words = kMigrateRun * (n + 5);
   stage_victims(run, block, runs, total, base2, free2, f2, rg, rp, kc, n);
@@ -983,13 +1085,14 @@ __device__ __forceinline__ void migrate_victim_pass(
     const float* vf = reinterpret_cast<const float*>(vfree + kMigrateRun);
     const int* vgpu = reinterpret_cast<const int*>(vf + kMigrateRun);
     const int i = threadIdx.x;
-    if (i < cnt) score_victim(t, rows + i * n, vmodel[i], vclass[i], vfree[i], vf[i], vgpu[i],
+    if (i < cnt) score_victim<kMode>(t, rows + i * n, vmodel[i], vclass[i], vfree[i], vf[i], vgpu[i],
                               first + i, out_ap, out_okp, out_kp, n, a, p_count, nkeys, keycode,
-                              cols, need_delta, partial);
+                              cols);
     __syncthreads();  // the next iteration prefetches into this buffer
   }
 }
 
+template <int kMode>
 __global__ void __launch_bounds__(kMigrateThreads, 4) migrate_refine_kernel(
     const float* __restrict__ base, const int32_t* __restrict__ free,
     const float* __restrict__ f, const float* __restrict__ base2,
@@ -1006,25 +1109,20 @@ __global__ void __launch_bounds__(kMigrateThreads, 4) migrate_refine_kernel(
     uint8_t* __restrict__ out_ok2, int32_t* __restrict__ out_a2,
     float* __restrict__ out_k2, int32_t* __restrict__ out_ap,
     uint8_t* __restrict__ out_okp, float* __restrict__ out_kp, int r_count, int m,
-    int c_count, int n, int a, int p_count, int k_count, int nkeys, int keycode,
-    int partial) {
+    int c_count, int n, int a, int p_count, int k_count, int nkeys, int keycode) {
   extern __shared__ uint32_t msh[];
-  bool need_delta = false;  // a key is ΔF
-  for (int i = 0; i < nkeys; ++i) need_delta |= ((keycode >> (3 * i)) & 3) == 0;
   const ColOrder cols = col_order(keycode, nkeys);
-  const MigrateTables t = stage_migrate_tables(msh, V, maskwin, profile_rows, profile_valid,
-                                               profile_anchors, profile_mem, k_count, p_count,
-                                               a, n);
-  uint32_t* run = msh + migrate_tables_words(k_count, p_count, a, n);
+  const SpecTables t = stage_spec_tables(msh, V, maskwin, profile_rows, profile_valid,
+                                         profile_anchors, profile_mem, k_count, p_count, a, n, -1);
+  uint32_t* run = msh + spec_tables_words(k_count, p_count, a, n);
   if (static_cast<int>(blockIdx.x) < r_count) {
-    migrate_class_pass(t, run, blockIdx.x, base, free, f, midx, out_g1, out_ok1, out_a1,
+    migrate_class_pass<kMode>(t, run, blockIdx.x, base, free, f, midx, out_g1, out_ok1, out_a1,
                        out_k1, out_g2, out_ok2, out_a2, out_k2, m, n, a, p_count, nkeys,
-                       keycode, cols, need_delta, partial);
+                       keycode, cols);
   } else {
-    migrate_victim_pass(t, run, blockIdx.x - r_count, gridDim.x - r_count,
+    migrate_victim_pass<kMode>(t, run, blockIdx.x - r_count, gridDim.x - r_count,
                         static_cast<int64_t>(r_count) * c_count, base2, free2, f2, rg, rp, kc,
-                        out_ap, out_okp, out_kp, n, a, p_count, nkeys, keycode, cols,
-                        need_delta, partial);
+                        out_ap, out_okp, out_kp, n, a, p_count, nkeys, keycode, cols);
   }
 }
 
@@ -1039,7 +1137,7 @@ int fragscore_launch(const void* occ, const void* w, const void* v, void* out,
   if (err != cudaSuccess) return err;
   if (q <= 0 || s > kMaxSlices) return cudaErrorInvalidValue;
   const int blocks = (q + kFragThreads - 1) / kFragThreads;
-  const size_t smem = sizeof(float) * static_cast<size_t>(n * s + n);
+  const size_t smem = 4 * (static_cast<size_t>(n) * s + n);
   fragscore_kernel<<<blocks, kFragThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(occ), static_cast<const float*>(w),
       static_cast<const float*>(v), static_cast<float*>(out), q, n, s, partial);
@@ -1053,9 +1151,9 @@ int mfi_delta_launch(const void* occ, const void* w, const void* v,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (m <= 0 || a <= 0 || s > kMaxSlices) return cudaErrorInvalidValue;
-  const int blocks = (m + kFragThreads - 1) / kFragThreads;
+  const int blocks = (m + kMfiThreads - 1) / kMfiThreads;
   const size_t smem = sizeof(float) * static_cast<size_t>(n * s + n + a * s + a);
-  mfi_delta_kernel<<<blocks, kFragThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  mfi_delta_kernel<<<blocks, kMfiThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(occ), static_cast<const float*>(w),
       static_cast<const float*>(v), static_cast<const float*>(profile_masks),
       static_cast<const float*>(profile_valid), static_cast<float*>(out), m, n,
@@ -1094,9 +1192,23 @@ int select_from_base_launch(const void* base, const void* free, const void* f,
                             void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (r_count <= 0 || nkeys < 0 || nkeys > kMaxKeys) return cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * class_tables_floats(k_count, n, a);
-  select_from_base_kernel<<<r_count, kSelectThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  // window bits fit one 32-bit word
+  if (r_count <= 0 || m < 0 || nkeys < 0 || nkeys > kMaxKeys || n <= 0 || n > kMaxWindows ||
+      a <= 0 || p_count <= 0 || k_count <= 0) {
+    return cudaErrorInvalidValue;
+  }
+  const int mode = refine_mode(keycode, nkeys, partial);
+  const auto kernel = mode == kNoDelta   ? select_from_base_kernel<kNoDelta>
+                      : mode == kBlocked ? select_from_base_kernel<kBlocked>
+                                         : select_from_base_kernel<kPartial>;
+  const int run = m < kSelectRun ? (m + 3) & ~3 : kSelectRun;  // 16-byte aligned areas
+  const size_t smem = 4 * (spec_tables_words(k_count, p_count, a, n) + select_run_words(run, n));
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<r_count, kSelectThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(base), static_cast<const int32_t*>(free),
       static_cast<const float*>(f), static_cast<const int32_t*>(pid),
       static_cast<const int32_t*>(midx), static_cast<const float*>(V),
@@ -1105,8 +1217,8 @@ int select_from_base_launch(const void* base, const void* free, const void* f,
       static_cast<const uint8_t*>(profile_valid),
       static_cast<const int32_t*>(profile_anchors),
       static_cast<const float*>(profile_mem), static_cast<int32_t*>(out_gpu),
-      static_cast<int32_t*>(out_col), static_cast<uint8_t*>(out_ok), m, n, a,
-      p_count, k_count, nkeys, keycode, partial);
+      static_cast<int32_t*>(out_col), static_cast<uint8_t*>(out_ok), m, n, a, p_count, k_count,
+      run, row_order(keycode, nkeys), col_order(keycode, nkeys));
   return cudaGetLastError();
 }
 
@@ -1124,16 +1236,19 @@ int migrate_refine_launch(
   if (err != cudaSuccess) return err;
   // window bits fit one 32-bit word; a class takes one warp of pass 0
   if (r_count <= 0 || m <= 0 || c_count < 0 || nkeys < 0 || nkeys > kMaxKeys || n <= 0 ||
-      n > 32 || a <= 0 || p_count <= 0 || p_count > kMigrateClasses) {
+      n > kMaxWindows || a <= 0 || p_count <= 0 || p_count > kMigrateClasses) {
     return cudaErrorInvalidValue;
   }
+  const int mode = refine_mode(keycode, nkeys, partial);
+  const auto kernel = mode == kNoDelta   ? migrate_refine_kernel<kNoDelta>
+                      : mode == kBlocked ? migrate_refine_kernel<kBlocked>
+                                         : migrate_refine_kernel<kPartial>;
   const size_t smem = migrate_smem_bytes(k_count, p_count, a, n);
-  err = cudaFuncSetAttribute(migrate_refine_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   int per_sm = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, migrate_refine_kernel,
-                                                      kMigrateThreads, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kMigrateThreads, smem);
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
@@ -1143,8 +1258,8 @@ int migrate_refine_launch(
                             ? runs
                             : static_cast<int64_t>(per_sm > 0 ? per_sm : 1) * sms;
   if (r_count + pass1 > INT_MAX) return cudaErrorInvalidValue;
-  migrate_refine_kernel<<<static_cast<int>(r_count + pass1), kMigrateThreads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<static_cast<int>(r_count + pass1), kMigrateThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(base), static_cast<const int32_t*>(free),
       static_cast<const float*>(f), static_cast<const float*>(base2),
       static_cast<const int32_t*>(free2), static_cast<const float*>(f2),
@@ -1160,7 +1275,7 @@ int migrate_refine_launch(
       static_cast<uint8_t*>(out_ok2), static_cast<int32_t*>(out_a2),
       static_cast<float*>(out_k2), static_cast<int32_t*>(out_ap),
       static_cast<uint8_t*>(out_okp), static_cast<float*>(out_kp), r_count, m,
-      c_count, n, a, p_count, k_count, nkeys, keycode, partial);
+      c_count, n, a, p_count, k_count, nkeys, keycode);
   return cudaGetLastError();
 }
 

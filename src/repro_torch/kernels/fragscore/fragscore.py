@@ -158,9 +158,12 @@ delta_from_base.launches = 0
 MAX_KEYS = 8
 
 
+@functools.lru_cache(maxsize=None)
 def pack_keys(keys) -> int:
     """The select kernel's key code: 3 bits per effective key, the base's
-    index in :data:`ref.FUSED_KEY_CODES` plus 4 for the ``-`` direction."""
+    index in :data:`ref.FUSED_KEY_CODES` plus 4 for the ``-`` direction.
+    ``keys`` is a tuple of ``(base, sign)`` pairs; each code is computed
+    once per process."""
     if len(keys) > MAX_KEYS:
         raise ValueError(f"at most {MAX_KEYS} fused keys, got {len(keys)}")
     code = 0
@@ -178,7 +181,11 @@ def select_from_base(
     """Each replica's decision ``(gpu, col, ok)``, each ``(R,)``: the
     lexicographic minimum of ``(keys…, gpu, col)`` over the feasible
     anchors of request ``pid``; ``keys`` is the static effective-key tuple
-    ``((base, sign), …)``."""
+    ``((base, sign), …)``.
+
+    The kernel takes N <= 32 windows, and every window size in ``V`` must
+    be a whole number of slices in [0, 32]: it sums windows as bit sets of
+    those sizes (``spec_tables`` builds no other)."""
     partial = _metric_flag(metric)
     operands = (base, free, f, pid, midx, V, maskwin, profile_rows,
                 profile_valid, profile_anchors, profile_mem)
@@ -190,18 +197,17 @@ def select_from_base(
     check("profile_rows", profile_rows, torch.int32, (k, p, a))
     check("profile_valid", profile_valid, torch.bool, (k, p, a))
     check("profile_anchors", profile_anchors, torch.int32, (k, p, a))
-    smem = 4 * (k * n + k * a * n + k + 3 * k * a)
-    if smem > 48 * 1024:
-        raise ValueError(f"select_from_base: tables need {smem} B of shared memory (> 48 KiB)")
-    dev = base.device
-    gpu = torch.empty((r,), dtype=torch.int32, device=dev)
-    col = torch.empty((r,), dtype=torch.int32, device=dev)
-    ok = torch.empty((r,), dtype=torch.bool, device=dev)
+    if n > 32:
+        raise ValueError(f"select_from_base: N = {n} windows must be <= 32")
+    # the three outputs in one allocation: int32 gpu, int32 col, bool ok
+    gpu, col, ok = torch.empty((9 * r,), dtype=torch.uint8, device=base.device).split(
+        (4 * r, 4 * r, r))
+    gpu, col, ok = gpu.view(torch.int32), col.view(torch.int32), ok.view(torch.bool)
     if r:
         launch(_lib().select_from_base_launch,
-               *(t.data_ptr() for t in operands),
+               *[t.data_ptr() for t in operands],
                gpu.data_ptr(), col.data_ptr(), ok.data_ptr(),
-               r, m, n, a, p, k, len(keys), code, partial, device=dev)
+               r, m, n, a, p, k, len(keys), code, partial, device=base.device)
         select_from_base.launches += 1
     return gpu, col, ok
 

@@ -22,10 +22,10 @@ def on_cpu(*tensors: torch.Tensor) -> bool:
     return dev.type == "cpu"
 
 
-def check(name: str, t: torch.Tensor, dtype: torch.dtype, shape) -> None:
+def check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: tuple) -> None:
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
+    if t.shape != shape:
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
@@ -33,8 +33,10 @@ def check(name: str, t: torch.Tensor, dtype: torch.dtype, shape) -> None:
 
 def launch(fn, *args, device: torch.device) -> None:
     """Call a C launcher with ``(*args, device index, current stream)`` and
-    raise unless it returns ``cudaSuccess``."""
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = fn(*args, device.index if device.index is not None else torch.cuda.current_device(), stream)
+    raise unless it returns ``cudaSuccess``.  The stream is read as a raw
+    pointer (what ``torch.cuda.current_stream(i).cuda_stream`` returns,
+    without building a ``Stream`` object on every launch)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    rc = fn(*args, index, torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
         raise RuntimeError(f"{fn.__name__} failed: cudaError_t {rc}")

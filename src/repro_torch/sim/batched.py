@@ -1280,7 +1280,22 @@ def _build_core(
     )
 
 
-def _simulate(
+def _simulate(events: EventStream, **kwargs) -> Tuple[ReplicaState, EventTrace]:
+    """Run the event loop over ``events`` (each field ``(E, R)``); takes
+    :func:`_setup_run`'s arguments.
+
+    The stream moves to the device once; the trace is written into
+    preallocated device tensors; there is no host synchronisation inside
+    the loop (:func:`_event_loop`).  ``state`` continues from a given
+    replica state (updated in place), e.g. one carried over from the
+    reference package.
+    """
+    core, state, xs, trace = _setup_run(events, **kwargs)
+    _event_loop(core, state, xs, trace)
+    return state, trace
+
+
+def _setup_run(
     events: EventStream,
     *,
     policy: PolicyLike,
@@ -1295,14 +1310,10 @@ def _simulate(
     tables: Optional[SpecTables] = None,
     state: Optional[ReplicaState] = None,
     device=None,
-) -> Tuple[ReplicaState, EventTrace]:
-    """Run the event loop over ``events`` (each field ``(E, R)``).
-
-    The stream moves to the device once; the trace is written into
-    preallocated device tensors; there is no host synchronisation inside
-    the loop.  ``state`` continues from a given replica state (updated in
-    place), e.g. one carried over from the reference package.
-    """
+):
+    """Everything of a run before its event loop: the staged core, the
+    replica state, the event stream on the device and the empty trace,
+    ``(core, state, xs, trace)``."""
     dev = resolve_device(device)
     runs = events.pid.shape[1]
     core = _build_core(
@@ -1334,11 +1345,17 @@ def _simulate(
         name: torch.empty((e_max, runs), dtype=_TRACE_DTYPES[name], device=dev)
         for name in fields
     })
-    for e in range(e_max):
+    return core, state, xs, trace
+
+
+def _event_loop(core: EngineCore, state: ReplicaState, xs, trace: EventTrace) -> None:
+    """Step every event of ``xs`` into ``trace``; nothing here waits for the
+    device (``chip_smoke.py`` runs it under ``set_sync_debug_mode("error")``)."""
+    fields = [name for name in EventTrace._fields if getattr(trace, name) is not None]
+    for e in range(xs[0].shape[0]):
         row = core.step(state, [x[e] for x in xs])
         for name in fields:
             getattr(trace, name)[e] = getattr(row, name)
-    return state, trace
 
 
 def trace_to_numpy(trace: EventTrace) -> EventTrace:
