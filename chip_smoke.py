@@ -17,9 +17,13 @@ Phases, each printing its own lines:
    card and its plain version's time (``migrate_refine`` also alone with
    no victims, C = 0: its pass 0, and pass 1 by difference); besides,
    ``fragscore`` on all 2^S occupancy patterns of every device model and on
-   rows with entries outside {0, 1}, and ``select_from_base`` on empty,
-   full and one-feasible fleets, R = 1, R = 499 and M = 33, each kernel
-   giving the same bits on two calls;
+   rows with entries outside {0, 1}, ``select_from_base`` on empty, full
+   and one-feasible fleets, R = 1, R = 499 and M = 33, and
+   ``delta_from_base`` on the window counts of every occupancy pattern of
+   each device model (homogeneous fleets and the four-model fleet, one
+   replica per class), on negative counts, on tables outside its bit form
+   and at R = 1, M = 10,000 and R = 7, M = 333, each kernel giving the same
+   bits on two calls;
 4. the pinned golden results of the reference package, mfi-defrag's
    included, reproduced with the kernels on;
 5. the paper's experiment at full width (M = 100 A100-80GB, uniform mix,
@@ -27,9 +31,10 @@ Phases, each printing its own lines:
    delta-only mfi spec and mfi-defrag, once through the kernels (launch
    counts reset just before and read just after) and once through the
    plain lowering over the same events: traces equal, launch counts
-   matching the events; then a profiled 256-event window of the mfi and
-   the mfi-defrag step, each also run unprofiled, the kernel path's event
-   loop under ``torch.cuda.set_sync_debug_mode("error")`` (no host sync);
+   matching the events; then a profiled 256-event window of the mfi, the
+   delta-only and the mfi-defrag step, each also run unprofiled, the
+   kernel path's event loop under ``torch.cuda.set_sync_debug_mode("error")``
+   (no host sync);
 6. the ``decode_attention`` kernel against its plain torch version
    (float32: max abs error <= 1e-5; bfloat16: |kernel - plain| <= 2e-2 +
    2e-2·|plain| and, scale-aware, <= 2^-7·|plain| + 2^-10·rms(plain row),
@@ -57,7 +62,10 @@ Phases, each printing its own lines:
    at 45 % fill: A100-80GB at M = 100, 1,000, 10,000 and 1,000,000 GPUs,
    A100-40GB and H200-141GB at M = 10,000, every demand class, both
    metrics (plus non-binary occupancy at M = 10,000), equal with a
-   tolerance of 0, with its time, bound and plain version's time;
+   tolerance of 0, with its time, bound and plain version's time; then on
+   every occupancy pattern and on rows with entries outside {0, 1} of each
+   device model, under its table and tables outside the kernel's bit form,
+   every class, both metrics, the same bits on two calls;
 9. the single-decision path: the host reference engine at the paper's
    Fig. 4 point (M = 100 A100-80GB, uniform mix, steady, load 1.0, seed 0)
    driven by a scheduler that decides on the card through
@@ -80,6 +88,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import hashlib
+import itertools
 import json
 import subprocess
 import sys
@@ -372,6 +381,81 @@ def feasible_counts(sargs):
     return ((torch.gather(base, 2, sel) == 0) & valid[mi, pi]).sum(dim=(1, 2))
 
 
+def pattern_rows(s: int):
+    """Every 0/1 occupancy row of ``s`` slices, ``(2^s, s)`` int32."""
+    import numpy as np
+
+    return ((np.arange(1 << s)[:, None] >> np.arange(s)) & 1).astype(np.int32)
+
+
+def pattern_state(spec, tables, device):
+    """Engine-layout ``(base, free, f)`` of one replica per demand class on
+    ``spec``, whose GPUs of each model hold that model's occupancy patterns
+    in order (the fleet has one GPU per pattern)."""
+    import numpy as np
+    from repro_torch.core import mig
+
+    occ = np.zeros((spec.num_gpus, spec.num_mem_slices), np.int32)
+    g = 0
+    for model, count in spec.entries:
+        pats = pattern_rows(model.num_mem_slices)
+        occ[g:g + count, :model.num_mem_slices] = pats[np.arange(count) % len(pats)]
+        g += count
+    occ = np.broadcast_to(occ, (mig.NUM_PROFILES,) + occ.shape)
+    return fleet_state(spec, tables, occ, device)[1:]
+
+
+def delta_cases(device, rng):
+    """delta_from_base's operand sets beyond the main path's, each
+    ``(base, free, f, pid, midx, V, maskwin, profile_mem)``: the window
+    counts of every occupancy pattern of each device model, one replica per
+    demand class, on a homogeneous fleet of each model and on the four-model
+    fleet (the kernel's bit path); the A100-80GB patterns with negative
+    counts, and with tables outside the bit form: window sizes halved, sizes
+    one below their slice count, N > 32 by repeating the windows, a negative
+    anchor count (its count path, or its bit path on sizes that are not
+    slice counts); R = 1 at M = 10,000 and R = 7 at M = 333 (GPU runs that
+    are not a multiple of the block)."""
+    import torch
+    from repro_torch.core import mig
+    from repro_torch.sim import batched
+
+    def operands(spec, tables, state, pid):
+        midx32 = torch.as_tensor(spec.model_index, device=device)
+        return tuple(state) + (pid, midx32, tables.V, tables.maskwin, tables.profile_mem)
+
+    pid = torch.arange(mig.NUM_PROFILES, dtype=torch.int32, device=device)
+    fleets = {m.name: f"{m.name}:{1 << m.num_mem_slices}" for m in mig.DEVICE_MODELS.values()}
+    fleets["four-model"] = ",".join(
+        f"{m.name}:256" for m in (mig.A100_80GB, mig.A100_40GB, mig.H100_96GB, mig.H100_80GB))
+    cases = {}
+    for tag, text in sorted(fleets.items()):
+        spec = mig.ClusterSpec.parse(text)
+        tables = batched.spec_tables(spec, device)
+        cases[f"{tag}/all patterns"] = operands(spec, tables, pattern_state(spec, tables, device), pid)
+    base, free, f, pid, midx32, V, maskwin, mem = cases[f"{mig.A100_80GB.name}/all patterns"]
+    negative = base.clone()
+    negative[:, ::5, 2] = -1.0
+    bad_anchor = maskwin.clone()
+    bad_anchor[:, :, 0, 0] = -1.0
+    cases["negative counts"] = (negative, free, f, pid, midx32, V, maskwin, mem)
+    cases["window sizes halved"] = (base, free, f, pid, midx32, V / 2, maskwin, mem)
+    cases["sizes one below the slice count"] = (base, free, f, pid, midx32,
+                                                (V - 1).clamp(min=0), maskwin, mem)
+    cases["N > 32 (windows repeated)"] = (torch.cat([base, base], -1).contiguous(), free, f, pid,
+                                          midx32, torch.cat([V, V], -1).contiguous(),
+                                          torch.cat([maskwin, maskwin], -1).contiguous(), mem)
+    cases["a negative anchor count"] = (base, free, f, pid, midx32, V, bad_anchor, mem)
+    for runs, m in ((1, 10_000), (7, 333)):
+        spec = mig.ClusterSpec.homogeneous(mig.A100_80GB, m)
+        tables = batched.spec_tables(spec, device)
+        occ = rng.random((runs, m, spec.num_mem_slices)) < MFI_DELTA_FILL
+        cases[f"R = {runs}, M = {m}"] = operands(
+            spec, tables, fleet_state(spec, tables, occ, device)[1:],
+            torch.arange(runs, dtype=torch.int32, device=device) % mig.NUM_PROFILES)
+    return cases
+
+
 def kernel_phase(device):
     import numpy as np
     import torch
@@ -404,7 +488,7 @@ def kernel_phase(device):
     models = {m.name: m for m in mig.DEVICE_MODELS.values()}
     for name, model in sorted(models.items()):
         sm = model.num_mem_slices
-        pats = (np.arange(1 << sm)[:, None] >> np.arange(sm)) & 1
+        pats = pattern_rows(sm)
         odd = rng.integers(-2, 4, (256, sm))
         wm = torch.tensor(model.placement_masks, dtype=torch.float32, device=device)
         vm = torch.tensor(model.placement_mem, dtype=torch.float32, device=device)
@@ -498,6 +582,16 @@ def kernel_phase(device):
     log("kernel select_from_base: equal to plain and the same bits on two calls on "
         "empty, full and one-feasible fleets (homog, four-model), R = 1, R = 499, M = 33, "
         "both metrics, mfi/ff/bf-bi/wf-bi keys")
+    cases = delta_cases(device, rng)
+    for tag, dargs_c in cases.items():
+        for metric in ("blocked", "partial"):
+            got = K.delta_from_base(*dargs_c, metric=metric)
+            check(torch.equal(got, ref.delta_from_base_ref(*dargs_c, metric)),
+                  f"delta_from_base/{tag}/{metric} differs from its plain version")
+            check(torch.equal(got, K.delta_from_base(*dargs_c, metric=metric)),
+                  f"delta_from_base/{tag}/{metric}: two calls differ")
+    log(f"kernel delta_from_base: equal to plain and the same bits on two calls, both "
+        f"metrics, on {'; '.join(cases)}")
     (ms, call_ms, src), (plain_ms, plain_call_ms, _), dargs = timing["delta_from_base"]
     b_ms, b_by = bound(nbytes(*dargs) + 4 * r * m * a, 2 * r * m * nn * (a + 1))
     rows["delta_from_base"] = dict(max_abs_err=err_d, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
@@ -677,31 +771,87 @@ def golden_phase(device):
 # ---------------------------------------------------------------------------
 
 
+#: mfi's keys through the ΔF-table lowering, so that the engine runs
+#: delta_from_base (the lowering of every ΔF spec whose argmin is not fused)
+DELTA_ONLY = dict(name="mfi-delta-only", keys=("frag-delta", "gpu", "anchor"),
+                  kernel_lowering="delta")
+
+
+def paper_stream(device):
+    """The paper's Fig. 4 heavy-load point (M = 100 A100-80GB, uniform mix,
+    offered load 1.0, seed 0): its config, its presampled stream of ``RUNS``
+    replicas and the engine's keyword arguments on ``device``."""
+    import torch
+    from repro_torch.sim import batched
+    from repro_torch.sim.simulator import SimConfig
+
+    cfg = SimConfig(num_gpus=100, offered_load=1.0, seed=0)
+    spec = cfg.spec()
+    t0 = time.perf_counter()
+    events, _, ring_rows, ring_cols = batched.presample_arrivals(cfg, RUNS)
+    log(f"full width: presampled (E_max, R) = {events.pid.shape}, "
+        f"{int((events.pid >= 0).sum())} arrivals, ring {ring_rows} x {ring_cols}, "
+        f"{time.perf_counter() - t0:.2f} s")
+    common = dict(metric=cfg.metric, num_gpus=cfg.num_gpus, ring_rows=ring_rows,
+                  ring_cols=ring_cols, kernel_spec=spec,
+                  midx=torch.as_tensor(spec.model_index, device=device),
+                  tables=batched.spec_tables(spec, device), device=device)
+    return cfg, spec, events, common
+
+
+def engine_windows(device, events, common, policies, n=256):
+    """Where the device time goes: the first ``n`` events of each policy's
+    step, kernel and plain, profiled, and the same window's wall time
+    without the profiler, the kernel path's event loop under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a host sync fails it)."""
+    import torch
+    from repro_torch.sim import batched
+
+    window = batched.EventStream(*[a[:n] for a in events])
+    for policy, use_kernel in itertools.product(policies, (True, False)):
+        name = policy if isinstance(policy, str) else policy.name
+
+        def run():
+            return batched._simulate(window, policy=policy, use_kernel=use_kernel, **common)
+
+        times = device_times(run, 1)
+        t0 = time.perf_counter()
+        loop = batched._setup_run(window, policy=policy, use_kernel=use_kernel, **common)
+        if use_kernel:  # sim/batched.py's claim: nothing in the loop waits for the device
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            batched._event_loop(*loop)
+        except RuntimeError as e:
+            check(False, f"engine window {name}: a host sync inside the event loop: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        busy_ms = sum(t for t, _ in times.values()) / 1e3
+        launches = sum(c for _, c in times.values())
+        top = sorted(times.items(), key=lambda kv: -kv[1][0])[:4]
+        log(f"engine window {name} {'kernel' if use_kernel else 'plain'} "
+            f"({n} events, R={RUNS}): "
+            f"device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms wall "
+            f"({100 * busy_ms / wall_ms:.1f}% busy), {launches / n:.1f} device ops/event"
+            + ("; no host sync in the loop (set_sync_debug_mode error)" if use_kernel else "")
+            + "; top: "
+            + "; ".join(f"{k[:48]} {t / c:.1f} us x{c}" for k, (t, c) in top))
+
+
 def full_width_phase(device):
     import numpy as np
     import torch
     from repro_torch.core.policy import PolicySpec
     from repro_torch.kernels.fragscore import fragscore as K
     from repro_torch.sim import batched
-    from repro_torch.sim.simulator import SimConfig
 
     wrappers = {"fragscore": K.fragscore, "delta_from_base": K.delta_from_base,
                 "select_from_base": K.select_from_base, "migrate_refine": K.migrate_refine}
     totals = dict.fromkeys(wrappers, 0)
-    cfg = SimConfig(num_gpus=100, offered_load=1.0, seed=0)
-    spec = cfg.spec()
-    t0 = time.perf_counter()
-    events, _, ring_rows, ring_cols = batched.presample_arrivals(cfg, RUNS)
+    _, spec, events, common = paper_stream(device)
     e_max = events.pid.shape[0]
-    log(f"full width: presampled (E_max, R) = {events.pid.shape}, "
-        f"{int((events.pid >= 0).sum())} arrivals, ring {ring_rows} x {ring_cols}, "
-        f"{time.perf_counter() - t0:.2f} s")
-    delta_only = PolicySpec(name="mfi-delta-only", keys=("frag-delta", "gpu", "anchor"),
-                            kernel_lowering="delta")
-    common = dict(metric=cfg.metric, num_gpus=cfg.num_gpus, ring_rows=ring_rows,
-                  ring_cols=ring_cols, kernel_spec=spec,
-                  midx=torch.as_tensor(spec.model_index, device=device),
-                  tables=batched.spec_tables(spec, device), device=device)
+    delta_only = PolicySpec(**DELTA_ONLY)
     warm = batched.EventStream(*[a[:64] for a in events])
     rates = {}
     for policy in ("mfi", "ff", "bf-bi", "wf-bi", "rr", delta_only, "mfi-defrag"):
@@ -753,38 +903,7 @@ def full_width_phase(device):
     for k in totals:
         check(totals[k] > 0, f"{k} never launched on the main path")
 
-    # where the device time goes: a window of the mfi step, profiled, and
-    # the same window's wall time without the profiler
-    n = 256
-    window = batched.EventStream(*[a[:n] for a in events])
-    for policy, use_kernel in (("mfi", True), ("mfi", False),
-                               ("mfi-defrag", True), ("mfi-defrag", False)):
-        def run():
-            return batched._simulate(window, policy=policy, use_kernel=use_kernel, **common)
-
-        times = device_times(run, 1)
-        t0 = time.perf_counter()
-        loop = batched._setup_run(window, policy=policy, use_kernel=use_kernel, **common)
-        if use_kernel:  # sim/batched.py's claim: nothing in the loop waits for the device
-            torch.cuda.set_sync_debug_mode("error")
-        try:
-            batched._event_loop(*loop)
-        except RuntimeError as e:
-            check(False, f"engine window {policy}: a host sync inside the event loop: {e}")
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-        busy_ms = sum(t for t, _ in times.values()) / 1e3
-        launches = sum(c for _, c in times.values())
-        top = sorted(times.items(), key=lambda kv: -kv[1][0])[:4]
-        log(f"engine window {policy} {'kernel' if use_kernel else 'plain'} "
-            f"({n} events, R={RUNS}): "
-            f"device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms wall "
-            f"({100 * busy_ms / wall_ms:.1f}% busy), {launches / n:.1f} device ops/event"
-            + ("; no host sync in the loop (set_sync_debug_mode error)" if use_kernel else "")
-            + "; top: "
-            + "; ".join(f"{k[:48]} {t / c:.1f} us x{c}" for k, (t, c) in top))
+    engine_windows(device, events, common, ("mfi", delta_only, "mfi-defrag"))
     return totals, rates
 
 
@@ -1142,6 +1261,47 @@ def mfi_delta_bound(occ, out, tables, a):
     return bound(nb, ops), nb, ops, feasible
 
 
+def mfi_delta_cases(device, rng):
+    """mfi_delta held to its plain version, and to itself on a second call,
+    on every device model: every occupancy pattern (its bit path) and rows
+    with entries outside {0, 1} (its count path), under the model's table,
+    window sizes halved, sizes one below their slice count (the bit path
+    counting each window's slices for "partial") and N > 32 by repeating the
+    windows; anchor masks doubled as well on the A100-80GB; every demand
+    class, both metrics.  Returns the number of cases."""
+    import numpy as np
+    import torch
+    from repro_torch.core import cluster, mig
+    from repro_torch.kernels.fragscore import fragscore as K
+    from repro_torch.kernels.fragscore import ref
+
+    n_cases = 0
+    for name, model in sorted({m.name: m for m in mig.DEVICE_MODELS.values()}.items()):
+        t = cluster.tables_for(model, device=device)
+        s = model.num_mem_slices
+        rows = {"all patterns": pattern_rows(s),
+                "entries outside {0, 1}": rng.integers(-2, 4, (256, s)).astype(np.int32)}
+        w, v = t.placement_masks, t.placement_mem
+        tables = {"its table": (w, v), "sizes halved": (w, v / 2),
+                  "sizes one below the slice count": (w, (v - 1).clamp(min=0)),
+                  "N > 32": (torch.cat([w, w]).contiguous(), torch.cat([v, v]).contiguous())}
+        for (rtag, rows_np), (ttag, (wt, vt)) in itertools.product(rows.items(), tables.items()):
+            x = torch.as_tensor(rows_np, device=device)
+            for pid in range(mig.NUM_PROFILES):
+                pm = t.profile_masks[pid].to(torch.float32)
+                pv = t.profile_valid[pid].to(torch.float32)
+                masks = (pm, 2 * pm) if model is mig.A100_80GB else (pm,)
+                for pmt, metric in itertools.product(masks, ("blocked", "partial")):
+                    got = K.mfi_delta(x, wt, vt, pmt, pv, metric=metric)
+                    what = f"mfi_delta/{name}/{rtag}/{ttag}/{mig.PROFILE_NAMES[pid]}/{metric}"
+                    check(torch.equal(got, ref.mfi_delta_ref(x, wt, vt, pmt, pv, metric)),
+                          f"{what} differs from its plain version")
+                    check(torch.equal(got, K.mfi_delta(x, wt, vt, pmt, pv, metric=metric)),
+                          f"{what}: two calls differ")
+                    n_cases += 1
+    return n_cases
+
+
 def mfi_delta_phase(device):
     import numpy as np
     import torch
@@ -1192,6 +1352,11 @@ def mfi_delta_phase(device):
     log(f"kernel mfi_delta: equal to plain on {len(cases)} fleets x {mig.NUM_PROFILES} classes "
         f"x 2 metrics (+ non-binary occupancy at M = 10,000); max abs err {err}; library "
         f"call: none (no single torch call computes it)")
+    n_cases = mfi_delta_cases(device, rng)
+    log(f"kernel mfi_delta: equal to plain and the same bits on two calls on {n_cases} cases: "
+        "every 2^S occupancy pattern and rows with entries outside {0, 1} of each device model, "
+        "under its table, sizes halved, sizes one below the slice count and N > 32 (and "
+        "doubled anchor masks on the A100-80GB), every class, both metrics")
     main = by_m[f"{mig.A100_80GB.name} M=100"]
     return dict(max_abs_err=err, library_ms=None, shape="occ (100, 8), A = 7 (1g.10gb)",
                 by_m=by_m, **{k: main[k] for k in ("ms", "call_ms", "ms_source", "plain_ms",

@@ -32,8 +32,8 @@ namespace {
 constexpr int kMaxSlices = 16;  // S <= 12 (the H200-141GB geometry)
 constexpr int kMaxKeys = 8;     // effective scoring keys of a fused spec
 constexpr int kFragThreads = 32;
-constexpr int kMfiThreads = 256;
-constexpr int kDeltaThreads = 256;
+constexpr int kMfiThreads = 256;    // an mfi_delta block: a thread per GPU row
+constexpr int kDeltaThreads = 128;  // a delta_from_base block: a thread per GPU row of a replica
 constexpr int kSelectThreads = 128;  // a select block per replica, a thread per GPU row
 constexpr int kMigrateThreads = 256;
 constexpr float kBig = 1e9f;  // the masked-key sentinel (ref.BIG)
@@ -102,6 +102,101 @@ __device__ __forceinline__ float score_row(const float (&x)[kMaxSlices], float u
   return acc;
 }
 
+// Row `row` of an (rows, s) int32 matrix into x (x is 0 past s): 16-byte
+// loads where the matrix allows them.
+__device__ __forceinline__ void load_row(const int32_t* __restrict__ occ, int64_t row, int s,
+                                         int (&x)[kMaxSlices]) {
+  const int32_t* o = occ + row * s;
+  if ((s & 3) == 0 && (reinterpret_cast<uintptr_t>(occ) & 15) == 0) {
+#pragma unroll
+    for (int c = 0; c < kMaxSlices / 4; ++c) {
+      if (4 * c < s) {
+        const int4 u = __ldg(reinterpret_cast<const int4*>(o) + c);
+        x[4 * c] = u.x;
+        x[4 * c + 1] = u.y;
+        x[4 * c + 2] = u.z;
+        x[4 * c + 3] = u.w;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kMaxSlices; ++j)
+      if (j < s) x[j] = o[j];
+  }
+}
+
+// A placement table w (N, S), v (N,) as bit sets in registers, read by
+// every warp, lane i window i.  Where `store`, the lane also puts the
+// table into shared memory (sw, sv) for the count path.
+struct TableBits {
+  bool ok;                    // 0/1 windows of whole sizes in [0, 32], N <= 32
+  uint32_t swin[kMaxSlices];  // the windows holding slice j
+  Planes planes;              // the bit planes of the window sizes
+  uint32_t wb;                // the lane's window, as slice bits
+  float vl;                   // the lane's window size
+};
+
+__device__ __forceinline__ TableBits warp_table_bits(const float* __restrict__ w,
+                                                     const float* __restrict__ v, int n, int s,
+                                                     float* sw, float* sv, bool store) {
+  const int lane = threadIdx.x % 32;
+  TableBits t;
+  t.ok = n <= kMaxWindows;
+  t.wb = 0;
+  t.vl = 0.f;
+  for (int i = lane; i < n; i += 32) {
+    float wi[kMaxSlices];
+#pragma unroll
+    for (int j = 0; j < kMaxSlices; ++j) wi[j] = j < s ? w[i * s + j] : 0.f;
+    const float vi = v[i];
+    uint32_t bits = 0;
+#pragma unroll
+    for (int j = 0; j < kMaxSlices; ++j) {
+      if (j < s) {
+        if (store) sw[i * s + j] = wi[j];
+        t.ok &= wi[j] == 0.f || wi[j] == 1.f;
+        bits |= (wi[j] != 0.f ? 1u : 0u) << j;
+      }
+    }
+    t.ok &= vi == floorf(vi) && vi >= 0.f && vi <= 32.f;
+    if (store) sv[i] = vi;
+    if (i == lane) {
+      t.vl = vi;
+      t.wb = bits;
+    }
+  }
+  t.ok = __all_sync(0xffffffffu, t.ok);
+  const bool mine = lane < n;
+#pragma unroll
+  for (int j = 0; j < kMaxSlices; ++j)
+    t.swin[j] = j < s ? __ballot_sync(0xffffffffu, mine && ((t.wb >> j) & 1)) : 0u;
+  const int vi = t.ok && mine ? static_cast<int>(t.vl) : 0;
+#pragma unroll
+  for (int q = 0; q < kSizeBits; ++q) t.planes.q[q] = __ballot_sync(0xffffffffu, (vi >> q) & 1);
+  return t;
+}
+
+// A block's output tile: the block's outputs, contiguous in device memory
+// from dst, sit in shared memory at tile[tile_lead(dst) + e], so that the
+// tile (16-byte aligned) and dst agree modulo 16 bytes, and leave in
+// 16-byte stores (store_tile; the block's threads all call it).
+__host__ __device__ inline size_t tile_words(size_t count) { return (count + 3 + 3) & ~static_cast<size_t>(3); }
+
+__device__ __forceinline__ int tile_lead(const float* dst) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(dst) >> 2) & 3);
+}
+
+__device__ __forceinline__ void store_tile(float* __restrict__ dst, const float* tile, int count) {
+  const int lead = tile_lead(dst);
+  const int head = min((4 - lead) & 3, count);  // up to dst's first 16-byte boundary
+  const int body = (count - head) & ~3;
+  for (int e = threadIdx.x; e < head; e += blockDim.x) dst[e] = tile[lead + e];
+  const float4* src4 = reinterpret_cast<const float4*>(tile + lead + head);
+  float4* dst4 = reinterpret_cast<float4*>(dst + head);
+  for (int c = threadIdx.x; c < body / 4; c += blockDim.x) dst4[c] = src4[c];
+  for (int e = head + body + threadIdx.x; e < count; e += blockDim.x) dst[e] = tile[lead + e];
+}
+
 // ---------------------------------------------------------------------------
 // fragscore — replaces kernels/fragscore/fragscore.py::fragscore (Pallas,
 // _fragscore_kernel/_score_block; src/repro/kernels/fragscore/fragscore.py:76,
@@ -115,11 +210,11 @@ __device__ __forceinline__ float score_row(const float (&x)[kMaxSlices], float u
 // time.  The design shortens that chain:
 //  * a block is one warp, so 6,000 rows spread over all SMs (188 blocks);
 //  * a thread's row comes in 16-byte loads issued before the table is
-//    read, so that the two latencies overlap;
+//    read, so that the two latencies overlap (load_row);
 //  * every warp reads the window table, lane i window i, and keeps its bit
-//    sets in registers by ballot: the windows holding each slice and the
-//    bit planes of the sizes (only the count path below reads the table
-//    from shared memory);
+//    sets in registers by ballot (warp_table_bits): the windows holding
+//    each slice and the bit planes of the sizes (only the count path below
+//    reads the table from shared memory);
 //  * a row of 0/1 entries (every row the engine makes) is a slice mask: its
 //    occupied windows are the OR of its slices' windows, the eligible ones
 //    a bit-sliced comparison of the planes with S − used, and F under
@@ -137,65 +232,11 @@ __global__ void __launch_bounds__(kFragThreads) fragscore_kernel(
   float* sw = sh;         // (N, S) window slices, for the count path
   float* sv = sw + n * s;  // (N,) window sizes
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  const int lane = threadIdx.x % 32;
   int x[kMaxSlices];
 #pragma unroll
   for (int j = 0; j < kMaxSlices; ++j) x[j] = 0;
-  if (row < q) {  // the row first: its loads fly while the table is read
-    const int32_t* o = occ + static_cast<int64_t>(row) * s;
-    if ((s & 3) == 0 && (reinterpret_cast<uintptr_t>(occ) & 15) == 0) {
-#pragma unroll
-      for (int c = 0; c < kMaxSlices / 4; ++c) {
-        if (4 * c < s) {
-          const int4 u = __ldg(reinterpret_cast<const int4*>(o) + c);
-          x[4 * c] = u.x;
-          x[4 * c + 1] = u.y;
-          x[4 * c + 2] = u.z;
-          x[4 * c + 3] = u.w;
-        }
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < kMaxSlices; ++j)
-        if (j < s) x[j] = o[j];
-    }
-  }
-  // Every warp reads the table, lane i window i, and keeps its bit sets in
-  // registers; the table also goes to shared memory for the count path.
-  bool ok = n <= kMaxWindows;  // the table is 0/1 windows of whole sizes in [0, 32]
-  float vl = 0.f;     // the lane's window size
-  uint32_t wb = 0;    // the lane's window, as slice bits
-  for (int i = lane; i < n; i += 32) {
-    float wi[kMaxSlices];
-#pragma unroll
-    for (int j = 0; j < kMaxSlices; ++j) wi[j] = j < s ? w[i * s + j] : 0.f;
-    const float vi = v[i];
-    uint32_t bits = 0;
-#pragma unroll
-    for (int j = 0; j < kMaxSlices; ++j) {
-      if (j < s) {
-        if (threadIdx.x < 32) sw[i * s + j] = wi[j];
-        ok &= wi[j] == 0.f || wi[j] == 1.f;
-        bits |= (wi[j] != 0.f ? 1u : 0u) << j;
-      }
-    }
-    ok &= vi == floorf(vi) && vi >= 0.f && vi <= 32.f;
-    if (threadIdx.x < 32) sv[i] = vi;
-    if (i == lane) {
-      vl = vi;
-      wb = bits;
-    }
-  }
-  ok = __all_sync(0xffffffffu, ok);
-  const bool mine = lane < n;
-  uint32_t swin[kMaxSlices];  // the windows holding slice j
-#pragma unroll
-  for (int j = 0; j < kMaxSlices; ++j)
-    swin[j] = j < s ? __ballot_sync(0xffffffffu, mine && ((wb >> j) & 1)) : 0u;
-  Planes planes;
-  const int vi = ok && mine ? static_cast<int>(vl) : 0;
-#pragma unroll
-  for (int qb = 0; qb < kSizeBits; ++qb) planes.q[qb] = __ballot_sync(0xffffffffu, (vi >> qb) & 1);
+  if (row < q) load_row(occ, row, s, x);  // the row first: its loads fly while the table is read
+  const TableBits tb = warp_table_bits(w, v, n, s, sw, sv, threadIdx.x < 32);
   uint32_t mask = 0;
   bool binary = true;
 #pragma unroll
@@ -205,22 +246,22 @@ __global__ void __launch_bounds__(kFragThreads) fragscore_kernel(
   }
   const int used = __popc(mask);
   uint32_t full = 0;  // "partial": the windows whose count reaches their size
-  if (partial && ok) {
+  if (partial && tb.ok) {
     for (int i = 0; i < n; ++i) {
-      const uint32_t wbi = __shfl_sync(0xffffffffu, wb, i);
-      const float vw = __shfl_sync(0xffffffffu, vl, i);
+      const uint32_t wbi = __shfl_sync(0xffffffffu, tb.wb, i);
+      const float vw = __shfl_sync(0xffffffffu, tb.vl, i);
       full |= (static_cast<float>(__popc(mask & wbi)) >= vw ? 1u : 0u) << i;
     }
   }
   __syncthreads();  // the count path's table in place
   if (row >= q) return;
   float score;
-  if (ok && binary) {
+  if (tb.ok && binary) {
     uint32_t occupied = 0;  // the windows holding a used slice
 #pragma unroll
-    for (int j = 0; j < kMaxSlices; ++j) occupied |= ((mask >> j) & 1) ? swin[j] : 0u;
-    const uint32_t elig = windows_le(planes, static_cast<float>(s - used));
-    score = window_sum((partial ? occupied & ~full : occupied) & elig, planes);
+    for (int j = 0; j < kMaxSlices; ++j) occupied |= ((mask >> j) & 1) ? tb.swin[j] : 0u;
+    const uint32_t elig = windows_le(tb.planes, static_cast<float>(s - used));
+    score = window_sum((partial ? occupied & ~full : occupied) & elig, tb.planes);
   } else {
     float xf[kMaxSlices];
     float usedf = 0.f;
@@ -236,153 +277,208 @@ __global__ void __launch_bounds__(kFragThreads) fragscore_kernel(
 
 // ---------------------------------------------------------------------------
 // mfi_delta — replaces kernels/fragscore/fragscore.py::mfi_delta (Pallas,
-// _mfi_delta_kernel/_score_block; src/repro/kernels/fragscore/fragscore.py:133)
-// of the JAX package: the ΔF table of one scheduling decision.
+// _mfi_delta_kernel/_score_block; src/repro/kernels/fragscore/fragscore.py:133,
+// call :160) of the JAX package: the ΔF table of one scheduling decision.
 //
 // For every GPU row of raw occupancy occ (M, S) and every anchor k of the
-// requested class: F(min(occ + mask_k, 1)) - F(occ) where the anchor is real
-// and its window holds no occupied slice, exactly 1e30 otherwise.  The
-// reference's float arithmetic is kept (window counts as float dot products,
-// every slice clipped to 1 in the dry run), so the kernel gives its plain
-// version's answer for any occupancy whose sums are exact in float32.
+// requested class: F(min(occ + mask_k, 1)) − F(occ) where the anchor is
+// valid (pv[k] > 0) and its window holds no occupied slice, exactly 1e30
+// otherwise.
 //
-// Bound: bytes.  Per row it reads S int32 and writes A floats (M = 10^6
-// A100-80GB rows, 1g.10gb: 32 MB + 28 MB, 18 µs at 3.35 TB/s).  On 0/1
-// occupancy the function needs fewer operations than this kernel does: the
-// row's window counts once (2·N·S), F(occ) from them (4·N) and, per
-// feasible anchor, the counts plus the anchor's fixed mask·W row (N) and F
-// after (4·N): ~0.73 GFLOP at 45 % fill, 11 µs at 67 TFLOP/s.  This kernel instead rescores
-// every feasible dry run from its slices, N·(2·S + 3) per anchor.  At
-// M <= 10^4 the launch (a few µs) bounds it.  Design: one thread per row,
-// the row in registers (no cross-thread reduction), the model's window
-// table and the class's anchor masks staged once per block in shared memory
-// (at most N = 31, S = 12, A = 12: 2.2 KB), F of a dry run computed only
-// for a feasible anchor.
+// Bound: bytes.  Per row it reads S int32 and writes A floats: at M = 10^6
+// A100-80GB rows and 1g.10gb (A = 7), 32 MB + 28 MB, 17.9 µs at 3.35 TB/s.
+// The float work the function needs (each row's window counts and F, and F
+// after each feasible dry run, ~0.73 GFLOP at 45 % fill) takes 11 µs at
+// 67 TFLOP/s.  At M <= 10^4 the launch and one block's chain set the time.
+// Design:
+//  * a thread per row, 256 rows a tile, as many blocks as the card holds at
+//    once, each walking tiles with the next tile's row in flight (16-byte
+//    loads, load_row) while it scores the current one;
+//  * every warp keeps the window table's bit sets in registers by ballot
+//    (warp_table_bits, as fragscore), and lane k derives anchor k's slice
+//    mask, which the block reads from shared memory;
+//  * a 0/1 row (every row the scheduler makes) is a slice mask, and a
+//    feasible dry run is the mask | the anchor's slices, so F of either is
+//    one entry of a table of F over every 0/1 row of S <= 12 slices, which
+//    each block builds once in shared memory (16 KB at S = 12): F of a mask
+//    is a popcount sum over its occupied windows (the OR of its slices'
+//    windows) of size <= S − used (a bit-sliced comparison of the size
+//    planes); "partial" also drops the full windows: where every window's
+//    size is its slice count (every device model's table) a window is full
+//    iff none of its slices is free, else each window's slices are counted;
+//    per anchor, feasibility is one AND and ΔF one table read less F(occ);
+//  * any other row, or a table that is not 0/1 windows and anchors with
+//    window sizes whole in [0, 32], N <= 32 and S <= 12, takes the float
+//    count arithmetic of the reference (score_row) on the tables in shared
+//    memory, so that the kernel equals its plain version on any occupancy
+//    whose sums are exact in float32;
+//  * each tile's (rows × A) outputs leave through shared memory in 16-byte
+//    stores (store_tile).
+// Replaced (measured in PERF.md): PR 14's design, every feasible dry run
+// rescored from its slices in float, N·(2·S + 3) dependent operations each
+// (15.1 µs at M = 100, 391.6 µs at 10^6, bound by instruction issue); and a
+// first version of this one with a block per 256-row tile and F of every
+// dry run as its own popcount sum (4.4 µs at M = 100, 71.9 µs at 10^6:
+// ten waves of 80-register blocks, each paying the table derivation).
+// Also measured slower at 10^6 (PERF.md): the row tiles staged by a
+// cp.async ring of 2–6 tiles a block, one block per SM, three or four per
+// SM by launch bounds (two is what the registers allow).
 // ---------------------------------------------------------------------------
+
+constexpr int kMfiTableSlices = 12;  // the F table holds every 0/1 row of S <= 12 slices
+
+// "partial": the windows none of whose slices is outside `bits`, from the
+// windows of each slice where every window's size is its slice count
+// (`whole`), else by counting each window's slices in `bits`.
+__device__ __forceinline__ uint32_t full_windows(uint32_t bits, const TableBits& tb, bool whole,
+                                                 const uint32_t* swb, const float* sv, int n,
+                                                 int s) {
+  if (whole) {
+    uint32_t open = 0;  // the windows holding a slice outside `bits`
+#pragma unroll
+    for (int j = 0; j < kMaxSlices; ++j) open |= (j < s && !((bits >> j) & 1)) ? tb.swin[j] : 0u;
+    return ~open;
+  }
+  uint32_t full = 0;
+  for (int i = 0; i < n; ++i)
+    full |= (static_cast<float>(__popc(bits & swb[i])) >= sv[i] ? 1u : 0u) << i;
+  return full;
+}
+
+// words of mfi_delta's shared memory before its tables: the output tile,
+// then the F table
+__host__ __device__ inline size_t mfi_table_offset(int a) {
+  return tile_words(static_cast<size_t>(kMfiThreads) * a);
+}
+
+inline size_t mfi_smem_bytes(int n, int s, int a) {
+  const size_t table = s <= kMfiTableSlices ? size_t{1} << s : 0;
+  return 4 * (mfi_table_offset(a) + table + static_cast<size_t>(n) * s + n +
+              static_cast<size_t>(a) * s + 2 * a + n);
+}
+
+template <bool kPartialMetric>
 __global__ void __launch_bounds__(kMfiThreads) mfi_delta_kernel(
     const int32_t* __restrict__ occ, const float* __restrict__ w,
     const float* __restrict__ v, const float* __restrict__ pm,
-    const float* __restrict__ pv, float* __restrict__ out, int m, int n, int s,
-    int a, int partial) {
-  extern __shared__ float sh[];
-  float* sw = sh;
-  float* sv = sw + n * s;
-  float* spm = sv + n;
-  float* spv = spm + a * s;
-  for (int i = threadIdx.x; i < n * s; i += blockDim.x) sw[i] = w[i];
-  for (int i = threadIdx.x; i < n; i += blockDim.x) sv[i] = v[i];
-  for (int i = threadIdx.x; i < a * s; i += blockDim.x) spm[i] = pm[i];
-  for (int i = threadIdx.x; i < a; i += blockDim.x) spv[i] = pv[i];
-  __syncthreads();
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (row >= m) return;
-  const int32_t* o = occ + row * s;
-  float x[kMaxSlices];
-  float used = 0.f;
+    const float* __restrict__ pv, float* __restrict__ out, int m, int n, int s, int a,
+    int64_t tiles) {
+  extern __shared__ __align__(16) float mdsh[];
+  const int table_size = s <= kMfiTableSlices ? 1 << s : 0;
+  float* tile = mdsh;                                // a tile's (rows, A) outputs
+  float* ftab = tile + mfi_table_offset(a);          // F of every 0/1 row
+  float* sw = ftab + table_size;                     // (N, S) window slices
+  float* sv = sw + n * s;                            // (N,) window sizes
+  float* spm = sv + n;                               // (A, S) anchor slices
+  float* spv = spm + a * s;                          // (A,) anchor validity
+  uint32_t* sanc = reinterpret_cast<uint32_t*>(spv + a);  // (A,) slice mask | valid << 31
+  uint32_t* swb = sanc + a;                          // (N,) each window's slices
+  const int lane = threadIdx.x % 32;
+  const bool lead_warp = threadIdx.x < 32;
+  int x[kMaxSlices];
 #pragma unroll
-  for (int j = 0; j < kMaxSlices; ++j) {
-    x[j] = j < s ? static_cast<float>(o[j]) : 0.f;
-    used += x[j];
-  }
-  const float fb = score_row(x, used, sw, sv, n, s, partial);
-  float* dst = out + row * a;
-  for (int k = 0; k < a; ++k) {
-    const float* mk = spm + k * s;
-    float overlap = 0.f;
+  for (int j = 0; j < kMaxSlices; ++j) x[j] = 0;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * kMfiThreads + threadIdx.x;
+  if (first < m) load_row(occ, first, s, x);  // in flight while the tables are read
+  const TableBits tb = warp_table_bits(w, v, n, s, sw, sv, lead_warp);
+  bool ok = tb.ok && table_size > 0;  // and every anchor is 0/1 slices
+  for (int k = lane; k < a; k += 32) {
+    uint32_t am = 0;
 #pragma unroll
     for (int j = 0; j < kMaxSlices; ++j) {
-      if (j < s) overlap += x[j] * mk[j];
+      if (j < s) {
+        const float mj = pm[k * s + j];
+        ok &= mj == 0.f || mj == 1.f;
+        am |= (mj != 0.f ? 1u : 0u) << j;
+        if (lead_warp) spm[k * s + j] = mj;
+      }
     }
-    float delta = kMfiBig;
-    if (overlap == 0.f && spv[k] > 0.f) {
-      float h[kMaxSlices];
-      float hused = 0.f;
+    const float vk = pv[k];
+    if (lead_warp) {
+      spv[k] = vk;
+      sanc[k] = am | (vk > 0.f ? 1u << 31 : 0u);
+    }
+  }
+  ok = __all_sync(0xffffffffu, ok);
+  const bool whole = __all_sync(0xffffffffu, lane >= n || __popc(tb.wb) == static_cast<int>(tb.vl));
+  if (lead_warp && lane < n) swb[lane] = tb.wb;
+  __syncthreads();  // the anchors and the count path's tables in place
+  if (ok) {  // F of every 0/1 row
+    for (int bits = threadIdx.x; bits < table_size; bits += blockDim.x) {
+      uint32_t occupied = 0;  // the windows holding a used slice
+#pragma unroll
+      for (int j = 0; j < kMaxSlices; ++j) occupied |= ((bits >> j) & 1) ? tb.swin[j] : 0u;
+      const uint32_t keep = kPartialMetric ? ~full_windows(bits, tb, whole, swb, sv, n, s) : ~0u;
+      ftab[bits] = window_sum(occupied & keep & windows_le(tb.planes, static_cast<float>(s - __popc(bits))),
+                              tb.planes);
+    }
+    __syncthreads();
+  }
+  for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int64_t row0 = t * kMfiThreads, row = row0 + threadIdx.x;
+    uint32_t mask = 0;
+    bool binary = true;
+#pragma unroll
+    for (int j = 0; j < kMaxSlices; ++j) {
+      binary &= (x[j] & ~1) == 0;
+      mask |= static_cast<uint32_t>(x[j] & 1) << j;
+    }
+    // the next tile's row flies while this one is scored
+    const int64_t next = row + static_cast<int64_t>(gridDim.x) * kMfiThreads;
+#pragma unroll
+    for (int j = 0; j < kMaxSlices; ++j) x[j] = 0;
+    if (next < m) load_row(occ, next, s, x);
+    float* dst = out + row0 * a;
+    float* o = tile + tile_lead(dst) + threadIdx.x * a;
+    if (row < m && ok && binary) {
+      const float fb = ftab[mask];
+      for (int k = 0; k < a; ++k) {
+        const uint32_t an = sanc[k], am = an & 0xffffu;
+        o[k] = (an >> 31) && !(mask & am) ? ftab[mask | am] - fb : kMfiBig;
+      }
+    } else if (row < m) {  // the reference's float arithmetic
+      int xr[kMaxSlices];
+#pragma unroll
+      for (int j = 0; j < kMaxSlices; ++j) xr[j] = 0;
+      load_row(occ, row, s, xr);
+      float xf[kMaxSlices];
+      float usedf = 0.f;
 #pragma unroll
       for (int j = 0; j < kMaxSlices; ++j) {
-        h[j] = j < s ? fminf(x[j] + mk[j], 1.f) : 0.f;
-        hused += h[j];
+        xf[j] = static_cast<float>(xr[j]);
+        usedf += xf[j];
       }
-      delta = score_row(h, hused, sw, sv, n, s, partial) - fb;
+      const float fb = score_row(xf, usedf, sw, sv, n, s, kPartialMetric);
+      for (int k = 0; k < a; ++k) {
+        const float* mk = spm + k * s;
+        float overlap = 0.f;
+#pragma unroll
+        for (int j = 0; j < kMaxSlices; ++j) {
+          if (j < s) overlap += xf[j] * mk[j];
+        }
+        float d = kMfiBig;
+        if (overlap == 0.f && spv[k] > 0.f) {
+          float h[kMaxSlices];
+          float hused = 0.f;
+#pragma unroll
+          for (int j = 0; j < kMaxSlices; ++j) {
+            h[j] = j < s ? fminf(xf[j] + mk[j], 1.f) : 0.f;
+            hused += h[j];
+          }
+          d = score_row(h, hused, sw, sv, n, s, kPartialMetric) - fb;
+        }
+        o[k] = d;
+      }
     }
-    dst[k] = delta;
-  }
-}
-
-// The ΔF arithmetic shared by delta_from_base and select_from_base.  Window
-// counts after a feasible placement are base + mw (the anchor's window is
-// disjoint from the current occupancy).  "blocked" splits F_after into the
-// windows that are already occupied (occupied_sum, once per row) and the
-// ones only the anchor makes occupied (the "cross" term, a plain fp32 loop
-// over N); "partial" is the dense per-window predicate.
-
-__device__ __forceinline__ float occupied_sum(const float* b, const float* v,
-                                              int n, float free_after) {
-  float s = 0.f;
-  for (int i = 0; i < n; ++i) {
-    if (b[i] > 0.f && v[i] <= free_after) s += v[i];
-  }
-  return s;
-}
-
-__device__ __forceinline__ float anchor_delta(const float* b, const float* v,
-                                              const float* mw, int n,
-                                              float free_after, float s_occ,
-                                              float fb, int partial) {
-  if (partial) {
-    float fa = 0.f;
-    for (int i = 0; i < n; ++i) {
-      const float ba = b[i] + mw[i];
-      if (ba > 0.f && ba < v[i] && v[i] <= free_after) fa += v[i];
-    }
-    return fa - fb;
-  }
-  float cross = 0.f;
-  for (int i = 0; i < n; ++i) {
-    if (!(b[i] > 0.f) && v[i] <= free_after && mw[i] > 0.f) cross += v[i];
-  }
-  return (s_occ + cross) - fb;
-}
-
-// ---------------------------------------------------------------------------
-// delta_from_base — replaces kernels/fragscore/fragscore.py::delta_from_base
-// (Pallas, _delta_from_base_kernel/_delta_block) of the JAX package.
-//
-// The raw (R, M, A) ΔF table of each replica's request from the window
-// counts.  Bound: launch.  At R = 500, M = 100 it reads base (3.6 MB) and
-// writes 1.4 MB, about 1.5 µs of HBM time.  Design: one thread per
-// (replica, GPU) row writes that row's A outputs; the replica's demand
-// class and the row's model are gathered in-kernel, which replaces the
-// per-replica operand gathers and the per-model-group launches of the
-// TPU version with a single launch for any fleet.
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kDeltaThreads) delta_from_base_kernel(
-    const float* __restrict__ base, const int32_t* __restrict__ free,
-    const float* __restrict__ f, const int32_t* __restrict__ pid,
-    const int32_t* __restrict__ midx, const float* __restrict__ V,
-    const float* __restrict__ maskwin, const float* __restrict__ profile_mem,
-    float* __restrict__ out, int r_count, int m, int n, int a, int p_count,
-    int partial) {
-  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= static_cast<int64_t>(r_count) * m) return;
-  const int r = static_cast<int>(t / m);
-  const int g = static_cast<int>(t % m);
-  const int k = midx[g];
-  const int p = pid[r];
-  const float* b = base + t * n;
-  const float* v = V + static_cast<int64_t>(k) * n;
-  const float* mw = maskwin + (static_cast<int64_t>(k) * p_count + p) * a * n;
-  const float free_after = static_cast<float>(free[t]) - profile_mem[k * p_count + p];
-  const float fb = f[t];
-  const float s_occ = partial ? 0.f : occupied_sum(b, v, n, free_after);
-  float* o = out + t * a;
-  for (int j = 0; j < a; ++j) {
-    o[j] = anchor_delta(b, v, mw + static_cast<int64_t>(j) * n, n, free_after,
-                        s_occ, fb, partial);
+    __syncthreads();
+    store_tile(dst, tile, static_cast<int>(min(static_cast<int64_t>(kMfiThreads), m - row0)) * a);
+    __syncthreads();  // the tile is free again
   }
 }
 
 // ---------------------------------------------------------------------------
-// Tables and sort forms shared by select_from_base and migrate_refine.
+// Tables and sort forms shared by delta_from_base, select_from_base and
+// migrate_refine.
 // ---------------------------------------------------------------------------
 
 // Copy `words` 4-byte words to shared memory with cp.async (16 bytes a copy
@@ -406,14 +502,15 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
 // Every (model, class) table in shared memory, with the bit sets
-// derived from them (stage_spec_tables).
+// derived from them (stage_window_tables, derive_window_bits,
+// stage_spec_tables).
 struct SpecTables {
   const float* v;     // (K, N) window sizes
   const float* mw;    // (K, P, A, N) window counts each anchor adds
   const float* mem;   // (K, P) slice demand
+  uint32_t* mwb;      // (K, P, A) bits of the windows each anchor touches
+  uint32_t* planes;   // (K, kSizeBits) bit planes of the window sizes
   const int* meta;    // (K, P, A) anchor: valid + 2·window row + 64·anchor value
-  const uint32_t* mwb;  // (K, P, A) bits of the windows each anchor touches
-  const uint32_t* planes;  // (K, kSizeBits) bit planes of the window sizes
 };
 
 __device__ __forceinline__ Planes planes_of(const SpecTables& t, int k) {
@@ -423,12 +520,71 @@ __device__ __forceinline__ Planes planes_of(const SpecTables& t, int k) {
   return p;
 }
 
-__host__ __device__ inline size_t spec_tables_words(int k_count, int p_count, int a, int n) {
+// words of V, maskwin, profile_mem and the bit sets derived from them
+__host__ __device__ inline size_t window_tables_raw(int k_count, int p_count, int a, int n) {
   const size_t kpa = static_cast<size_t>(k_count) * p_count * a;
-  const size_t words = static_cast<size_t>(k_count) * n + kpa * n +
-                       static_cast<size_t>(k_count) * p_count + 4 * kpa +
-                       static_cast<size_t>(k_count) * kSizeBits;
-  return (words + 3) & ~static_cast<size_t>(3);  // the run area starts 16-byte aligned
+  return static_cast<size_t>(k_count) * n + kpa * n + static_cast<size_t>(k_count) * p_count +
+         kpa + static_cast<size_t>(k_count) * kSizeBits;
+}
+
+// an area that follows the tables starts 16-byte aligned
+__host__ __device__ inline size_t round_words(size_t words) { return (words + 3) & ~static_cast<size_t>(3); }
+
+__host__ __device__ inline size_t window_tables_words(int k_count, int p_count, int a, int n) {
+  return round_words(window_tables_raw(k_count, p_count, a, n));
+}
+
+// the window tables and the anchor words of every (model, class)
+__host__ __device__ inline size_t spec_tables_words(int k_count, int p_count, int a, int n) {
+  return round_words(window_tables_raw(k_count, p_count, a, n) +
+                     3 * static_cast<size_t>(k_count) * p_count * a);
+}
+
+// The i-th anchor (k, p, j) a block derives: of every class, or of class
+// p_only >= 0 only.
+__device__ __forceinline__ int picked_anchor(int i, int p_only, int p_count, int a) {
+  return p_only >= 0 ? ((i / a) * p_count + p_only) * a + i % a : i;
+}
+
+// Issue the cp.async copies of V, maskwin and profile_mem into sh; the
+// caller commits, waits and syncs before derive_window_bits.
+__device__ __forceinline__ SpecTables stage_window_tables(uint32_t* sh, const float* __restrict__ V,
+                                                          const float* __restrict__ maskwin,
+                                                          const float* __restrict__ profile_mem,
+                                                          int k_count, int p_count, int a, int n) {
+  const int kpa = k_count * p_count * a;
+  float* sv = reinterpret_cast<float*>(sh);
+  float* smw = sv + k_count * n;
+  float* smem = smw + kpa * n;
+  uint32_t* smwb = reinterpret_cast<uint32_t*>(smem + k_count * p_count);
+  uint32_t* splanes = smwb + kpa;
+  stage_async(sv, V, k_count * n);
+  stage_async(smw, maskwin, kpa * n);
+  stage_async(smem, profile_mem, k_count * p_count);
+  return SpecTables{sv, smw, smem, smwb, splanes, nullptr};
+}
+
+// The bit sets of the staged tables, a ballot each (lane w holds window w):
+// the windows each anchor of every class, or of class p_only >= 0, touches,
+// then the size planes of every model.  blockDim is a multiple of 32; the
+// caller syncs the block before reading them.
+__device__ __forceinline__ void derive_window_bits(const SpecTables& t, int k_count, int p_count,
+                                                   int a, int n, int p_only) {
+  const int pick_count = p_only >= 0 ? k_count * a : k_count * p_count * a;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, warps = blockDim.x / 32;
+#pragma unroll 4
+  for (int i = warp; i < pick_count; i += warps) {
+    const int x = picked_anchor(i, p_only, p_count, a);
+    const uint32_t bits = __ballot_sync(0xffffffffu, lane < n && t.mw[x * n + lane] > 0.f);
+    if (lane == 0) t.mwb[x] = bits;
+  }
+#pragma unroll 2
+  for (int i = warp; i < k_count * kSizeBits; i += warps) {
+    const int k = i / kSizeBits, q = i % kSizeBits;
+    const int vw = lane < n ? static_cast<int>(t.v[k * n + lane]) : 0;
+    const uint32_t bits = __ballot_sync(0xffffffffu, (vw >> q) & 1);
+    if (lane == 0) t.planes[i] = bits;
+  }
 }
 
 // Stage the tables into sh with cp.async (it waits for every copy in flight,
@@ -442,50 +598,28 @@ __device__ __forceinline__ SpecTables stage_spec_tables(
     const int32_t* __restrict__ profile_anchors, const float* __restrict__ profile_mem,
     int k_count, int p_count, int a, int n, int p_only) {
   const int kpa = k_count * p_count * a;
-  float* sv = reinterpret_cast<float*>(sh);
-  float* smw = sv + k_count * n;
-  float* smem = smw + kpa * n;
-  int* srow = reinterpret_cast<int*>(smem + k_count * p_count);
+  SpecTables t = stage_window_tables(sh, V, maskwin, profile_mem, k_count, p_count, a, n);
+  // (an offset in int arithmetic: a size_t one here cost select_from_base 0.4 µs, PERF.md)
+  int* srow = reinterpret_cast<int*>(t.planes + k_count * kSizeBits);
   int* sanc = srow + kpa;
   int* sval = sanc + kpa;
-  uint32_t* smwb = reinterpret_cast<uint32_t*>(sval + kpa);
-  uint32_t* splanes = smwb + kpa;
-  stage_async(sv, V, k_count * n);
-  stage_async(smw, maskwin, kpa * n);
-  stage_async(smem, profile_mem, k_count * p_count);
   stage_async(srow, profile_rows, kpa);
   stage_async(sanc, profile_anchors, kpa);
   cp_async_commit();
-  // the anchors to derive: (k, p, j) of every class, or (k, p_only, j)
   const int pick_count = p_only >= 0 ? k_count * a : kpa;
-  const auto anchor = [&](int i) {
-    return p_only >= 0 ? ((i / a) * p_count + p_only) * a + i % a : i;
-  };
-  for (int i = threadIdx.x; i < pick_count; i += blockDim.x)
-    sval[anchor(i)] = profile_valid[anchor(i)];
+  for (int i = threadIdx.x; i < pick_count; i += blockDim.x) {
+    const int x = picked_anchor(i, p_only, p_count, a);
+    sval[x] = profile_valid[x];
+  }
   cp_async_wait<0>();
   __syncthreads();
   for (int i = threadIdx.x; i < pick_count; i += blockDim.x) {  // one word per anchor
-    const int x = anchor(i);
+    const int x = picked_anchor(i, p_only, p_count, a);
     srow[x] = (sval[x] ? 1 : 0) + (srow[x] & 31) * 2 + sanc[x] * 64;
   }
-  // the bit sets, a ballot each (lane w holds window w): the windows each
-  // anchor touches, then the size planes of every model
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32, warps = blockDim.x / 32;
-#pragma unroll 4
-  for (int i = warp; i < pick_count; i += warps) {
-    const int x = anchor(i);
-    const uint32_t bits = __ballot_sync(0xffffffffu, lane < n && smw[x * n + lane] > 0.f);
-    if (lane == 0) smwb[x] = bits;
-  }
-#pragma unroll 2
-  for (int i = warp; i < k_count * kSizeBits; i += warps) {
-    const int k = i / kSizeBits, q = i % kSizeBits;
-    const int vw = lane < n ? static_cast<int>(sv[k * n + lane]) : 0;
-    const uint32_t bits = __ballot_sync(0xffffffffu, (vw >> q) & 1);
-    if (lane == 0) splanes[i] = bits;
-  }
-  return SpecTables{sv, smw, smem, srow, smwb, splanes};
+  derive_window_bits(t, k_count, p_count, a, n, p_only);
+  t.meta = srow;
+  return t;
 }
 
 // One candidate placement of a refinement: its key bases and its place.
@@ -645,15 +779,28 @@ __device__ __forceinline__ void top2_merge(const RowOrder& o, const RowCand& o1,
   c1 = pick(o_first, o1, c1);
 }
 
-// ΔF of an anchor under the "partial" metric, from the window counts
-__device__ __forceinline__ float partial_delta(const float* b, const float* v, const float* mw,
-                                               int n, float fa, float fb) {
+// ΔF of an anchor from a row's window counts b and the anchor's mw, in the
+// plain version's dense arithmetic, for any values: F after sums the sizes
+// of the windows that hold a slice after the placement (b + mw > 0; under
+// "partial" also b + mw < v) and fit the free slices fa.
+template <bool kPartialMetric>
+__device__ __forceinline__ float count_delta(const float* b, const float* v, const float* mw,
+                                             int n, float fa, float fb) {
   float f_after = 0.f;
   for (int i = 0; i < n; ++i) {
     const float ba = b[i] + mw[i];
-    if (ba > 0.f && ba < v[i] && v[i] <= fa) f_after += v[i];
+    if (ba > 0.f && (!kPartialMetric || ba < v[i]) && v[i] <= fa) f_after += v[i];
   }
   return f_after - fb;
+}
+
+// ΔF of an anchor under "blocked" from bit sets: Σ v over (the row's
+// windows holding a slice, pos | the windows the anchor touches, mwb) & the
+// windows of size <= the free slices after it, elig.  It equals
+// count_delta<false> wherever the row's counts and the anchor's are >= 0.
+__device__ __forceinline__ float blocked_delta(uint32_t pos, uint32_t mwb, uint32_t elig,
+                                               const Planes& planes, float fb) {
+  return window_sum((pos | mwb) & elig, planes) - fb;
 }
 
 // What a refinement computes, fixed per launch: no ΔF key, or ΔF under the
@@ -682,9 +829,9 @@ __device__ __forceinline__ void refine_col(const SpecTables& t, const float* b, 
   const int mt = t.meta[kpj];
   const bool feasible = live && (mt & 1) && !((nz >> ((mt >> 1) & 31)) & 1u);
   float delta = 0.f;
-  if (kMode == kBlocked) delta = window_sum((pos | t.mwb[kpj]) & elig, planes) - fb;
+  if (kMode == kBlocked) delta = blocked_delta(pos, t.mwb[kpj], elig, planes, fb);
   if (kMode == kPartial && feasible)
-    delta = partial_delta(b, t.v + k * n, t.mw + kpj * n, n, fa, fb);
+    delta = count_delta<true>(b, t.v + k * n, t.mw + kpj * n, n, fa, fb);
   const Cand c = {delta, fa, static_cast<float>(mt >> 6), gpu, j, true};
   best = pick(feasible && (!best.ok || col_less(cols, c, best)), c, best);
 }
@@ -782,7 +929,7 @@ __device__ __forceinline__ int warp_argmin(const RowOrder& o, const RowCand& c, 
 constexpr int kSelectRun = kSelectThreads;  // GPU rows of a run, a thread each
 
 // words of a select run area: the rows, their free slices, F and models
-inline size_t select_run_words(int run, int n) {
+__host__ __device__ inline size_t select_run_words(int run, int n) {
   return static_cast<size_t>(run) * (n + 3);
 }
 
@@ -858,6 +1005,121 @@ __global__ void __launch_bounds__(kSelectThreads) select_from_base_kernel(
     out_col[r] = win >= 0 ? win % a : 0;
     out_ok[r] = win >= 0 ? 1 : 0;
   }
+}
+
+// ---------------------------------------------------------------------------
+// delta_from_base — replaces kernels/fragscore/fragscore.py::delta_from_base
+// (Pallas, _delta_from_base_kernel/_delta_block; src/repro/kernels/
+// fragscore/fragscore.py:248, call :291) and its per-model-group dispatch
+// sim/batched.py::make_delta_fn of the JAX package.
+//
+// The raw (R, M, A) ΔF table of each replica's request from the window
+// counts, with no feasibility mask.  Bound: bytes.  At R = 500, M = 100
+// (N = 18, A = 7) it reads base (3.6 MB) and the replica state and writes
+// 1.4 MB, 1.61 µs at 3.35 TB/s; its float work is a few MFLOP.  Like
+// select_from_base, whose staging and bit sets it shares, it is bound in
+// practice by one block's chain of dependent steps.  Design:
+//  * a block per run of 128 GPU rows of one replica, a thread per row:
+//    R·⌈M/128⌉ blocks, so a call with R = 1 and a large M still spreads
+//    over the card;
+//  * the run's rows, free slices, F and models come by 16-byte cp.async
+//    (stage_select_run), in flight with V, maskwin and profile_mem
+//    (stage_window_tables); the block derives by ballot the windows each
+//    anchor of its replica's class touches and the size planes of every
+//    model (derive_window_bits);
+//  * under "blocked", ΔF of a column is a popcount sum (blocked_delta,
+//    shared with select_from_base and migrate_refine), exact where the
+//    row's window counts and the anchor's are >= 0;
+//  * "partial", a row with a negative (or NaN) count, and tables outside
+//    the bit form (N > 32, a window size that is not a whole number in
+//    [0, 32], a negative anchor count) take the dense count arithmetic
+//    (count_delta) on the staged row, so that the kernel equals its plain
+//    version on any input whose sums are exact in float32;
+//  * the block's (rows × A) outputs, contiguous in (R, M, A), leave
+//    through shared memory in 16-byte stores (store_tile).
+// Replaced (PR 11's design): a thread per (replica, GPU) row in a flat grid,
+// reading its counts at a 72-byte stride and again, with the model's V and
+// maskwin rows, for every anchor, and writing 7 floats at a 28-byte stride:
+// 20.7 µs at R = 500, M = 100 (PERF.md).  Measured slower (PERF.md): runs
+// of 64 rows; maskwin staged in 16-byte copies (through L2 alone, and
+// through L1, where select_from_base, which shares the staging, lost more
+// than this kernel gained).  With no ΔF work at all a block takes most of
+// the time still: the staging, the barriers and the launch dominate.
+// ---------------------------------------------------------------------------
+
+constexpr int kDeltaRun = kDeltaThreads;  // GPU rows of a block, a thread each
+
+// the window tables, the run area (rows, free slices, F, models) and the
+// output tile
+inline size_t delta_smem_bytes(int run, int k_count, int p_count, int a, int n) {
+  return 4 * (window_tables_words(k_count, p_count, a, n) + select_run_words(run, n) +
+              tile_words(static_cast<size_t>(run) * a));
+}
+
+template <int kMode>  // kBlocked or kPartial
+__global__ void __launch_bounds__(kDeltaThreads) delta_from_base_kernel(
+    const float* __restrict__ base, const int32_t* __restrict__ free,
+    const float* __restrict__ f, const int32_t* __restrict__ pid,
+    const int32_t* __restrict__ midx, const float* __restrict__ V,
+    const float* __restrict__ maskwin, const float* __restrict__ profile_mem,
+    float* __restrict__ out, int m, int n, int a, int p_count, int k_count, int run, int runs) {
+  extern __shared__ __align__(16) uint32_t dsh[];
+  const int r = blockIdx.x / runs, g0 = (blockIdx.x % runs) * run;
+  const int cnt = min(run, m - g0);
+  uint32_t* area = dsh + static_cast<int>(window_tables_words(k_count, p_count, a, n));
+  stage_select_run(area, run, r, g0, cnt, base, free, f, midx, m, n);
+  const int p = pid[r];
+  const SpecTables t = stage_window_tables(dsh, V, maskwin, profile_mem, k_count, p_count, a, n);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  derive_window_bits(t, k_count, p_count, a, n, p);
+  // the bit form: N <= 32 windows of whole sizes in [0, 32], and no
+  // negative count among class p's anchors
+  bool form = n <= kMaxWindows;
+  for (int i = threadIdx.x; i < k_count * n; i += blockDim.x) {
+    const float vi = t.v[i];
+    form &= vi == floorf(vi) && vi >= 0.f && vi <= 32.f;
+  }
+  for (int k = 0; k < k_count; ++k) {
+    const float* mw = t.mw + (k * p_count + p) * a * n;
+    for (int i = threadIdx.x; i < a * n; i += blockDim.x) form &= mw[i] >= 0.f;
+  }
+  form = __syncthreads_and(form);  // and the derived bit sets in place
+  const float* rows = reinterpret_cast<const float*>(area);  // [run][N]
+  const int* rfree = reinterpret_cast<const int*>(rows + run * n);
+  const float* rf = reinterpret_cast<const float*>(rfree + run);
+  const int* rmodel = reinterpret_cast<const int*>(rf + run);
+  float* tile = reinterpret_cast<float*>(area + static_cast<int>(select_run_words(run, n)));
+  float* dst = out + (static_cast<int64_t>(r) * m + g0) * a;
+  const int i = threadIdx.x;
+  if (i < cnt) {
+    const float* b = rows + i * n;
+    const int k = rmodel[i], kp = k * p_count + p;
+    const float fa = static_cast<float>(rfree[i]) - t.mem[kp];
+    const float fb = rf[i];
+    float* o = tile + tile_lead(dst) + i * a;
+    uint32_t pos = 0;  // the windows holding a slice
+    bool bits = kMode == kBlocked && form;
+    if (bits) {
+#pragma unroll 6
+      for (int w = 0; w < n; ++w) {
+        pos |= (b[w] > 0.f ? 1u : 0u) << w;
+        bits &= b[w] >= 0.f;
+      }
+    }
+    if (bits) {
+      const Planes planes = planes_of(t, k);
+      const uint32_t elig = windows_le(planes, fa);
+#pragma unroll 7
+      for (int j = 0; j < a; ++j) o[j] = blocked_delta(pos, t.mwb[kp * a + j], elig, planes, fb);
+    } else {
+      for (int j = 0; j < a; ++j)
+        o[j] = count_delta<kMode == kPartial>(b, t.v + k * n, t.mw + (kp * a + j) * n, n, fa, fb);
+    }
+  }
+  __syncthreads();
+  store_tile(dst, tile, cnt * a);
 }
 
 // ---------------------------------------------------------------------------
@@ -1024,8 +1286,8 @@ __device__ __forceinline__ void score_victim(
     const bool feasible = (mt & 1) && !((nz >> ((mt >> 1) & 31)) & 1u);
     if (!feasible && j != 0) continue;  // column 0 is the all-infeasible fallback
     float delta = 0.f;
-    if (kMode == kPartial) delta = partial_delta(b, t.v + k * n, t.mw + kpj * n, n, fa, fb);
-    if (kMode == kBlocked) delta = window_sum((pos | t.mwb[kpj]) & elig, planes) - fb;
+    if (kMode == kPartial) delta = count_delta<true>(b, t.v + k * n, t.mw + kpj * n, n, fa, fb);
+    if (kMode == kBlocked) delta = blocked_delta(pos, t.mwb[kpj], elig, planes, fb);
     const Cand c = {delta, fa, static_cast<float>(mt >> 6), gpu, j, feasible};
     col0 = pick(j == 0, c, col0);
     best = pick(feasible && (!best.ok || col_less(cols, c, best)), c, best);
@@ -1150,14 +1412,27 @@ int mfi_delta_launch(const void* occ, const void* w, const void* v,
                      int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (m <= 0 || a <= 0 || s > kMaxSlices) return cudaErrorInvalidValue;
-  const int blocks = (m + kMfiThreads - 1) / kMfiThreads;
-  const size_t smem = sizeof(float) * static_cast<size_t>(n * s + n + a * s + a);
-  mfi_delta_kernel<<<blocks, kMfiThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  if (m <= 0 || a <= 0 || n < 0 || s < 0 || s > kMaxSlices) return cudaErrorInvalidValue;
+  const auto kernel = partial ? mfi_delta_kernel<true> : mfi_delta_kernel<false>;
+  const size_t smem = mfi_smem_bytes(n, s, a);
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  int per_sm = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kMfiThreads, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  // as many blocks as the card holds at once, each walking tiles of rows
+  const int64_t tiles = (static_cast<int64_t>(m) + kMfiThreads - 1) / kMfiThreads;
+  const int64_t resident = static_cast<int64_t>(per_sm > 0 ? per_sm : 1) * sms;
+  kernel<<<static_cast<int>(tiles < resident ? tiles : resident), kMfiThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(occ), static_cast<const float*>(w),
       static_cast<const float*>(v), static_cast<const float*>(profile_masks),
-      static_cast<const float*>(profile_valid), static_cast<float*>(out), m, n,
-      s, a, partial);
+      static_cast<const float*>(profile_valid), static_cast<float*>(out), m, n, s, a, tiles);
   return cudaGetLastError();
 }
 
@@ -1165,18 +1440,27 @@ int delta_from_base_launch(const void* base, const void* free, const void* f,
                            const void* pid, const void* midx, const void* V,
                            const void* maskwin, const void* profile_mem,
                            void* out, int r_count, int m, int n, int a,
-                           int p_count, int partial, int device, void* stream) {
+                           int p_count, int k_count, int partial, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const int64_t rows = static_cast<int64_t>(r_count) * m;
-  if (rows <= 0) return cudaErrorInvalidValue;
-  const int blocks = static_cast<int>((rows + kDeltaThreads - 1) / kDeltaThreads);
-  delta_from_base_kernel<<<blocks, kDeltaThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (r_count <= 0 || m <= 0 || n < 0 || a < 0 || p_count <= 0 || k_count <= 0)
+    return cudaErrorInvalidValue;
+  const int run = m < kDeltaRun ? (m + 3) & ~3 : kDeltaRun;  // 16-byte aligned areas
+  const int runs = (m + run - 1) / run;
+  if (static_cast<int64_t>(r_count) * runs > INT_MAX) return cudaErrorInvalidValue;
+  const auto kernel = partial ? delta_from_base_kernel<kPartial> : delta_from_base_kernel<kBlocked>;
+  const size_t smem = delta_smem_bytes(run, k_count, p_count, a, n);
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<r_count * runs, kDeltaThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(base), static_cast<const int32_t*>(free),
       static_cast<const float*>(f), static_cast<const int32_t*>(pid),
       static_cast<const int32_t*>(midx), static_cast<const float*>(V),
       static_cast<const float*>(maskwin), static_cast<const float*>(profile_mem),
-      static_cast<float*>(out), r_count, m, n, a, p_count, partial);
+      static_cast<float*>(out), m, n, a, p_count, k_count, run, runs);
   return cudaGetLastError();
 }
 

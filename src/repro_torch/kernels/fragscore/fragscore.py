@@ -39,7 +39,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.library("fragscore")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.fragscore_launch.argtypes = [p, p, p, p, i, i, i, i, i, p]
-    lib.delta_from_base_launch.argtypes = [p] * 9 + [i] * 7 + [p]
+    lib.delta_from_base_launch.argtypes = [p] * 9 + [i] * 8 + [p]
     lib.select_from_base_launch.argtypes = [p] * 14 + [i] * 10 + [p]
     lib.migrate_refine_launch.argtypes = [p] * 27 + [i] * 11 + [p]
     lib.mfi_delta_launch.argtypes = [p] * 6 + [i] * 6 + [p]
@@ -140,14 +140,14 @@ def delta_from_base(
         return ref.delta_from_base_ref(
             base, free, f, pid, midx, V, maskwin, profile_mem, metric
         )
-    r, m, n, a, _, p = _table_args(base, free, f, midx, V, maskwin, profile_mem)
+    r, m, n, a, k, p = _table_args(base, free, f, midx, V, maskwin, profile_mem)
     check("pid", pid, torch.int32, (r,))
     out = torch.empty((r, m, a), dtype=torch.float32, device=base.device)
     if r and m:
         launch(_lib().delta_from_base_launch, base.data_ptr(), free.data_ptr(),
                f.data_ptr(), pid.data_ptr(), midx.data_ptr(), V.data_ptr(),
                maskwin.data_ptr(), profile_mem.data_ptr(), out.data_ptr(),
-               r, m, n, a, p, partial, device=base.device)
+               r, m, n, a, p, k, partial, device=base.device)
         delta_from_base.launches += 1
     return out
 
