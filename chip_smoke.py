@@ -34,7 +34,11 @@ Phases, each printing its own lines:
    matching the events; then a profiled 256-event window of the mfi, the
    delta-only and the mfi-defrag step, each also run unprofiled, the
    kernel path's event loop under ``torch.cuda.set_sync_debug_mode("error")``
-   (no host sync);
+   (no host sync); then the paper's Fig. 5 through the kernels (ff, rr,
+   bf-bi, wf-bi, mfi over the four Table-II mixes, M = 100, load 0.85,
+   seed 0, R = 500), each point beside its row of
+   ``experiments/fig5_batched_500.csv`` (printed, not asserted) with its
+   replica-events/s, launch counts reset just before each point;
 6. the ``decode_attention`` kernel against its plain torch version
    (float32: max abs error <= 1e-5; bfloat16: |kernel - plain| <= 2e-2 +
    2e-2·|plain| and, scale-aware, <= 2^-7·|plain| + 2^-10·rms(plain row),
@@ -78,9 +82,23 @@ Phases, each printing its own lines:
    decision for decision to ``mfi_allocate`` and at its end to a host
    ``ClusterState`` replay; decisions/s of both lowerings; then
    ``api.simulate(engine="batched")`` against ``run_batched``;
-10. a ``{"kernels": [...]}`` JSON line, then the result line.
+10. the cumulative and queued protocols: the cumulative protocol at the
+    paper's fleet (M = 100, uniform mix, seed 0, R = 500) for mfi, ff and
+    mfi-defrag, the kernel path's trace and aggregates equal to the plain
+    path's, and at R = 8 its decisions equal to the host schedulers'
+    (``sim/replay.py``) and ``run_batched`` to the host engine's
+    ``run_many``; the reference's two pinned queued hashes with the
+    kernels on; the queued protocol at M = 100, load 1.1, R = 500 for mfi
+    and mfi-queued, kernel equal to plain, with its wait percentiles,
+    fairness, wait-admits and ``select_from_base`` launches per event (2),
+    and at R = 4 the card's trace equal to ``queued_host_decisions``;
+    every kernel-path loop under ``set_sync_debug_mode("error")``, launch
+    counts reset just before each run; a profiled 256-event window of the
+    queued mfi loop;
+11. a ``{"kernels": [...]}`` JSON line (each kernel's launches in total
+    and by path), then the result line.
 
-Every equality of phases 3-5, 8 and 9 is exact: all scores are integers
+Every equality of phases 3-5 and 8-10 is exact: all scores are integers
 held in float32.
 """
 
@@ -144,6 +162,27 @@ GOLDEN_AGGREGATES = {
 #: experiments/fig4_batched_500.csv, mfi at load 1.0 (an older engine's run:
 #: printed beside this run's numbers, not asserted)
 RECORDED_FIG4_MFI = "fig4,mfi,1.0,0.9322,891.6,0.8735,98.0,4.67"
+#: the paper's Fig. 5 (benchmarks/fig5_distributions.py): its policies in the
+#: recorded run's order, at load 0.85 over the four Table-II mixes; the
+#: recorded rows (an older engine's run) are printed, not asserted
+FIG5_CSV = "experiments/fig5_batched_500.csv"
+FIG5_POLICIES = ("ff", "rr", "bf-bi", "wf-bi", "mfi")
+FIG5_LOAD = 0.85
+
+#: the reference's pinned queued results (tests/test_engine_core.py), over
+#: its hash's fields in its order
+GOLDEN_QUEUED_TRACE_HASHES = {
+    "homog": "e3d1a83fced05aaa968ff95c2d9e3ed5d71839e2e12d4c6634e0389f80918925",
+    "mixed": "e368416188f84d500dbb7115410d3a24152fa06eac0dce525001032273a9f32f",
+}
+QUEUED_HASH_FIELDS = ("ok", "gpu", "aidx", "parked", "wadm_eidx", "wadm_gpu",
+                      "wadm_aidx", "free_sum", "active", "frag")
+#: phase 10: the queued protocol's load (the reference's queued tests and its
+#: fault sweep's queued anchor run at 1.1-1.2) and the replica counts held
+#: to the host references
+QUEUED_LOAD = 1.1
+HOST_RUNS_CUMULATIVE = 8
+HOST_RUNS_QUEUED = 4
 
 RUNS = 500
 #: phase 3's mixed fleet of four device models
@@ -799,15 +838,17 @@ def paper_stream(device):
     return cfg, spec, events, common
 
 
-def engine_windows(device, events, common, policies, n=256):
+def engine_windows(device, events, common, policies, n=256, label=""):
     """Where the device time goes: the first ``n`` events of each policy's
     step, kernel and plain, profiled, and the same window's wall time
     without the profiler, the kernel path's event loop under
-    ``torch.cuda.set_sync_debug_mode("error")`` (a host sync fails it)."""
+    ``torch.cuda.set_sync_debug_mode("error")`` (a host sync fails it).
+    Returns ``{(name, path): {busy_ms, wall_ms, ops_per_event}}``."""
     import torch
     from repro_torch.sim import batched
 
-    window = batched.EventStream(*[a[:n] for a in events])
+    window = batched.EventStream(*[None if a is None else a[:n] for a in events])
+    out = {}
     for policy, use_kernel in itertools.product(policies, (True, False)):
         name = policy if isinstance(policy, str) else policy.name
 
@@ -829,14 +870,17 @@ def engine_windows(device, events, common, policies, n=256):
         wall_ms = (time.perf_counter() - t0) * 1e3
         busy_ms = sum(t for t, _ in times.values()) / 1e3
         launches = sum(c for _, c in times.values())
+        path = "kernel" if use_kernel else "plain"
+        out[(name, path)] = dict(busy_ms=busy_ms, wall_ms=wall_ms, ops_per_event=launches / n)
         top = sorted(times.items(), key=lambda kv: -kv[1][0])[:4]
-        log(f"engine window {name} {'kernel' if use_kernel else 'plain'} "
-            f"({n} events, R={RUNS}): "
+        log(f"engine window {label}{name} {path} "
+            f"({n} events, R={events.pid.shape[1]}): "
             f"device busy {busy_ms:.2f} ms of {wall_ms:.2f} ms wall "
             f"({100 * busy_ms / wall_ms:.1f}% busy), {launches / n:.1f} device ops/event"
             + ("; no host sync in the loop (set_sync_debug_mode error)" if use_kernel else "")
             + "; top: "
             + "; ".join(f"{k[:48]} {t / c:.1f} us x{c}" for k, (t, c) in top))
+    return out
 
 
 def full_width_phase(device):
@@ -852,7 +896,7 @@ def full_width_phase(device):
     _, spec, events, common = paper_stream(device)
     e_max = events.pid.shape[0]
     delta_only = PolicySpec(**DELTA_ONLY)
-    warm = batched.EventStream(*[a[:64] for a in events])
+    warm = batched.EventStream(*[None if a is None else a[:64] for a in events])
     rates = {}
     for policy in ("mfi", "ff", "bf-bi", "wf-bi", "rr", delta_only, "mfi-defrag"):
         name = policy if isinstance(policy, str) else policy.name
@@ -905,6 +949,316 @@ def full_width_phase(device):
 
     engine_windows(device, events, common, ("mfi", delta_only, "mfi-defrag"))
     return totals, rates
+
+
+def fig5_phase(device, wrappers):
+    """The paper's Fig. 5 through the kernels: its 20 points (five
+    policies, the four Table-II mixes, M = 100 A100-80GB, load 0.85, seed
+    0, R = ``RUNS``), each printed beside its row of the recorded run (not
+    asserted) with its replica-events/s; launch counts reset just before
+    each point and read just after."""
+    import torch
+    from repro_torch.sim import batched
+    from repro_torch.sim.distributions import DISTRIBUTIONS
+    from repro_torch.sim.simulator import SimConfig
+
+    recorded = {tuple(line.split(",")[1:3]): line
+                for line in (ROOT / FIG5_CSV).read_text().splitlines()
+                if line.startswith("fig5,")}
+    totals = dict.fromkeys(wrappers, 0)
+    points = {}
+    for dist in DISTRIBUTIONS:
+        cfg = SimConfig(num_gpus=100, distribution=dist, offered_load=FIG5_LOAD, seed=0)
+        spec = cfg.spec()
+        events, _, ring_rows, ring_cols = batched.presample_arrivals(cfg, RUNS)
+        e_max = events.pid.shape[0]
+        common = dict(metric=cfg.metric, num_gpus=cfg.num_gpus, ring_rows=ring_rows,
+                      ring_cols=ring_cols, kernel_spec=spec,
+                      midx=torch.as_tensor(spec.model_index, device=device),
+                      tables=batched.spec_tables(spec, device), device=device)
+        for policy in FIG5_POLICIES:
+            for fn in wrappers.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            _, trace = batched._simulate(events, policy=policy, use_kernel=True, **common)
+            trace = batched.trace_to_numpy(trace)
+            seconds = time.perf_counter() - t0
+            counts = {k: fn.launches for k, fn in wrappers.items()}
+            want = dict.fromkeys(wrappers, 0)
+            want["fragscore"] = 2 * e_max
+            want["select_from_base"] = 0 if policy == "rr" else e_max
+            check(counts == want, f"fig5 {policy} {dist}: launch counts {counts} != {want}")
+            for k in totals:
+                totals[k] += counts[k]
+            agg = batched.aggregate(events, trace, spec, RUNS)
+            row = (f"fig5,{policy},{dist},{agg['acceptance_rate']:.4f},"
+                   f"{agg['allocated_workloads']:.1f},{agg['utilization']:.4f},"
+                   f"{agg['active_gpus']:.1f},{agg['frag_severity']:.2f}")
+            rec = recorded.get((policy, dist))
+            rate = RUNS * e_max / seconds
+            points[f"{policy}/{dist}"] = dict(row=row, recorded=rec, same=row == rec,
+                                              replica_events_per_s=rate, e_max=e_max)
+            log(f"fig5 {policy} {dist}: this run {row}; recorded {rec}; "
+                f"{'same' if row == rec else 'differs'}; replica-events/s {rate:.0f} "
+                f"(E_max {e_max}, {seconds:.2f} s, kernels)")
+    check(len(points) == 20, f"fig5: {len(points)} points")
+    same = sum(p["same"] for p in points.values())
+    log(f"fig5: {same} of {len(points)} points print the recorded row "
+        f"({FIG5_CSV}); launches {totals}")
+    return points, totals
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the cumulative and queued protocols
+# ---------------------------------------------------------------------------
+
+
+def loop_run(name, events, policy, use_kernel, common, wrappers):
+    """One engine run over ``events``, launch counts reset just before and
+    read just after; the kernel path's event loop runs under
+    ``torch.cuda.set_sync_debug_mode("error")``.  Returns ``(trace,
+    seconds, counts)``, the trace fetched to the host."""
+    import torch
+    from repro_torch.sim import batched
+
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    loop = batched._setup_run(events, policy=policy, use_kernel=use_kernel, **common)
+    if use_kernel:
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        batched._event_loop(*loop)
+    except RuntimeError as e:
+        check(False, f"{name}: a host sync inside the event loop: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    trace = batched.trace_to_numpy(loop[3])
+    return trace, time.perf_counter() - t0, {k: fn.launches for k, fn in wrappers.items()}
+
+
+def paths_equal(name, events, policy, common, wrappers, want):
+    """The kernel path (warm, no host sync in its loop) and the plain path
+    over the same events: every trace field equal, the kernel path's
+    launch counts ``want`` and the plain path's none.  Returns ``(kernel
+    trace, plain trace, (kernel, plain) replica-events/s, counts)``."""
+    import numpy as np
+    import torch
+    from repro_torch.sim import batched
+
+    warm = batched.EventStream(*[None if a is None else a[:32] for a in events])
+    for use_kernel in (True, False):
+        batched._simulate(warm, policy=policy, use_kernel=use_kernel, **common)
+    torch.cuda.synchronize()
+    tk, sk, ck = loop_run(name, events, policy, True, common, wrappers)
+    tp, sp, cp = loop_run(name, events, policy, False, common, wrappers)
+    for field in batched.EventTrace._fields:
+        a, b = getattr(tk, field), getattr(tp, field)
+        check((a is None) == (b is None) and (a is None or np.array_equal(a, b)),
+              f"{name}: kernel and plain traces differ in {field}")
+    check(sum(cp.values()) == 0, f"{name}: the plain path launched kernels {cp}")
+    check(ck == want, f"{name}: launch counts {ck} != expected {want}")
+    e_max, runs = events.pid.shape
+    return tk, tp, (runs * e_max / sk, runs * e_max / sp), ck
+
+
+def dicts_equal(a, b) -> bool:
+    import numpy as np
+
+    return a.keys() == b.keys() and all(
+        dicts_equal(a[k], b[k]) if isinstance(a[k], dict) else np.array_equal(a[k], b[k])
+        for k in a)
+
+
+def host_anchors(spec, pid, gpu, aidx):
+    """Anchor values of a trace's accepted decisions (``-1`` elsewhere)."""
+    import numpy as np
+
+    out = np.full(pid.shape, -1, np.int32)
+    for e, r in zip(*np.nonzero(gpu >= 0)):
+        out[e, r] = spec.model_of(int(gpu[e, r])).profiles[int(pid[e, r])].anchors[
+            int(aidx[e, r])]
+    return out
+
+
+def cumulative_phase(device, wrappers, totals):
+    """The cumulative protocol at the paper's fleet (M = 100 A100-80GB,
+    uniform mix, seed 0, R = ``RUNS``) for mfi, ff and mfi-defrag: kernel
+    path equal to the plain path (trace and aggregates), and at R =
+    ``HOST_RUNS_CUMULATIVE`` the card's decisions equal to the host
+    schedulers' and its aggregates to the host engine's ``run_many``."""
+    import numpy as np
+    import torch
+    from repro_torch.sim import batched, replay
+    from repro_torch.sim.simulator import SimConfig, run_many
+
+    cfg = SimConfig(num_gpus=100, seed=0, protocol="cumulative")
+    spec = cfg.spec()
+    out = {}
+
+    def common_of(rows, cols):
+        return dict(metric=cfg.metric, num_gpus=cfg.num_gpus, ring_rows=rows,
+                    ring_cols=cols, kernel_spec=spec, protocol="cumulative",
+                    midx=torch.as_tensor(spec.model_index, device=device),
+                    tables=batched.spec_tables(spec, device), device=device)
+
+    events, _, rows, cols = batched.presample_cumulative(cfg, RUNS)
+    common = common_of(rows, cols)
+    small, small_meta, s_rows, s_cols = batched.presample_cumulative(cfg, HOST_RUNS_CUMULATIVE)
+    e_max = events.pid.shape[0]
+    for policy in ("mfi", "ff", "mfi-defrag"):
+        defrag = policy == "mfi-defrag"
+        want = dict.fromkeys(wrappers, 0)
+        want.update(fragscore=(3 if defrag else 2) * e_max, select_from_base=e_max,
+                    migrate_refine=e_max if defrag else 0)
+        name = f"cumulative {policy}"
+        tk, tp, rates, ck = paths_equal(name, events, policy, common, wrappers, want)
+        for k in totals:
+            totals[k] += ck[k]
+        agg = batched._aggregate_cumulative(events, tk, spec, RUNS, cfg)
+        check(dicts_equal(agg, batched._aggregate_cumulative(events, tp, spec, RUNS, cfg)),
+              f"{name}: kernel and plain aggregates differ")
+
+        # R = 8: the card's decisions against the host schedulers, its
+        # aggregates against the host engine
+        _, t8 = batched._simulate(small, policy=policy, use_kernel=True,
+                                  **common_of(s_rows, s_cols))
+        t8 = batched.trace_to_numpy(t8)
+        host = replay.host_decisions_full(
+            small, small_meta, policy, cfg.num_gpus, metric=cfg.metric,
+            **(dict(max_candidates=None) if defrag else {}))
+        ok = t8.ok
+        gpu = np.where(ok, t8.gpu, -1)
+        check(np.array_equal(ok, host.ok) and np.array_equal(gpu, host.gpu)
+              and np.array_equal(host_anchors(spec, small.pid, gpu, t8.aidx), host.anchor),
+              f"{name}: card decisions differ from the host scheduler's")
+        if defrag:
+            check(all(np.array_equal(getattr(t8, f), getattr(host, f))
+                      for f in ("mig", "mig_from_gpu", "mig_from_anchor", "mig_to_gpu",
+                                "mig_to_anchor")),
+                  f"{name}: card migrations differ from the host scheduler's")
+        card = batched.run_batched(policy, cfg, runs=HOST_RUNS_CUMULATIVE, device=device)
+        ref = run_many(policy, cfg, runs=HOST_RUNS_CUMULATIVE)
+        exact = ("acceptance_rate", "allocated_workloads", "active_gpus",
+                 "rejects_by_profile", "arrivals_by_profile", "demand_grid")
+        check(all(np.array_equal(card[k], ref[k]) for k in exact)
+              and all(np.array_equal(card["traces"][k], ref["traces"][k])
+                      for k in exact[:3]),
+              f"{name}: run_batched at R = {HOST_RUNS_CUMULATIVE} differs from run_many")
+        # utilization and frag are float32 sums on the card, float64 on the host
+        drift = {k: float(np.max(np.abs(np.asarray(card["traces"][k]) - ref["traces"][k])))
+                 for k in ("utilization", "frag_severity")}
+        out[policy] = dict(replica_events_per_s=dict(kernel=rates[0], plain=rates[1]),
+                           launches=ck, e_max=e_max, acceptance=agg["acceptance_rate"],
+                           migrations=int(tk.mig.sum()) if defrag else None,
+                           host_float_drift=drift)
+        log(f"{name} (M=100, R={RUNS}, E={e_max}): traces and aggregates equal (kernel vs "
+            f"plain); launches {ck}; acceptance {agg['acceptance_rate']:.4f} utilization "
+            f"{agg['utilization']:.4f} frag {agg['frag_severity']:.3f}"
+            + (f", {int(tk.mig.sum())} migrations" if defrag else "")
+            + f"; replica-events/s kernel {rates[0]:.0f} plain {rates[1]:.0f}; at R = "
+            f"{HOST_RUNS_CUMULATIVE} decisions equal the host scheduler's and run_batched "
+            f"equals run_many (utilization/frag traces within {drift['utilization']:.3g}/"
+            f"{drift['frag_severity']:.3g}: float32 on the card, float64 on the host)")
+    return out
+
+
+def queued_phase(device, wrappers, totals):
+    """The queued protocol: the reference's pinned queued hashes through
+    the kernels; at M = 100, load ``QUEUED_LOAD``, R = ``RUNS`` for mfi
+    and mfi-queued the kernel path equal to the plain path, with its rates,
+    queue metrics and ``select_from_base`` launches per event (2: the
+    arrival and the wait head); at R = ``HOST_RUNS_QUEUED`` the card's
+    trace equal to ``replay.queued_host_decisions``; a profiled window."""
+    import numpy as np
+    import torch
+    from repro_torch.core import mig
+    from repro_torch.sim import batched, replay
+    from repro_torch.sim.simulator import SimConfig
+
+    def common_of(cfg, rows, cols):
+        spec = cfg.spec()
+        return dict(metric=cfg.metric, num_gpus=cfg.num_gpus, ring_rows=rows,
+                    ring_cols=cols, kernel_spec=spec, protocol="steady-queued",
+                    wait_slots=cfg.wait_capacity, wait_patience=cfg.wait_patience,
+                    midx=torch.as_tensor(spec.model_index, device=device),
+                    tables=batched.spec_tables(spec, device), device=device)
+
+    mixed = mig.ClusterSpec(((mig.A100_80GB, 3), (mig.A100_40GB, 3)))
+    for tag, policy, cfg in (
+            ("homog", "mfi", SimConfig(num_gpus=5, offered_load=1.2, seed=7)),
+            ("mixed", "mfi-queued", SimConfig(cluster_spec=mixed, offered_load=1.1, seed=9))):
+        events, _, rows, cols = batched.presample_arrivals(cfg, 3, queued=True)
+        _, trace = batched._simulate(events, policy=policy, use_kernel=True,
+                                     **common_of(cfg, rows, cols))
+        trace = batched.trace_to_numpy(trace)
+        got = trace_hash(tuple(getattr(trace, f) for f in QUEUED_HASH_FIELDS))
+        check(got == GOLDEN_QUEUED_TRACE_HASHES[tag], f"golden queued hash {tag}: {got}")
+    log("queued: the 2 golden queued trace hashes reproduced with the kernels on")
+
+    cfg = SimConfig(num_gpus=100, offered_load=QUEUED_LOAD, seed=0, protocol="steady-queued")
+    spec = cfg.spec()
+    events, _, rows, cols = batched.presample_arrivals(cfg, RUNS, queued=True)
+    common = common_of(cfg, rows, cols)
+    small, small_meta, s_rows, s_cols = batched.presample_arrivals(
+        cfg, HOST_RUNS_QUEUED, queued=True)
+    e_max = events.pid.shape[0]
+    out = {}
+    for policy in ("mfi", "mfi-queued"):
+        want = dict.fromkeys(wrappers, 0)
+        want.update(fragscore=3 * e_max, select_from_base=2 * e_max)
+        name = f"queued {policy}"
+        tk, tp, rates, ck = paths_equal(name, events, policy, common, wrappers, want)
+        for k in totals:
+            totals[k] += ck[k]
+        agg = batched._aggregate_queued(events, tk, spec, RUNS)
+        check(dicts_equal(agg, batched._aggregate_queued(events, tp, spec, RUNS)),
+              f"{name}: kernel and plain aggregates differ")
+
+        _, t4 = batched._simulate(small, policy=policy, use_kernel=True,
+                                  **common_of(cfg, s_rows, s_cols))
+        t4 = batched.trace_to_numpy(t4)
+        host = replay.queued_host_decisions(
+            small, small_meta, policy, cfg.num_gpus, metric=cfg.metric,
+            capacity=cfg.wait_capacity, patience=cfg.wait_patience)
+        ok = t4.ok
+        adm = host.wadm_eidx >= 0
+        pid_w = np.where(adm, small.pid[np.maximum(host.wadm_eidx, 0),
+                                        np.arange(ok.shape[1])[None, :]], 0)
+        check(np.array_equal(ok, host.ok) and np.array_equal(t4.parked, host.parked)
+              and np.array_equal(np.where(ok, t4.gpu, -1), host.gpu)
+              and np.array_equal(t4.wadm_eidx, host.wadm_eidx)
+              and np.array_equal(t4.wadm_gpu, host.wadm_gpu)
+              and np.array_equal(host_anchors(spec, pid_w, t4.wadm_gpu, t4.wadm_aidx),
+                                 host.wadm_anchor),
+              f"{name}: card trace differs from queued_host_decisions at R = "
+              f"{HOST_RUNS_QUEUED}")
+        keys = ("acceptance_rate", "wait_p50", "wait_p99", "fairness", "queue_admits")
+        out[policy] = dict(replica_events_per_s=dict(kernel=rates[0], plain=rates[1]),
+                           launches=ck, e_max=e_max,
+                           select_per_event=ck["select_from_base"] / e_max,
+                           **{k: agg[k] for k in keys})
+        log(f"{name} (M=100, load {QUEUED_LOAD}, R={RUNS}, E_max={e_max}): traces and "
+            f"aggregates equal (kernel vs plain); launches {ck} "
+            f"(select_from_base {ck['select_from_base'] / e_max:.2f} per event); "
+            + " ".join(f"{k} {agg[k]:.4f}" for k in keys)
+            + f"; {int(tk.parked.sum())} parks, {int((tk.wadm_eidx >= 0).sum())} wait-admits"
+            f"; replica-events/s kernel {rates[0]:.0f} plain {rates[1]:.0f}; at R = "
+            f"{HOST_RUNS_QUEUED} the card's trace equals queued_host_decisions "
+            f"({int(adm.sum())} wait-admits)")
+    window = engine_windows(device, events, common, ("mfi",), label="queued ")
+    out["window"] = {f"{k[0]} {k[1]}": v for k, v in window.items()}
+    return out
+
+
+def protocols_phase(device, wrappers):
+    totals = dict.fromkeys(wrappers, 0)
+    out = dict(cumulative=cumulative_phase(device, wrappers, totals),
+               queued=queued_phase(device, wrappers, totals))
+    for k in ("fragscore", "select_from_base", "migrate_refine"):
+        check(totals[k] > 0, f"{k} never launched on the protocols' paths")
+    out["launches"] = totals
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1672,18 +2026,27 @@ def main() -> int:
             if "registers" in line or "Compiling entry" in line or "spill" in line:
                 log(f"  ptxas: {line.strip()}")
 
-    rows = kernel_phase(device)
-    golden_phase(device)
-    totals, rates = full_width_phase(device)
-    rows["decode_attention"] = decode_attention_phase(device)
     wrappers = {"fragscore": K.fragscore, "delta_from_base": K.delta_from_base,
                 "select_from_base": K.select_from_base, "migrate_refine": K.migrate_refine,
                 "decode_attention": D.decode_attention, "mfi_delta": K.mfi_delta}
+    rows = kernel_phase(device)
+    golden_phase(device)
+    steady, rates = full_width_phase(device)
+    fig5, fig5_launches = fig5_phase(device, wrappers)
+    rows["decode_attention"] = decode_attention_phase(device)
     serving = serving_phase(device, wrappers)
-    totals["decode_attention"] = serving["launches"]
     rows["mfi_delta"] = mfi_delta_phase(device)
     decisions = decision_phase(device, wrappers)
-    totals["mfi_delta"] = decisions["launches"]
+    protocols = protocols_phase(device, wrappers)
+    # each path's launches, counted from zero just before it ran
+    by_path = {name: dict.fromkeys(wrappers, 0) for name in (
+        "steady", "fig5", "serving", "decisions", "protocols")}
+    by_path["steady"].update(steady)
+    by_path["fig5"].update(fig5_launches)
+    by_path["serving"]["decode_attention"] = serving["launches"]
+    by_path["decisions"]["mfi_delta"] = decisions["launches"]
+    by_path["protocols"].update(protocols["launches"])
+    totals = {k: sum(p[k] for p in by_path.values()) for k in wrappers}
 
     kernels = []
     for name, row in rows.items():
@@ -1692,7 +2055,9 @@ def main() -> int:
                  if k in row}
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
-            launches=totals[name], max_abs_err=row["max_abs_err"], ms=row["ms"],
+            launches=totals[name],
+            launches_by_path={p: c[name] for p, c in by_path.items() if c[name]},
+            max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row.get("library_ms"), call_ms=row["call_ms"],
             plain_call_ms=row["plain_call_ms"], ms_source=row["ms_source"],
@@ -1701,6 +2066,8 @@ def main() -> int:
         k: {"kernel": v[0], "plain": v[1]} for k, v in rates.items()}}))
     log(json.dumps({"serving": serving}))
     log(json.dumps({"decisions": decisions}))
+    log(json.dumps({"fig5": fig5}))
+    log(json.dumps({"protocols": protocols}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -73,8 +73,10 @@ def simulate(
         ``cluster_spec``, ...) when omitted.
       engine: ``"python"`` (the host reference loop,
         :func:`repro_torch.sim.run_many`, every protocol) or ``"batched"``
-        (:func:`repro_torch.sim.batched.run_batched`, the ``steady``
-        protocol; the others raise ``NotImplementedError`` there).
+        (:func:`repro_torch.sim.batched.run_batched`: the ``steady``,
+        ``cumulative`` and ``steady-queued`` protocols, taken from
+        ``cfg.protocol``; ``steady-faulted`` raises
+        ``NotImplementedError`` there, ROADMAP.md §1 item 9).
       runs: replicas to average (the paper uses 500).
       use_kernel: batched engine only — route the stages through the CUDA
         kernels (default: on a CUDA device, unless the spec opts out).

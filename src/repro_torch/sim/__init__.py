@@ -7,7 +7,9 @@ Two engines simulate the same load model:
   ``steady-queued`` | ``steady-faulted``);
 * :mod:`repro_torch.sim.batched` — the batched engine on the device: R
   replicas stepped together through a presampled event stream, the
-  ``steady`` protocol.
+  ``steady``, ``cumulative`` and ``steady-queued`` protocols
+  (:mod:`repro_torch.sim.replay` replays its traces on the host and
+  drives the host schedulers over the same streams).
 
 Both run every registered policy (``mfi-defrag``'s migration search
 included) and accept a heterogeneous ``SimConfig.cluster_spec``

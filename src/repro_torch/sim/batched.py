@@ -1,36 +1,49 @@
-"""Batched Monte-Carlo simulation engine in PyTorch (steady protocol).
+"""Batched Monte-Carlo simulation engine in PyTorch.
 
 R replicas step together through a host-presampled event stream: per event
-the staged :class:`EngineCore` runs *measure* (slot-boundary metrics),
-*expire* (drain this slot's expiry-ring row), *select* (the policy's
-decision), *migrate* (defrag specs: the single-migration search on
-reject) and *commit* over all replicas at once.  The replica axis is an
-explicit leading ``R`` dimension of every state tensor, and the event scan
-is a Python loop over events on state tensors that stay on the device:
-nothing leaves the device until the trace is fetched once at the end.
-State is updated in place: the reference's ``x.at[i].add`` with repeated
-indices becomes ``index_add_`` on a flattened ``(R·M, ·)`` view, which
-sums repeated indices exactly because every quantity is an integer held
-in float32/int32.
+the staged :class:`EngineCore` runs *measure* (slot-boundary metrics;
+steady protocols), *expire* (drain this slot's expiry-ring row), *wait*
+(queued protocol: prune the wait ring and try to admit its head),
+*select* (the policy's decision), *migrate* (defrag specs: the
+single-migration search on reject), *commit*, *park* (queued: a rejected
+arrival enters the wait ring) and *post-measure* (cumulative protocol)
+over all replicas at once.  The replica axis is an explicit leading ``R``
+dimension of every state tensor, and the event scan is a Python loop over
+events on state tensors that stay on the device: nothing leaves the
+device until the trace is fetched once at the end.  State is updated in
+place: the reference's ``x.at[i].add`` with repeated indices becomes
+``index_add_`` on a flattened ``(R·M, ·)`` view, which sums repeated
+indices exactly because every quantity is an integer held in
+float32/int32.
+
+Three protocols run here: ``steady`` (the paper's experiment),
+``cumulative`` (one arrival per slot until the demand grid is crossed)
+and ``steady-queued`` (the steady stream with a bounded, tenant-aware wait
+ring); ``steady-faulted`` is not ported yet.
 
 Policies are the registry's :class:`~repro_torch.core.policy.PolicySpec`\\ s,
 lowered to a masked-refinement lexicographic argmin over the
 ``(R, M, A)`` candidate tensor (:func:`_lower_select`).  Under
 ``use_kernel`` the stages go through the hand-written CUDA kernels:
-``select_from_base`` for argmin-fusable specs (mfi, ff, bf-bi, wf-bi),
-``delta_from_base`` for ΔF specs that keep the plain argmin
-(``kernel_lowering="delta"``), ``migrate_refine`` for the migrate search
-of fusable defrag specs (mfi-defrag), and ``fragscore`` for the
-drain/commit rescore on homogeneous fleets (which then tracks occupancy).
-rr carries the unfusable ``rr-distance`` key, so its argmin stays plain
-torch.
+``select_from_base`` for argmin-fusable specs (mfi, ff, bf-bi, wf-bi; the
+queued protocol's wait head too), ``delta_from_base`` for ΔF specs that
+keep the plain argmin (``kernel_lowering="delta"``), ``migrate_refine``
+for the migrate search of fusable defrag specs (mfi-defrag), and
+``fragscore`` for the drain/commit rescore on homogeneous fleets (which
+then tracks occupancy).  rr carries the unfusable ``rr-distance`` key, so
+its argmin stays plain torch.
 
 Every decision, metric and trace field matches the JAX reference package
-bit for bit: the trace dtypes (bool/int32/int32/int32/int32/float32, then
-bool and four int32 ``mig*`` fields for defrag specs, laid out
-``(E_max, R)``) reproduce its golden SHA-256 hashes, and
-:func:`state_from_numpy` / :func:`state_to_numpy` carry a replica state
-between the two packages.
+bit for bit: the trace fields keep the reference's dtypes and order
+(``_TRACE_DTYPES``: bool ``ok``, int32 ``gpu``/``aidx``; the steady
+protocols' int32 ``free_sum``/``active`` and float32 ``frag``; the
+cumulative protocol's int32 ``post_free``/``post_active`` and float32
+``post_frag``; defrag specs' bool ``mig`` and four int32 ``mig*``; the
+queued protocol's bool ``parked`` and int32 ``wadm_eidx``/``wadm_gpu``/
+``wadm_aidx``; each laid out ``(E_max, R)``, ``None`` where the protocol
+or spec produces no such field), so they reproduce its golden SHA-256
+hashes, and :func:`state_from_numpy` / :func:`state_to_numpy` carry a
+replica state, wait ring included, between the two packages.
 
 Entry points take ``device=None``, meaning ``"cuda"``; with no card they
 raise.  Pass ``device="cpu"`` to run the plain torch versions on the CPU.
@@ -53,6 +66,7 @@ from repro_torch.core.policy import (
     PolicySpec,
     key_base,
     list_policies,
+    queue_order,
     resolve,
 )
 from repro_torch.device import resolve_device
@@ -62,6 +76,7 @@ from repro_torch.sim import distributions
 from repro_torch.sim.simulator import (
     SAMPLE_EVERY,
     SimConfig,
+    jain_fairness,
     request_probs,
     steady_params,
 )
@@ -80,10 +95,10 @@ class Protocol:
     """Static load-protocol descriptor (the reference's fields).
 
     ``boundary_metrics`` samples utilization / active-GPU / fragmentation
-    at slot boundaries before the drain (the steady protocol);
+    at slot boundaries before the drain (the steady protocols);
     ``post_metrics`` samples after every commit (cumulative); ``queued``
-    and ``faulted`` add the wait ring and the fault stage.  Only the
-    steady protocol is ported so far.
+    adds the wait ring and ``faulted`` the fault stage.  Every protocol but
+    the faulted one is ported.
     """
 
     name: str
@@ -107,17 +122,14 @@ PROTOCOLS: Dict[str, Protocol] = {
     ),
 }
 
-#: where each protocol that is not ported yet stands in ROADMAP.md
-_NOT_PORTED = {
-    "cumulative": "ROADMAP.md §1 item 7, cumulative protocol",
-    "steady-queued": "ROADMAP.md §1 item 8, queued protocol",
-    "steady-faulted": "ROADMAP.md §1 item 9, faulted protocol",
-}
+#: where the faulted protocol, not ported yet, stands in ROADMAP.md
+_NOT_PORTED = "ROADMAP.md §1 item 9, faulted protocol"
 
 
 def resolve_protocol(protocol: Union[str, Protocol]) -> Protocol:
     """Name-or-descriptor -> :class:`Protocol`; unknown names raise
-    ``ValueError``, protocols not ported yet ``NotImplementedError``."""
+    ``ValueError``, the faulted protocol (not ported yet)
+    ``NotImplementedError``."""
     if isinstance(protocol, Protocol):
         proto = protocol
     elif protocol in PROTOCOLS:
@@ -126,10 +138,9 @@ def resolve_protocol(protocol: Union[str, Protocol]) -> Protocol:
         raise ValueError(
             f"unknown protocol {protocol!r}; options: {tuple(sorted(PROTOCOLS))}"
         )
-    if proto != PROTOCOLS["steady"]:
+    if proto.faulted:
         raise NotImplementedError(
-            f"protocol {proto.name!r} is not ported to repro_torch yet "
-            f"({_NOT_PORTED.get(proto.name, 'only the steady protocol is')})"
+            f"protocol {proto.name!r} is not ported to repro_torch yet ({_NOT_PORTED})"
         )
     return proto
 
@@ -952,6 +963,20 @@ class ReplicaState(NamedTuple):
     ring_mask: torch.Tensor  # (R, K+2, E, S) int32
     ring_pid: Optional[torch.Tensor] = None   # (R, K+2, E) int32 — defrag specs only
     ring_aidx: Optional[torch.Tensor] = None  # (R, K+2, E) int32 — defrag specs only
+    # wait ring (queued protocol only, else None): parked rejected arrivals,
+    # -1 pid marks a free slot.  Each entry keeps its original expiry-ring
+    # coordinates and absolute end slot; a wait-admit commits with them
+    # unchanged (admission is legal only while end > t, so the row is still
+    # less than one ring revolution ahead and the column collision-free).
+    wait_pid: Optional[torch.Tensor] = None   # (R, Q) int32 — demand class, -1 = free
+    wait_arr: Optional[torch.Tensor] = None   # (R, Q) int32 — arrival slot
+    wait_end: Optional[torch.Tensor] = None   # (R, Q) int32 — absolute lease deadline
+    wait_row: Optional[torch.Tensor] = None   # (R, Q) int32 — original expiry-ring row
+    wait_col: Optional[torch.Tensor] = None   # (R, Q) int32 — original expiry-ring column
+    wait_prio: Optional[torch.Tensor] = None  # (R, Q) int32 — priority class
+    wait_ten: Optional[torch.Tensor] = None   # (R, Q) int32 — tenant id
+    wait_eidx: Optional[torch.Tensor] = None  # (R, Q) int32 — original event index
+    ev: Optional[torch.Tensor] = None         # (R,) int32 — running event index
 
 
 class EventStream(NamedTuple):
@@ -964,6 +989,12 @@ class EventStream(NamedTuple):
     new_slot: np.ndarray   # first event of its slot (drain + maybe sample)
     sample: np.ndarray     # sample metrics of the just-finished slot
     measuring: np.ndarray  # arrival inside the measurement window
+    # queued protocol only (None otherwise; shipped to the device):
+    slot: Optional[np.ndarray] = None    # int32 — event slot (the wait stage's clock)
+    end: Optional[np.ndarray] = None     # int32 — absolute end slot of the arrival
+    prio: Optional[np.ndarray] = None    # int32 — priority class of the arrival
+    tenant: Optional[np.ndarray] = None  # int32 — tenant id of the arrival
+    wlive: Optional[np.ndarray] = None   # bool — real event (not padding/sentinel)
 
 
 class EventMeta(NamedTuple):
@@ -975,38 +1006,65 @@ class EventMeta(NamedTuple):
 
 class EventTrace(NamedTuple):
     """Per-event outputs, each ``(E_max, R)`` (torch on the device while
-    the engine runs, numpy after :func:`trace_to_numpy`).  The ``mig*``
-    fields exist for defrag specs only and are ``None`` otherwise, as in
-    the reference."""
+    the engine runs, numpy after :func:`trace_to_numpy`).  Fields past
+    ``aidx`` exist where the protocol or spec produces them and are
+    ``None`` otherwise, as in the reference: the slot-boundary metrics
+    for the steady protocols, the ``post_*`` metrics for the cumulative
+    one, the ``mig*`` fields for defrag specs, and ``parked`` / ``wadm_*``
+    for the queued protocol."""
 
     ok: object        # bool — arrival accepted
     gpu: object       # int32 — chosen GPU (0 when not accepted)
     aidx: object      # int32 — chosen anchor index (unmasked)
-    free_sum: object  # int32 — Σ free slices at slot boundary (pre-drain)
-    active: object    # int32 — active-GPU count at slot boundary (pre-drain)
-    frag: object      # float32 — cluster-mean F at slot boundary (pre-drain)
+    free_sum: object = None  # int32 — Σ free slices at slot boundary (pre-drain)
+    active: object = None    # int32 — active-GPU count at slot boundary (pre-drain)
+    frag: object = None      # float32 — cluster-mean F at slot boundary (pre-drain)
+    post_free: object = None    # int32 — Σ free slices after the commit
+    post_active: object = None  # int32 — active-GPU count after the commit
+    post_frag: object = None    # float32 — cluster-mean F after the commit
     mig: object = None              # bool — a migration was committed
     mig_from_gpu: object = None     # int32 — victim's old GPU (-1 when no mig)
     mig_from_anchor: object = None  # int32 — victim's old anchor value
     mig_to_gpu: object = None       # int32 — victim's new GPU
     mig_to_anchor: object = None    # int32 — victim's new anchor value
+    parked: object = None     # bool — the rejected arrival entered the wait ring
+    wadm_eidx: object = None  # int32 — original event index of the wait-admit (-1 none)
+    wadm_gpu: object = None   # int32 — the wait-admit's GPU (-1 none)
+    wadm_aidx: object = None  # int32 — the wait-admit's anchor index (-1 none)
 
 
 _TRACE_DTYPES = dict(
     ok=torch.bool, gpu=torch.int32, aidx=torch.int32, free_sum=torch.int32,
-    active=torch.int32, frag=torch.float32, mig=torch.bool, mig_from_gpu=torch.int32,
-    mig_from_anchor=torch.int32, mig_to_gpu=torch.int32, mig_to_anchor=torch.int32,
+    active=torch.int32, frag=torch.float32, post_free=torch.int32,
+    post_active=torch.int32, post_frag=torch.float32, mig=torch.bool,
+    mig_from_gpu=torch.int32, mig_from_anchor=torch.int32, mig_to_gpu=torch.int32,
+    mig_to_anchor=torch.int32, parked=torch.bool, wadm_eidx=torch.int32,
+    wadm_gpu=torch.int32, wadm_aidx=torch.int32,
 )
+
+
+def _trace_fields(proto: Protocol, pspec: PolicySpec) -> Tuple[str, ...]:
+    """The trace fields a protocol and spec produce, in field order."""
+    names = ["ok", "gpu", "aidx"]
+    if proto.boundary_metrics:
+        names += ["free_sum", "active", "frag"]
+    if proto.post_metrics:
+        names += ["post_free", "post_active", "post_frag"]
+    if pspec.defrag:
+        names += ["mig", "mig_from_gpu", "mig_from_anchor", "mig_to_gpu", "mig_to_anchor"]
+    if proto.queued:
+        names += ["parked", "wadm_eidx", "wadm_gpu", "wadm_aidx"]
+    return tuple(names)
 
 
 def _init_state(tables: SpecTables, midx: torch.Tensor, runs: int,
                 ring_rows: int, ring_cols: int, track_occ: bool,
-                track_alloc: bool) -> ReplicaState:
+                track_alloc: bool, wait_slots: int = 0) -> ReplicaState:
     dev = tables.W.device
     num_gpus = midx.shape[0]
     n, s = tables.W.shape[1], tables.W.shape[2]
     i32 = dict(dtype=torch.int32, device=dev)
-    return ReplicaState(
+    st = ReplicaState(
         occ=torch.zeros((runs, num_gpus, s), **i32) if track_occ else None,
         base=torch.zeros((runs, num_gpus, n), dtype=torch.float32, device=dev),
         free=tables.slices[midx].to(torch.int32).expand(runs, num_gpus).clone(),
@@ -1017,12 +1075,18 @@ def _init_state(tables: SpecTables, midx: torch.Tensor, runs: int,
         ring_pid=torch.zeros((runs, ring_rows, ring_cols), **i32) if track_alloc else None,
         ring_aidx=torch.zeros((runs, ring_rows, ring_cols), **i32) if track_alloc else None,
     )
+    if not wait_slots:
+        return st
+    wait = {name: torch.zeros((runs, wait_slots), **i32)
+            for name in ReplicaState._fields if name.startswith("wait_")}
+    wait["wait_pid"].fill_(-1)
+    return st._replace(ev=torch.zeros((runs,), **i32), **wait)
 
 
 def _occ_from_ring(st: ReplicaState, num_gpus: int) -> torch.Tensor:
-    """Occupancy rebuilt from the expiry ring: in the steady protocol every
-    running workload is one live ring entry (drained, stale and trash
-    entries hold zero masks)."""
+    """Occupancy rebuilt from the expiry ring: in the steady, cumulative and
+    queued protocols every running workload is one live ring entry (drained,
+    stale and trash entries hold zero masks; parked requests hold none)."""
     r, rows, cols, s = st.ring_mask.shape
     occ = torch.zeros((r * num_gpus, s), dtype=torch.int32, device=st.base.device)
     rows_of = torch.arange(r, device=occ.device)[:, None, None] * num_gpus + st.ring_gpu
@@ -1033,9 +1097,10 @@ def _occ_from_ring(st: ReplicaState, num_gpus: int) -> torch.Tensor:
 def state_from_numpy(d: Mapping[str, np.ndarray], device) -> ReplicaState:
     """A :class:`ReplicaState` from numpy arrays keyed by field name — e.g.
     the reference's vmapped ``ReplicaState`` after ``jax.device_get`` (its
-    fields of other protocols are ignored; ``ring_pid``/``ring_aidx`` are
-    carried where present, as for defrag specs).  A missing ``occ`` is
-    rebuilt from the expiry ring."""
+    fields of the faulted protocol are ignored; ``ring_pid``/``ring_aidx``
+    and the wait ring with ``ev`` are carried where present, as for defrag
+    specs and the queued protocol).  A missing ``occ`` is rebuilt from the
+    expiry ring."""
     dev = torch.device(device)
     fields = {
         name: None if d.get(name) is None else torch.from_numpy(np.array(d[name])).to(dev)
@@ -1067,10 +1132,13 @@ class EngineCore:
     """The staged event step for ``runs`` replicas of one configuration.
 
     Stage order within one event is the simulators' semantic order:
-    *measure* the just-finished slot, *expire* this slot's ring row,
-    *select*, *migrate* (defrag specs, on reject), *commit*.
-    ``frag_fn``/``delta_fn``/``select_fn``/``migrate_fn`` route the stages
-    through the CUDA kernels when set.
+    *measure* the just-finished slot (steady protocols), *expire* this
+    slot's ring row, *wait* (queued: admit the wait ring's head ahead of
+    the arrival), *select*, *migrate* (defrag specs, on reject), *commit*,
+    *park* (queued: a rejected arrival enters the wait ring) and *measure*
+    the post-commit state (cumulative).  ``frag_fn``/``delta_fn``/
+    ``select_fn``/``migrate_fn`` route the stages through the CUDA kernels
+    when set.
     """
 
     spec: PolicySpec
@@ -1083,6 +1151,7 @@ class EngineCore:
     delta_fn: Optional[object] = None
     select_fn: Optional[object] = None
     migrate_fn: Optional[object] = None
+    wait_patience: int = 0    # queued protocol: max slots a request may wait
 
     def __post_init__(self):
         dev = self.tables.W.device
@@ -1103,8 +1172,10 @@ class EngineCore:
         gi = idx[1]
         return _frag_from_base(st.base[idx], st.free[idx], self.metric, self.vg[gi])
 
-    def _stage_boundary_measure(self, st: ReplicaState):
-        """Slot-boundary metrics (state == end of slot t-1)."""
+    def _measure(self, st: ReplicaState):
+        """Cluster metrics of the current state: ``(frag, free_sum, active)``
+        — the slot-boundary measure of the steady protocols (state == end
+        of slot t-1) and the post-commit measure of the cumulative one."""
         frag = st.f.sum(dim=1) * self.inv_num_gpus
         free_sum = st.free.sum(dim=1, dtype=torch.int32)
         active = (st.free < self.slices_g).sum(dim=1, dtype=torch.int32)
@@ -1170,7 +1241,9 @@ class EngineCore:
                       mig_res: Optional[MigrationResult] = None) -> None:
         """Commit the accepted placement: occupancy/window/free updates, the
         rescore of the touched row (and of a migrated victim's landing GPU),
-        the cursor and the expiry-ring insert."""
+        the cursor and the expiry-ring insert.  A replica that does not
+        accept adds zero masks at GPU 0 and ring cell ``(exp_row, exp_col)``
+        and rescores GPU 0 to its unchanged value, as in the reference."""
         t = self.tables
         oki = ok.to(torch.int32)
         gpu_c = torch.where(ok, gpu.long(), 0)
@@ -1197,11 +1270,76 @@ class EngineCore:
             st.ring_pid[ring] = torch.where(ok, pid_c, st.ring_pid[ring])
             st.ring_aidx[ring] = torch.where(ok, aidx.to(torch.int32), st.ring_aidx[ring])
 
+    def _stage_wait(self, st: ReplicaState, t, wlive):
+        """Queued protocol: prune the wait ring, then try to admit its head.
+
+        Entries whose lease deadline passed (``end <= t``) or whose wait
+        exceeded the patience budget are dropped (final rejects).  Among
+        the survivors the head is the lexicographic minimum of the spec's
+        queue order (:func:`repro_torch.core.policy.queue_order`), the
+        original event index breaking ties FIFO.  The head re-enters the
+        spec's selection and, on acceptance, commits with its original ring
+        coordinates.  ``wlive`` gates the stage to real events.  The head's
+        index ``j (R,)`` stays on the device: every read and write goes
+        through it as a gather or a scatter.  Returns ``(eidx, gpu, aidx,
+        ok_w)``, each ``(R,)``.
+        """
+        wl = wlive[:, None]
+        age = t[:, None] - st.wait_arr                                  # (R, Q)
+        drop = wl & ((st.wait_end <= t[:, None]) | (age > self.wait_patience))
+        keep = (st.wait_pid >= 0) & ~drop
+        mask = keep & wl
+        for key in queue_order(self.spec):
+            base_k = key_base(key)
+            if base_k == "priority":
+                val = st.wait_prio.to(torch.float32)
+            elif base_k == "wait-age":
+                val = age.to(torch.float32)
+            else:  # tenant
+                val = st.wait_ten.to(torch.float32)
+            if key.startswith("-"):
+                val = -val
+            masked = torch.where(mask, val, BIG)
+            mask = mask & (masked == masked.amin(dim=1, keepdim=True))
+        fifo = torch.where(mask, st.wait_eidx, 2**31 - 1)
+        j = first_true(fifo == fifo.amin(dim=1, keepdim=True))         # (R,)
+        head = mask.any(dim=1)
+        at = (self.ridx, j)
+
+        pid_w = st.wait_pid[at].clamp(min=0)
+        gpu, aidx, sel_ok = _select(
+            self.spec, st.base, st.free, st.f, self.metric, self.tables,
+            self.midx, self.vg, pid_w, st.rr, delta_fn=self.delta_fn,
+            select_fn=self.select_fn,
+        )
+        ok_w = sel_ok & head
+        self._stage_commit(st, pid_w, gpu, aidx, ok_w, st.wait_row[at], st.wait_col[at])
+        st.wait_pid.copy_(torch.where(keep, st.wait_pid, -1))
+        st.wait_pid[at] = torch.where(ok_w, -1, st.wait_pid[at])
+        eidx = torch.where(ok_w, st.wait_eidx[at], -1)
+        return eidx, gpu.to(torch.int32), aidx.to(torch.int32), ok_w
+
+    def _stage_park(self, st: ReplicaState, can, values) -> None:
+        """Insert a rejected arrival into the first free wait-ring slot;
+        ``can`` already folds in validity, rejection and free capacity, and
+        ``values`` maps each wait field to the arrival's ``(R,)`` value."""
+        at = (self.ridx, first_true(st.wait_pid < 0))
+        for name, v in values.items():
+            plane = getattr(st, name)
+            plane[at] = torch.where(can, v, plane[at])
+
     def step(self, st: ReplicaState, x) -> EventTrace:
         """One event for every replica; returns this event's trace row."""
-        pid, exp_row, exp_col, drain_row, new_slot = x
-        frag, free_sum, active = self._stage_boundary_measure(st)
+        pid, exp_row, exp_col, drain_row, new_slot = x[:5]
+        row = {}
+        if self.protocol.boundary_metrics:
+            row["frag"], row["free_sum"], row["active"] = self._measure(st)
         self._stage_expire(st, drain_row, new_slot)
+        if self.protocol.queued:  # waiting requests admit ahead of the arrival
+            t, end, prio, ten, wlive = x[5:10]
+            row["wadm_eidx"], wadm_gpu, wadm_aidx, ok_w = self._stage_wait(st, t, wlive)
+            row["wadm_gpu"] = torch.where(ok_w, wadm_gpu, -1)
+            row["wadm_aidx"] = torch.where(ok_w, wadm_aidx, -1)
         valid = pid >= 0
         pid_c = pid.clamp(min=0)
         gpu, aidx, ok = self._stage_select(st, pid_c, valid)
@@ -1209,22 +1347,27 @@ class EngineCore:
         if self.spec.defrag:
             gpu, aidx, ok, mig_res = self._stage_migrate(st, pid_c, valid, gpu, aidx, ok)
         self._stage_commit(st, pid_c, gpu, aidx, ok, exp_row, exp_col, mig_res)
-        row = EventTrace(
-            ok=ok,
-            gpu=torch.where(ok, gpu.long(), 0).to(torch.int32),
-            aidx=aidx.to(torch.int32),
-            free_sum=free_sum,
-            active=active,
-            frag=frag,
+        if self.protocol.queued:
+            parked = valid & ~ok & wlive & (st.wait_pid < 0).any(dim=1)
+            self._stage_park(st, parked, dict(
+                wait_pid=pid_c, wait_arr=t, wait_end=end, wait_row=exp_row,
+                wait_col=exp_col, wait_prio=prio, wait_ten=ten, wait_eidx=st.ev))
+            st.ev.add_(1)
+            row["parked"] = parked
+        if self.protocol.post_metrics:
+            row["post_frag"], row["post_free"], row["post_active"] = self._measure(st)
+        if mig_res is not None:
+            m = mig_res.mig
+            row["mig"] = m
+            for name, val in (("mig_from_gpu", mig_res.vic_gpu),
+                              ("mig_from_anchor", mig_res.vic_anchor),
+                              ("mig_to_gpu", mig_res.new_gpu),
+                              ("mig_to_anchor", mig_res.new_anchor)):
+                row[name] = torch.where(m, val, -1)
+        return EventTrace(
+            ok=ok, gpu=torch.where(ok, gpu.long(), 0).to(torch.int32),
+            aidx=aidx.to(torch.int32), **row,
         )
-        if mig_res is None:
-            return row
-        m = mig_res.mig
-        return row._replace(mig=m, **{
-            name: torch.where(m, val, -1) for name, val in (
-                ("mig_from_gpu", mig_res.vic_gpu), ("mig_from_anchor", mig_res.vic_anchor),
-                ("mig_to_gpu", mig_res.new_gpu), ("mig_to_anchor", mig_res.new_anchor))
-        })
 
 
 def _build_core(
@@ -1237,22 +1380,38 @@ def _build_core(
     device,
     kernel_spec: Optional[mig.ClusterSpec] = None,
     protocol: Union[str, Protocol] = "steady",
+    wait_slots: int = 0,
+    wait_patience: int = 0,
     midx: Optional[torch.Tensor] = None,
     tables: Optional[SpecTables] = None,
 ) -> EngineCore:
     """Validate one engine configuration and build its staged core.
 
-    Kernel dispatch under ``use_kernel``: the occupancy-based ``fragscore``
-    rescore needs one placement table, so it runs on homogeneous fleets
-    only; specs whose keys consume ΔF get the ``delta_from_base`` kernel;
-    argmin-fusable specs run the whole select stage in ``select_from_base``
-    and, for defrag specs, both refinements of the migrate search in
-    ``migrate_refine`` (a delta-only defrag spec keeps ``delta_from_base``
-    and the plain migrate search).
+    The queued protocol refuses defrag specs and needs ``wait_slots > 0``,
+    as in the reference.  Kernel dispatch under ``use_kernel``: the
+    occupancy-based ``fragscore`` rescore needs one placement table, so it
+    runs on homogeneous fleets only; specs whose keys consume ΔF get the
+    ``delta_from_base`` kernel; argmin-fusable specs run the whole select
+    stage (the wait head's too) in ``select_from_base`` and, for defrag
+    specs, both refinements of the migrate search in ``migrate_refine`` (a
+    delta-only defrag spec keeps ``delta_from_base`` and the plain migrate
+    search).
     """
     dev = torch.device(device)
     pspec = resolve(policy, engine="batched")
     proto = resolve_protocol(protocol)
+    if proto.queued:
+        if pspec.defrag:
+            raise ValueError(
+                f"policy {pspec.name!r}: defrag specs are not supported under "
+                "the queued protocol (the migrate stage's victim table does "
+                "not cover parked requests)"
+            )
+        if wait_slots <= 0:
+            raise ValueError(
+                f"protocol {proto.name!r} needs wait_slots > 0 "
+                "(SimConfig.wait_capacity)"
+            )
     if tables is None:  # homogeneous A100-80GB default
         cspec = _default_spec(num_gpus)
         tables = spec_tables(cspec, dev)
@@ -1277,6 +1436,7 @@ def _build_core(
         spec=pspec, protocol=proto, metric=metric, tables=tables,
         midx=midx.to(dev).long(), runs=runs, frag_fn=frag_fn,
         delta_fn=delta_fn, select_fn=select_fn, migrate_fn=migrate_fn,
+        wait_patience=wait_patience,
     )
 
 
@@ -1295,6 +1455,15 @@ def _simulate(events: EventStream, **kwargs) -> Tuple[ReplicaState, EventTrace]:
     return state, trace
 
 
+def _stream_fields(proto: Protocol) -> Tuple[str, ...]:
+    """The stream fields shipped to the device, in the step's order (the
+    reference's ``_scan_xs``); ``sample``/``measuring`` stay on the host."""
+    names = ("pid", "exp_row", "exp_col", "drain_row", "new_slot")
+    if proto.queued:  # the wait stage's clock + per-arrival queue attributes
+        names += ("slot", "end", "prio", "tenant", "wlive")
+    return names
+
+
 def _setup_run(
     events: EventStream,
     *,
@@ -1306,6 +1475,8 @@ def _setup_run(
     use_kernel: bool,
     kernel_spec: Optional[mig.ClusterSpec] = None,
     protocol: Union[str, Protocol] = "steady",
+    wait_slots: int = 0,
+    wait_patience: int = 0,
     midx: Optional[torch.Tensor] = None,
     tables: Optional[SpecTables] = None,
     state: Optional[ReplicaState] = None,
@@ -1319,31 +1490,37 @@ def _setup_run(
     core = _build_core(
         policy=policy, metric=metric, num_gpus=num_gpus, use_kernel=use_kernel,
         runs=runs, device=dev, kernel_spec=kernel_spec, protocol=protocol,
-        midx=midx, tables=tables,
+        wait_slots=wait_slots, wait_patience=wait_patience, midx=midx, tables=tables,
     )
+    queued = core.protocol.queued
     track_occ = core.frag_fn is not None
     if state is None:
         state = _init_state(core.tables, core.midx, runs, ring_rows, ring_cols, track_occ,
-                            track_alloc=core.spec.defrag)
-    elif core.spec.defrag and state.ring_pid is None:
-        raise ValueError(
-            f"policy {core.spec.name!r}: a defrag spec continues only from a state "
-            "with the ring_pid/ring_aidx allocation planes"
-        )
-    elif not track_occ:
-        state = state._replace(occ=None)
-    elif state.occ is None:
-        state = state._replace(occ=_occ_from_ring(state, core.midx.shape[0]))
+                            track_alloc=core.spec.defrag,
+                            wait_slots=wait_slots if queued else 0)
+    else:
+        if core.spec.defrag and state.ring_pid is None:
+            raise ValueError(
+                f"policy {core.spec.name!r}: a defrag spec continues only from a state "
+                "with the ring_pid/ring_aidx allocation planes"
+            )
+        if queued and state.wait_pid is None:
+            raise ValueError(
+                f"protocol {core.protocol.name!r} continues only from a state with "
+                "the wait ring (wait_* and ev)"
+            )
+        if not track_occ:
+            state = state._replace(occ=None)
+        elif state.occ is None:
+            state = state._replace(occ=_occ_from_ring(state, core.midx.shape[0]))
     xs = [
-        torch.as_tensor(np.ascontiguousarray(a)).to(dev)
-        for a in (events.pid, events.exp_row, events.exp_col,
-                  events.drain_row, events.new_slot)
+        torch.as_tensor(np.ascontiguousarray(getattr(events, name))).to(dev)
+        for name in _stream_fields(core.protocol)
     ]
     e_max = xs[0].shape[0]
-    fields = EventTrace._fields if core.spec.defrag else EventTrace._fields[:6]
     trace = EventTrace(**{
         name: torch.empty((e_max, runs), dtype=_TRACE_DTYPES[name], device=dev)
-        for name in fields
+        for name in _trace_fields(core.protocol, core.spec)
     })
     return core, state, xs, trace
 
@@ -1400,7 +1577,7 @@ def _ring_columns(
 
 
 def presample_arrivals(
-    cfg: SimConfig, runs: int, seed=None
+    cfg: SimConfig, runs: int, seed=None, queued: bool = False,
 ) -> Tuple[EventStream, EventMeta, int, int]:
     """Build per-replica steady-protocol event streams on host.
 
@@ -1410,6 +1587,12 @@ def presample_arrivals(
     final slot; streams are right-padded to the longest replica with no-op
     lanes.  The draws are the reference's, in the reference's order, so
     the streams are byte-identical to it.
+
+    ``queued`` also fills the queued protocol's fields (the slot clock,
+    absolute end slots, per-arrival tenant and priority, the live-event
+    mask).  Tenant and priority are drawn strictly after the shared
+    arrival stream, so every steady field is byte-identical with
+    ``queued=False``.
     """
     rng = np.random.default_rng(cfg.seed if seed is None else seed)
     probs = request_probs(cfg)
@@ -1452,6 +1635,19 @@ def presample_arrivals(
     )
     measuring = is_arrival & (slot >= warm)
 
+    queue = {}
+    if queued:  # drawn after the shared stream: arrival sampling unchanged
+        tenant = np.zeros((runs, e_max), dtype=np.int32)
+        prio = np.zeros((runs, e_max), dtype=np.int32)
+        for r in range(runs):
+            sel = is_arrival[r]
+            na = int(sel.sum())
+            tenant[r, sel] = rng.integers(0, max(1, cfg.num_tenants), size=na)
+            prio[r, sel] = rng.integers(0, max(1, cfg.num_priorities), size=na)
+        wlive = slot < total_slots  # padding/sentinel lanes have no clock
+        queue = dict(slot=slot.T.astype(np.int32), end=end.T.astype(np.int32),
+                     prio=prio.T, tenant=tenant.T, wlive=wlive.T)
+
     events = EventStream(
         pid=pid.T,
         exp_row=exp_row.T,
@@ -1460,6 +1656,54 @@ def presample_arrivals(
         new_slot=new_slot.T,
         sample=sample.T,
         measuring=measuring.T,
+        **queue,
+    )
+    meta = EventMeta(slot=slot.T, end=end.T)
+    return events, meta, ring_k + 2, ring_cols
+
+
+def presample_cumulative(
+    cfg: SimConfig, runs: int, seed=None
+) -> Tuple[EventStream, EventMeta, int, int]:
+    """Build per-replica cumulative-protocol event streams on host.
+
+    One arrival per slot (no heartbeats, no padding), durations ``U[1,
+    T]``.  Replica ``r`` draws from the host simulator's stream of run
+    ``r`` (seed ``cfg.seed + r·9973``, profiles then durations), so
+    :func:`run_batched` and :func:`repro_torch.sim.run_many` simulate the
+    same arrivals per seed; the streams are byte-identical to the
+    reference's.
+    """
+    base_seed = cfg.seed if seed is None else seed
+    spec = cfg.spec()
+    cap = spec.total_mem_slices
+    probs = request_probs(cfg)
+    mean_mem = distributions.mean_mem_from_probs(probs)
+    T = int(np.ceil(cap / mean_mem))
+    n = int(np.ceil(cfg.max_demand * cap / mean_mem)) + 20
+    ring_k = T + 1
+
+    pid = np.zeros((runs, n), dtype=np.int32)
+    end = np.zeros((runs, n), dtype=np.int64)
+    for r in range(runs):
+        rng = np.random.default_rng(base_seed + r * 9973)
+        pid[r] = distributions.sample_profile_probs(probs, n, rng)
+        end[r] = np.arange(n) + rng.integers(1, T + 1, size=n)
+
+    slot = np.tile(np.arange(n, dtype=np.int32), (runs, 1))
+    new_slot = np.ones((runs, n), dtype=bool)
+    exp_col, ring_cols = _ring_columns(np.ones_like(pid, bool), end, n + T + 1)
+    exp_row = (end % ring_k).astype(np.int32)
+    drain_row = (slot % ring_k).astype(np.int32)
+
+    events = EventStream(
+        pid=pid.T,
+        exp_row=exp_row.T,
+        exp_col=exp_col.T,
+        drain_row=drain_row.T,
+        new_slot=new_slot.T,
+        sample=np.zeros((n, runs), dtype=bool),
+        measuring=np.ones((n, runs), dtype=bool),
     )
     meta = EventMeta(slot=slot.T, end=end.T)
     return events, meta, ring_k + 2, ring_cols
@@ -1472,12 +1716,21 @@ def run_batched(
     use_kernel: Optional[bool] = None,
     device=None,
 ) -> Dict[str, float]:
-    """Average ``runs`` replicas of the steady protocol on the device.
+    """Average ``runs`` replicas of ``cfg.protocol`` on the device.
 
-    Returns the reference's ``run_many`` aggregate keys.  ``use_kernel``
-    routes the stages through the CUDA kernels (default: on a CUDA device,
-    unless the spec opts out via ``kernel_lowering=False``); on the CPU the
-    kernel wrappers compute their plain torch versions.
+    The protocol picks the stream and the reduction: ``steady`` and
+    ``steady-queued`` presample with :func:`presample_arrivals` (queued
+    draws tenant and priority too, and runs with ``cfg.wait_capacity``
+    wait slots and ``cfg.wait_patience``), ``cumulative`` with
+    :func:`presample_cumulative`; ``steady-faulted`` raises
+    ``NotImplementedError``.  Returns the reference's ``run_many``
+    aggregate keys; the queued protocol adds ``wait_p50``, ``wait_p99``,
+    ``fairness`` and ``queue_admits``, and the cumulative one the
+    demand-grid ``traces`` (each key's mean per grid point) and
+    ``demand_grid``.  ``use_kernel`` routes the stages through the CUDA
+    kernels (default: on a CUDA device, unless the spec opts out via
+    ``kernel_lowering=False``); on the CPU the kernel wrappers compute
+    their plain torch versions.
     """
     dev = resolve_device(device)
     pspec = resolve(policy, engine="batched")
@@ -1485,7 +1738,10 @@ def run_batched(
     spec = cfg.spec()
     if use_kernel is None:
         use_kernel = dev.type == "cuda" and bool(pspec.kernel_lowering)
-    events, _, ring_rows, ring_cols = presample_arrivals(cfg, runs)
+    if proto.name == "cumulative":
+        events, _, ring_rows, ring_cols = presample_cumulative(cfg, runs)
+    else:
+        events, _, ring_rows, ring_cols = presample_arrivals(cfg, runs, queued=proto.queued)
     _, trace = _simulate(
         events,
         policy=pspec,
@@ -1496,11 +1752,18 @@ def run_batched(
         use_kernel=use_kernel,
         kernel_spec=spec if use_kernel else None,
         protocol=proto,
+        wait_slots=cfg.wait_capacity if proto.queued else 0,
+        wait_patience=cfg.wait_patience if proto.queued else 0,
         midx=torch.as_tensor(spec.model_index, device=dev),
         tables=spec_tables(spec, dev),
         device=dev,
     )
-    return aggregate(events, trace_to_numpy(trace), spec, runs)
+    trace = trace_to_numpy(trace)
+    if proto.name == "cumulative":
+        return _aggregate_cumulative(events, trace, spec, runs, cfg)
+    if proto.queued:
+        return _aggregate_queued(events, trace, spec, runs)
+    return aggregate(events, trace, spec, runs)
 
 
 def aggregate(
@@ -1535,4 +1798,153 @@ def aggregate(
         "frag_severity": float(frag.mean()),
         "rejects_by_profile": rejects_p / runs,
         "arrivals_by_profile": arrivals_p / runs,
+    }
+
+
+def _aggregate_queued(
+    events: EventStream, trace: EventTrace, spec, runs: int
+) -> Dict[str, float]:
+    """Reduce queued-protocol traces (numpy): acceptance folds in the
+    wait-admits, plus p50/p99 wait, Jain per-tenant fairness and the
+    admissions from the wait ring.
+
+    The trace records each wait-admit's original event index
+    (``wadm_eidx``): arrival ``e`` was accepted iff it was accepted in
+    place or a later event admitted it, and its wait is the slot distance
+    between the two events (0 when immediate).  Acceptance and fairness
+    count the original arrival's measurement-window membership, as the
+    host simulator does.
+    """
+    if isinstance(spec, int):
+        spec = _default_spec(spec)
+    cap = float(spec.total_mem_slices)
+    ok = np.asarray(trace.ok)
+    wadm = np.asarray(trace.wadm_eidx)   # (E, R)
+    slot = np.asarray(events.slot)
+    tenant = np.asarray(events.tenant)
+    meas = events.measuring
+    samp = events.sample
+
+    late_ok = np.zeros_like(ok)
+    wait = np.zeros(ok.shape, np.float64)
+    for r in range(runs):
+        adm = np.flatnonzero(wadm[:, r] >= 0)
+        orig = wadm[adm, r]
+        late_ok[orig, r] = True
+        wait[orig, r] = slot[adm, r] - slot[orig, r]
+    acc_all = ok | late_ok
+
+    arrived = np.maximum(meas.sum(axis=0), 1)  # (R,)
+    accepted = (acc_all & meas).sum(axis=0)
+    nsamp = np.maximum(samp.sum(axis=0), 1)
+    util = ((cap - trace.free_sum) / cap * samp).sum(axis=0) / nsamp
+    active = (trace.active * samp).sum(axis=0) / nsamp
+    frag = (trace.frag * samp).sum(axis=0) / nsamp
+
+    p50 = np.zeros(runs)
+    p99 = np.zeros(runs)
+    fair = np.zeros(runs)
+    for r in range(runs):
+        w = wait[:, r][acc_all[:, r] & meas[:, r]]
+        p50[r] = np.percentile(w, 50) if len(w) else 0.0
+        p99[r] = np.percentile(w, 99) if len(w) else 0.0
+        tm = meas[:, r]
+        rates = [
+            (acc_all[:, r] & tm & (tenant[:, r] == tn)).sum()
+            / (tm & (tenant[:, r] == tn)).sum()
+            for tn in np.unique(tenant[:, r][tm])
+        ]
+        fair[r] = jain_fairness(rates)
+
+    arrivals_p = np.stack(
+        [((events.pid == p) & meas).sum() for p in range(mig.NUM_PROFILES)]
+    )
+    rejects_p = np.stack(
+        [((events.pid == p) & meas & ~acc_all).sum() for p in range(mig.NUM_PROFILES)]
+    )
+    return {
+        "acceptance_rate": float((accepted / arrived).mean()),
+        "allocated_workloads": float(accepted.mean()),
+        "active_gpus": float(active.mean()),
+        "utilization": float(util.mean()),
+        "frag_severity": float(frag.mean()),
+        "rejects_by_profile": rejects_p / runs,
+        "arrivals_by_profile": arrivals_p / runs,
+        "wait_p50": float(p50.mean()),
+        "wait_p99": float(p99.mean()),
+        "fairness": float(fair.mean()),
+        "queue_admits": float((late_ok & meas).sum(axis=0).mean()),
+    }
+
+
+def _aggregate_cumulative(
+    events: EventStream, trace: EventTrace, spec, runs: int, cfg: SimConfig
+) -> Dict[str, float]:
+    """Reduce per-event cumulative traces (numpy) to ``run_many`` keys plus
+    the demand-grid ``traces``, with the host simulator's grid crossings
+    and early stop (both follow from the presampled pids alone, so the
+    device runs every event and the stop is applied here)."""
+    cap = float(spec.total_mem_slices)
+    pid = np.asarray(events.pid)           # (E, R)
+    ok = np.asarray(trace.ok)
+    post_free = np.asarray(trace.post_free)
+    post_active = np.asarray(trace.post_active)
+    post_frag = np.asarray(trace.post_frag)
+    e_max, _ = pid.shape
+
+    frac = np.cumsum(mig.PROFILE_MEM[pid], axis=0) / cap  # (E, R)
+    acc_cum = np.cumsum(ok, axis=0)                       # (E, R)
+    arr_cum = np.arange(1, e_max + 1)[:, None]            # (E, 1)
+    util = (cap - post_free) / cap
+
+    grid = np.asarray(cfg.demand_grid, dtype=np.float64)
+    G = len(grid)
+    keys = (
+        "acceptance_rate", "allocated_workloads", "active_gpus",
+        "utilization", "frag_severity",
+    )
+    per_event = {
+        "acceptance_rate": acc_cum / arr_cum,
+        "allocated_workloads": acc_cum.astype(np.float64),
+        "active_gpus": post_active.astype(np.float64),
+        "utilization": util,
+        "frag_severity": post_frag.astype(np.float64),
+    }
+    traces = {k: np.zeros((G, runs)) for k in keys}
+    for i in range(G):
+        crossed = frac >= grid[i]             # (E, R)
+        hit = crossed.any(axis=0)             # (R,)
+        idx = np.argmax(crossed, axis=0)      # first crossing event (per replica)
+        for k in keys:
+            v = per_event[k][idx, np.arange(runs)]
+            if i > 0:  # tail-fill: an uncrossed point repeats the last recorded
+                v = np.where(hit, v, traces[k][i - 1])
+            else:
+                v = np.where(hit, v, 0.0)
+            traces[k][i] = v
+
+    # early stop: the host loop breaks once demand reached max_demand AND
+    # every grid point was recorded — both depend only on the pid stream
+    stop_at = max(float(cfg.max_demand), float(grid[-1]) if G else 0.0)
+    stopped = frac >= stop_at
+    stop = np.where(stopped.any(axis=0), np.argmax(stopped, axis=0), e_max - 1)
+    ridx = np.arange(runs)
+    processed = np.arange(e_max)[:, None] <= stop[None, :]  # (E, R)
+
+    arrivals_p = np.stack(
+        [((pid == p) & processed).sum() for p in range(mig.NUM_PROFILES)]
+    )
+    rejects_p = np.stack(
+        [((pid == p) & processed & ~ok).sum() for p in range(mig.NUM_PROFILES)]
+    )
+    return {
+        "acceptance_rate": float(per_event["acceptance_rate"][stop, ridx].mean()),
+        "allocated_workloads": float(acc_cum[stop, ridx].mean()),
+        "active_gpus": float(post_active[stop, ridx].mean()),
+        "utilization": float(util[stop, ridx].mean()),
+        "frag_severity": float(post_frag[stop, ridx].mean()),
+        "rejects_by_profile": rejects_p / runs,
+        "arrivals_by_profile": arrivals_p / runs,
+        "traces": {k: v.mean(axis=1) for k, v in traces.items()},
+        "demand_grid": grid,
     }

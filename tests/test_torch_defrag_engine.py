@@ -130,7 +130,7 @@ def test_state_carried_from_reference_continues_identically(use_kernel):
     assert carried["ring_pid"] is not None
     state = tb.state_from_numpy(carried, "cpu")
     tev = tb.presample_arrivals(tcfg, runs)[0]
-    second = tb.EventStream(*[a[half:] for a in tev])
+    second = tb.EventStream(*[None if a is None else a[half:] for a in tev])
     got, final = port_run("mfi-defrag", tcfg, runs, use_kernel, rows, events=second,
                           state=state)
     assert_traces_equal(got, type(want)(*[None if a is None else np.asarray(a)[half:]

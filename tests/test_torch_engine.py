@@ -251,7 +251,7 @@ def test_state_carried_from_reference_continues_identically(policy, fleet, use_k
                               **scan_kw)
     state = tb.state_from_numpy(jax.device_get(carry)._asdict(), "cpu")
     tev, _, _, _ = tb.presample_arrivals(tcfg, runs)
-    second = tb.EventStream(*[a[half:] for a in tev])
+    second = tb.EventStream(*[None if a is None else a[half:] for a in tev])
     got, final = port_run(policy, tcfg, runs, use_kernel, events=second,
                           state=state, rows=(rows, cols))
     want_second = type(want)(*[None if a is None else np.asarray(a)[half:] for a in want])
@@ -332,11 +332,15 @@ def test_device_none_means_cuda_and_never_falls_back():
 
 
 def test_unported_configurations_raise():
-    """The protocols not ported yet raise; mfi-defrag, ported, runs."""
-    for protocol in ("cumulative", "steady-queued", "steady-faulted"):
-        with pytest.raises(NotImplementedError, match=protocol):
-            tb.run_batched("mfi", tsim.SimConfig(num_gpus=3, protocol=protocol),
+    """The faulted protocol, not ported yet, raises; the cumulative and
+    queued protocols and mfi-defrag, ported, run."""
+    with pytest.raises(NotImplementedError, match="steady-faulted"):
+        tb.run_batched("mfi", tsim.SimConfig(num_gpus=3, protocol="steady-faulted"),
+                       runs=2, device="cpu")
+    for protocol in ("cumulative", "steady-queued"):
+        r = tb.run_batched("mfi", tsim.SimConfig(num_gpus=3, protocol=protocol),
                            runs=2, device="cpu")
+        assert 0.0 < r["acceptance_rate"] <= 1.0, protocol
     r = tb.run_batched("mfi-defrag", tsim.SimConfig(num_gpus=3), runs=2, device="cpu")
     assert 0.0 < r["acceptance_rate"] <= 1.0
     no_kernels = PolicySpec(name="plain-only", keys=("gpu",), kernel_lowering=False)

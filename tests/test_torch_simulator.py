@@ -171,8 +171,8 @@ def test_simulate_refusals():
         for kw in (dict(chunk_size=8), dict(stream=True)):
             with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 10"):
                 tapi.simulate("mfi", cfg, engine=engine, **kw)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 7"):
-        tapi.simulate("mfi", tsim.SimConfig(num_gpus=4, protocol="cumulative"),
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 9"):
+        tapi.simulate("mfi", tsim.SimConfig(num_gpus=4, protocol="steady-faulted"),
                       engine="batched", device="cpu")
     with pytest.raises(ValueError, match="batched-engine knob"):
         tapi.simulate("mfi", cfg, device="cpu")
