@@ -30,8 +30,8 @@ Phases, each printing its own lines:
    offered load 1.0, seed 0, R = 500) for mfi, ff, bf-bi, wf-bi, rr, a
    delta-only mfi spec and mfi-defrag, once through the kernels (launch
    counts reset just before and read just after) and once through the
-   plain lowering over the same events: traces equal, launch counts
-   matching the events; then a profiled 256-event window of the mfi, the
+   plain lowering over the first 1,000 of the same events: traces equal
+   there, launch counts matching the events; then a profiled 256-event window of the mfi, the
    delta-only and the mfi-defrag step, each also run unprofiled, the
    kernel path's event loop under ``torch.cuda.set_sync_debug_mode("error")``
    (no host sync); then the paper's Fig. 5 through the kernels (ff, rr,
@@ -89,16 +89,38 @@ Phases, each printing its own lines:
     (``sim/replay.py``) and ``run_batched`` to the host engine's
     ``run_many``; the reference's two pinned queued hashes with the
     kernels on; the queued protocol at M = 100, load 1.1, R = 500 for mfi
-    and mfi-queued, kernel equal to plain, with its wait percentiles,
+    and mfi-queued, kernel equal to plain over the first 1,000 events,
+    with its wait percentiles,
     fairness, wait-admits and ``select_from_base`` launches per event (2),
-    and at R = 4 the card's trace equal to ``queued_host_decisions``;
+    and on 4 of its replicas the card's trace equal to
+    ``queued_host_decisions``;
     every kernel-path loop under ``set_sync_debug_mode("error")``, launch
     counts reset just before each run; a profiled 256-event window of the
     queued mfi loop;
-11. a ``{"kernels": [...]}`` JSON line (each kernel's launches in total
+11. the faulted protocol and the chunked driver: the reference's two
+    pinned faulted hashes with the kernels on; the faulted protocol at
+    M = 100, load 1.1, MTBF 60, MTTR 10, wait ring 8, patience 16, seed 0,
+    R = 500 for mfi (the kernel path over the whole stream) and mfi-queued
+    and ff (its first 1,000 events), kernel path equal to plain in every
+    field over the first 1,000 events, launches per event exact (``fragscore`` 3,
+    ``delta_from_base`` 2 for the ΔF policies, ``select_from_base`` 0), the
+    kernel loop under ``set_sync_debug_mode("error")``, evictions > 0 and
+    the fault keys of the run; on 4 of its replicas the card's trace equal
+    to ``replay.faulted_host_decisions``; a profiled 256-event faulted
+    window; the mfi rows of ``experiments/fig_faults_batched_30.csv`` (R =
+    30 each, as five blocks of one run) and their queued anchor through
+    ``run_batched`` (printed beside the recorded rows, not asserted), and
+    ``run_batched`` at MTBF 60
+    equal to its block; ``simulate_chunked`` at the Fig. 4 point (steady
+    mfi, R = 500) at chunk sizes 256 and 1,000 and at the faulted point at
+    chunk 512, each equal to its monolithic trace, a resume from the
+    checkpoint it wrote after chunk 2 equal for one more chunk, with the
+    copies' overlap share, wall time and peak device memory of both
+    drivers (each phase prints its seconds);
+12. a ``{"kernels": [...]}`` JSON line (each kernel's launches in total
     and by path), then the result line.
 
-Every equality of phases 3-5 and 8-10 is exact: all scores are integers
+Every equality of phases 3-5 and 8-11 is exact: all scores are integers
 held in float32.
 """
 
@@ -184,7 +206,32 @@ QUEUED_LOAD = 1.1
 HOST_RUNS_CUMULATIVE = 8
 HOST_RUNS_QUEUED = 4
 
+#: phase 11: the reference's pinned faulted results (tests/test_faults.py),
+#: over its hash's fields in its order, and its fault process
+GOLDEN_FAULTED_TRACE_HASHES = {
+    "homog": "abb15f38d863b0c6ce819b7bb452235f163bf35e876e944c1df4c51e4deaad97",
+    "mixed": "1bf958443af4abdbe75e50c4ac1e026875e84b3bbddd2658800f8b7f9079f7fe",
+}
+FAULTED_HASH_FIELDS = QUEUED_HASH_FIELDS[:7] + ("evicted", "evict_lost", "evict_esum",
+                                                "free_sum", "active", "frag")
+FAULT_MTBF = 60.0
+FAULT_MTTR = 10.0
+HOST_RUNS_FAULTED = 4
+#: the reference's fault sweep (benchmarks/fig_faults_sweep.py defaults:
+#: R = 30, M = 100, load 1.1, MTTR 10, max_retries 2, 4 tenants, seed 0)
+#: and its recorded rows (printed beside this run's, not asserted)
+FAULT_SWEEP_CSV = "experiments/fig_faults_batched_30.csv"
+FAULT_SWEEP_RUNS = 30
+FAULT_SWEEP_MTBFS = (30.0, 60.0, 120.0, 240.0, 480.0)
+#: chunk sizes of the chunked driver at the Fig. 4 and the faulted point
+STEADY_CHUNKS = (256, 1000)
+FAULTED_CHUNK = 512
+
 RUNS = 500
+#: phase 5 holds the plain path to the kernel path over the paper point's
+#: first this many events (the kernel path runs all of them), which keeps
+#: the whole script well inside its time limit
+PLAIN_EVENTS = 1000
 #: phase 3's mixed fleet of four device models
 FOUR_MODEL_FLEET = "a100-80:30,a100-40:30,h100-96:20,h100-80:20"
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
@@ -897,6 +944,7 @@ def full_width_phase(device):
     e_max = events.pid.shape[0]
     delta_only = PolicySpec(**DELTA_ONLY)
     warm = batched.EventStream(*[None if a is None else a[:64] for a in events])
+    head = batched.EventStream(*[None if a is None else a[:PLAIN_EVENTS] for a in events])
     rates = {}
     for policy in ("mfi", "ff", "bf-bi", "wf-bi", "rr", delta_only, "mfi-defrag"):
         name = policy if isinstance(policy, str) else policy.name
@@ -907,7 +955,8 @@ def full_width_phase(device):
             for fn in wrappers.values():
                 fn.launches = 0
             t0 = time.perf_counter()
-            _, trace = batched._simulate(events, policy=policy, use_kernel=use_kernel, **common)
+            _, trace = batched._simulate(events if use_kernel else head, policy=policy,
+                                         use_kernel=use_kernel, **common)
             trace = batched.trace_to_numpy(trace)
             seconds = time.perf_counter() - t0
             counts = {k: fn.launches for k, fn in wrappers.items()}
@@ -915,7 +964,8 @@ def full_width_phase(device):
         (tk, sk, ck), (tp, sp, cp) = out[True], out[False]
         for field in batched.EventTrace._fields:
             a, b = getattr(tk, field), getattr(tp, field)
-            check((a is None) == (b is None) and (a is None or np.array_equal(a, b)),
+            check((a is None) == (b is None)
+                  and (a is None or np.array_equal(a[:PLAIN_EVENTS], b)),
                   f"{name}: kernel and plain traces differ in {field}")
         check(sum(cp.values()) == 0, f"{name}: the plain path launched kernels {cp}")
         defrag = name == "mfi-defrag"
@@ -930,11 +980,12 @@ def full_width_phase(device):
         for k in totals:
             totals[k] += ck[k]
         agg = batched.aggregate(events, tk, spec, RUNS)
-        rates[name] = (RUNS * e_max / sk, RUNS * e_max / sp)
+        rates[name] = (RUNS * e_max / sk, RUNS * PLAIN_EVENTS / sp)
         if defrag:
             log(f"full width mfi-defrag: {int(tk.mig.sum())} migrations over "
                 f"{RUNS} replicas")
-        log(f"full width {name}: traces equal (kernel vs plain); launches {ck}; "
+        log(f"full width {name}: traces equal (kernel vs plain over the first "
+            f"{PLAIN_EVENTS} events); launches {ck}; "
             f"acceptance {agg['acceptance_rate']:.4f} allocated {agg['allocated_workloads']:.1f} "
             f"utilization {agg['utilization']:.4f} active {agg['active_gpus']:.1f} "
             f"frag {agg['frag_severity']:.2f}; replica-events/s kernel {rates[name][0]:.0f} "
@@ -1017,12 +1068,17 @@ def loop_run(name, events, policy, use_kernel, common, wrappers):
     """One engine run over ``events``, launch counts reset just before and
     read just after; the kernel path's event loop runs under
     ``torch.cuda.set_sync_debug_mode("error")``.  Returns ``(trace,
-    seconds, counts)``, the trace fetched to the host."""
+    seconds, counts, peak)``, the trace fetched to the host and ``peak``
+    the device memory the run allocated at most over what it started
+    with (bytes)."""
     import torch
     from repro_torch.sim import batched
 
     for fn in wrappers.values():
         fn.launches = 0
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     loop = batched._setup_run(events, policy=policy, use_kernel=use_kernel, **common)
     if use_kernel:
@@ -1034,14 +1090,18 @@ def loop_run(name, events, policy, use_kernel, common, wrappers):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     trace = batched.trace_to_numpy(loop[3])
-    return trace, time.perf_counter() - t0, {k: fn.launches for k, fn in wrappers.items()}
+    seconds = time.perf_counter() - t0
+    return (trace, seconds, {k: fn.launches for k, fn in wrappers.items()},
+            torch.cuda.max_memory_allocated() - base)
 
 
-def paths_equal(name, events, policy, common, wrappers, want):
-    """The kernel path (warm, no host sync in its loop) and the plain path
-    over the same events: every trace field equal, the kernel path's
-    launch counts ``want`` and the plain path's none.  Returns ``(kernel
-    trace, plain trace, (kernel, plain) replica-events/s, counts)``."""
+def paths_equal(name, events, policy, common, wrappers, want, plain_events=None):
+    """The kernel path (warm, no host sync in its loop) over ``events`` and
+    the plain path over the same events, or their first ``plain_events``:
+    every trace field equal there, the kernel path's launch counts
+    ``want`` and the plain path's none.  Returns ``(kernel trace, plain
+    trace, (kernel, plain) replica-events/s, counts, the kernel run's
+    (seconds, peak memory in bytes))``."""
     import numpy as np
     import torch
     from repro_torch.sim import batched
@@ -1050,16 +1110,18 @@ def paths_equal(name, events, policy, common, wrappers, want):
     for use_kernel in (True, False):
         batched._simulate(warm, policy=policy, use_kernel=use_kernel, **common)
     torch.cuda.synchronize()
-    tk, sk, ck = loop_run(name, events, policy, True, common, wrappers)
-    tp, sp, cp = loop_run(name, events, policy, False, common, wrappers)
+    e_max, runs = events.pid.shape
+    n = min(e_max, plain_events or e_max)
+    head = batched.EventStream(*[None if a is None else a[:n] for a in events])
+    tk, sk, ck, peak = loop_run(name, events, policy, True, common, wrappers)
+    tp, sp, cp, _ = loop_run(name, head, policy, False, common, wrappers)
     for field in batched.EventTrace._fields:
         a, b = getattr(tk, field), getattr(tp, field)
-        check((a is None) == (b is None) and (a is None or np.array_equal(a, b)),
+        check((a is None) == (b is None) and (a is None or np.array_equal(a[:n], b)),
               f"{name}: kernel and plain traces differ in {field}")
     check(sum(cp.values()) == 0, f"{name}: the plain path launched kernels {cp}")
     check(ck == want, f"{name}: launch counts {ck} != expected {want}")
-    e_max, runs = events.pid.shape
-    return tk, tp, (runs * e_max / sk, runs * e_max / sp), ck
+    return tk, tp, (runs * e_max / sk, runs * n / sp), ck, (sk, peak)
 
 
 def dicts_equal(a, b) -> bool:
@@ -1112,7 +1174,7 @@ def cumulative_phase(device, wrappers, totals):
         want.update(fragscore=(3 if defrag else 2) * e_max, select_from_base=e_max,
                     migrate_refine=e_max if defrag else 0)
         name = f"cumulative {policy}"
-        tk, tp, rates, ck = paths_equal(name, events, policy, common, wrappers, want)
+        tk, tp, rates, ck, _ = paths_equal(name, events, policy, common, wrappers, want)
         for k in totals:
             totals[k] += ck[k]
         agg = batched._aggregate_cumulative(events, tk, spec, RUNS, cfg)
@@ -1198,26 +1260,26 @@ def queued_phase(device, wrappers, totals):
 
     cfg = SimConfig(num_gpus=100, offered_load=QUEUED_LOAD, seed=0, protocol="steady-queued")
     spec = cfg.spec()
-    events, _, rows, cols = batched.presample_arrivals(cfg, RUNS, queued=True)
+    events, meta, rows, cols = batched.presample_arrivals(cfg, RUNS, queued=True)
     common = common_of(cfg, rows, cols)
-    small, small_meta, s_rows, s_cols = batched.presample_arrivals(
-        cfg, HOST_RUNS_QUEUED, queued=True)
+    # the host replay runs on the first replicas of this stream (replicas
+    # never interact, so their rows of the R = RUNS trace are their runs)
+    small = batched.EventStream(*[None if a is None else a[:, :HOST_RUNS_QUEUED]
+                                  for a in events])
+    small_meta = batched.EventMeta(*[a[:, :HOST_RUNS_QUEUED] for a in meta])
     e_max = events.pid.shape[0]
     out = {}
     for policy in ("mfi", "mfi-queued"):
         want = dict.fromkeys(wrappers, 0)
         want.update(fragscore=3 * e_max, select_from_base=2 * e_max)
         name = f"queued {policy}"
-        tk, tp, rates, ck = paths_equal(name, events, policy, common, wrappers, want)
+        tk, tp, rates, ck, _ = paths_equal(name, events, policy, common, wrappers, want,
+                                           plain_events=PLAIN_EVENTS)
         for k in totals:
             totals[k] += ck[k]
         agg = batched._aggregate_queued(events, tk, spec, RUNS)
-        check(dicts_equal(agg, batched._aggregate_queued(events, tp, spec, RUNS)),
-              f"{name}: kernel and plain aggregates differ")
 
-        _, t4 = batched._simulate(small, policy=policy, use_kernel=True,
-                                  **common_of(cfg, s_rows, s_cols))
-        t4 = batched.trace_to_numpy(t4)
+        t4 = batched.EventTrace(*[None if a is None else a[:, :HOST_RUNS_QUEUED] for a in tk])
         host = replay.queued_host_decisions(
             small, small_meta, policy, cfg.num_gpus, metric=cfg.metric,
             capacity=cfg.wait_capacity, patience=cfg.wait_patience)
@@ -1238,8 +1300,8 @@ def queued_phase(device, wrappers, totals):
                            launches=ck, e_max=e_max,
                            select_per_event=ck["select_from_base"] / e_max,
                            **{k: agg[k] for k in keys})
-        log(f"{name} (M=100, load {QUEUED_LOAD}, R={RUNS}, E_max={e_max}): traces and "
-            f"aggregates equal (kernel vs plain); launches {ck} "
+        log(f"{name} (M=100, load {QUEUED_LOAD}, R={RUNS}, E_max={e_max}): traces equal "
+            f"(kernel vs plain over the first {PLAIN_EVENTS} events); launches {ck} "
             f"(select_from_base {ck['select_from_base'] / e_max:.2f} per event); "
             + " ".join(f"{k} {agg[k]:.4f}" for k in keys)
             + f"; {int(tk.parked.sum())} parks, {int((tk.wadm_eidx >= 0).sum())} wait-admits"
@@ -1257,6 +1319,383 @@ def protocols_phase(device, wrappers):
                queued=queued_phase(device, wrappers, totals))
     for k in ("fragscore", "select_from_base", "migrate_refine"):
         check(totals[k] > 0, f"{k} never launched on the protocols' paths")
+    out["launches"] = totals
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the faulted protocol and the chunked driver
+# ---------------------------------------------------------------------------
+
+
+def faulted_common(cfg, rows, cols, fm, device):
+    """The engine's keywords of a faulted run of ``cfg`` under ``fm``."""
+    import dataclasses
+
+    import torch
+    from repro_torch.sim import batched
+
+    spec = cfg.spec()
+    proto = dataclasses.replace(batched.resolve_protocol("steady-faulted"),
+                                fault_retries=fm.max_retries, fault_backoff=fm.backoff_base)
+    return dict(metric=cfg.metric, num_gpus=cfg.num_gpus, ring_rows=rows, ring_cols=cols,
+                kernel_spec=spec, protocol=proto, wait_slots=cfg.wait_capacity,
+                wait_patience=cfg.wait_patience,
+                midx=torch.as_tensor(spec.model_index, device=device),
+                tables=batched.spec_tables(spec, device), device=device)
+
+
+def faulted_phase(device, wrappers, totals):
+    """The faulted protocol: the reference's pinned faulted hashes through
+    the kernels; at M = 100, load ``QUEUED_LOAD``, R = ``RUNS`` for mfi,
+    mfi-queued and ff the kernel path (no host sync in its loop) equal to
+    the plain path with exact launches per event, evictions, the fault
+    keys; at R = ``HOST_RUNS_FAULTED`` the card's trace equal to
+    ``replay.faulted_host_decisions``; a profiled window; the recorded
+    fault sweep's mfi rows.  Returns ``(summary, the mfi kernel run)``."""
+    import numpy as np
+    from repro_torch.core import mig
+    from repro_torch.sim import batched, replay
+    from repro_torch.sim.simulator import SimConfig
+
+    fm = mig.FaultModel(mtbf=FAULT_MTBF, mttr=FAULT_MTTR)
+    mixed = mig.ClusterSpec(((mig.A100_80GB, 3), (mig.A100_40GB, 3)))
+    for tag, policy, cfg in (
+            ("homog", "mfi", SimConfig(num_gpus=5, offered_load=1.2, seed=7)),
+            ("mixed", "mfi-queued", SimConfig(cluster_spec=mixed, offered_load=1.1, seed=9))):
+        events, _, rows, cols = batched.presample_arrivals(cfg, 3, queued=True, fault_model=fm)
+        _, trace = batched._simulate(events, policy=policy, use_kernel=True,
+                                     **faulted_common(cfg, rows, cols, fm, device))
+        trace = batched.trace_to_numpy(trace)
+        got = trace_hash(tuple(getattr(trace, f) for f in FAULTED_HASH_FIELDS))
+        check(got == GOLDEN_FAULTED_TRACE_HASHES[tag], f"golden faulted hash {tag}: {got}")
+    log("faulted: the 2 golden faulted trace hashes reproduced with the kernels on")
+
+    cfg = SimConfig(num_gpus=100, offered_load=QUEUED_LOAD, seed=0, protocol="steady-faulted",
+                    fault_model=fm)
+    spec = cfg.spec()
+    t0 = time.perf_counter()
+    events, meta, rows, cols = batched.presample_arrivals(cfg, RUNS, queued=True,
+                                                          fault_model=fm)
+    presample_s = time.perf_counter() - t0
+    common = faulted_common(cfg, rows, cols, fm, device)
+    e_max = events.pid.shape[0]
+    log(f"faulted: presampled (E_max, R, M) = {events.fail.shape}, ring {rows} x {cols}, "
+        f"{int(events.fail.sum())} failures, {presample_s:.2f} s")
+    out = {}
+    mono = None
+    head = batched.EventStream(*[None if a is None else a[:PLAIN_EVENTS] for a in events])
+    for policy in ("mfi", "mfi-queued", "ff"):
+        # mfi runs the whole stream on the kernel path (its rates, the fault
+        # keys, the host replay and the chunked runs' baseline come from it);
+        # every plain path, and mfi-queued and ff, run the first PLAIN_EVENTS
+        name = f"faulted {policy}"
+        run = events if policy == "mfi" else head
+        n = run.pid.shape[0]
+        want = dict.fromkeys(wrappers, 0)
+        want.update(fragscore=3 * n, delta_from_base=0 if policy == "ff" else 2 * n)
+        tk, _, rates, ck, (sk, peak) = paths_equal(name, run, policy, common, wrappers,
+                                                   want, plain_events=PLAIN_EVENTS)
+        for k in totals:
+            totals[k] += ck[k]
+        check(int(tk.evicted.sum()) > 0, f"{name}: no evictions")
+        out[policy] = dict(replica_events_per_s=dict(kernel=rates[0], plain=rates[1]),
+                           launches=ck, events=n, peak_mb=peak / 2**20,
+                           per_event={k: v / n for k, v in ck.items() if v},
+                           evictions=int(tk.evicted.sum()), lost=int(tk.evict_lost.sum()))
+        keys = agg = ()
+        if policy == "mfi":  # run_batched's reduction of this run (host, ~10 s at R = 500)
+            mono = dict(trace=tk, seconds=sk, peak=peak, events=events, common=common)
+            t0 = time.perf_counter()
+            agg = batched._aggregate_faulted(events, tk, spec, RUNS)
+            keys = ("acceptance_rate", "goodput", "evictions", "evictions_lost",
+                    "recovered_fraction", "ttr_p50", "ttr_p99", "wait_p99", "queue_admits")
+            out[policy].update(aggregate_s=time.perf_counter() - t0,
+                               **{k: agg[k] for k in keys})
+        log(f"{name} (M=100, load {QUEUED_LOAD}, MTBF {FAULT_MTBF:g}, MTTR {FAULT_MTTR:g}, "
+            f"R={RUNS}, E_max={e_max}; kernel path over {n} events, plain over "
+            f"{min(n, PLAIN_EVENTS)}): traces equal (kernel vs plain); launches {ck} "
+            f"(per event: " + ", ".join(f"{k} {v / n:.2f}" for k, v in ck.items() if v)
+            + "; select_from_base 0); no host sync in the kernel loop; "
+            + "".join(f"{k} {agg[k]:.4f}" + ("; " if k == keys[-1] else " ") for k in keys)
+            + f"{int(tk.evicted.sum())} evictions ({int(tk.evict_lost.sum())} lost); "
+            f"replica-events/s kernel {rates[0]:.0f} plain {rates[1]:.0f}; peak device "
+            f"memory {peak / 2**20:.1f} MiB over the kernel run's start")
+
+    # the host replay runs on the first replicas of the R = RUNS stream,
+    # against their rows of the mfi kernel run (replicas never interact)
+    small = batched.EventStream(*[None if a is None else a[:, :HOST_RUNS_FAULTED]
+                                  for a in events])
+    small_meta = batched.EventMeta(*[a[:, :HOST_RUNS_FAULTED] for a in meta])
+    t4 = batched.EventTrace(*[None if a is None else a[:, :HOST_RUNS_FAULTED]
+                              for a in mono["trace"]])
+    host = replay.faulted_host_decisions(
+        small, small_meta, "mfi", cfg.num_gpus, metric=cfg.metric, capacity=cfg.wait_capacity,
+        patience=cfg.wait_patience, max_retries=fm.max_retries, backoff_base=fm.backoff_base)
+    ok = t4.ok
+    adm = host.wadm_eidx >= 0
+    pid_w = np.where(adm, small.pid[np.maximum(host.wadm_eidx, 0),
+                                    np.arange(ok.shape[1])[None, :]], 0)
+    check(all(np.array_equal(getattr(t4, f), getattr(host, f))
+              for f in ("ok", "parked", "wadm_eidx", "wadm_gpu", "evicted", "evict_lost",
+                        "evict_esum"))
+          and np.array_equal(np.where(ok, t4.gpu, -1), host.gpu)
+          and np.array_equal(host_anchors(spec, small.pid, np.where(ok, t4.gpu, -1), t4.aidx),
+                             host.anchor)
+          and np.array_equal(host_anchors(spec, pid_w, t4.wadm_gpu, t4.wadm_aidx),
+                             host.wadm_anchor),
+          f"faulted mfi: card trace differs from faulted_host_decisions at R = "
+          f"{HOST_RUNS_FAULTED}")
+    log(f"faulted mfi, replicas 0-{HOST_RUNS_FAULTED - 1} of the R = {RUNS} kernel run: the "
+        f"card's trace equals "
+        f"faulted_host_decisions ({int(host.evicted.sum())} evictions, {int(adm.sum())} "
+        f"wait-admits)")
+    window = engine_windows(device, events, common, ("mfi",), label="faulted ")
+    out["window"] = {f"{k[0]} {k[1]}": v for k, v in window.items()}
+    out["sweep"] = fault_sweep(device, wrappers, totals)
+    return out, mono
+
+
+def fault_sweep(device, wrappers, totals):
+    """The recorded fault sweep's mfi rows on the card, each beside its
+    recorded row (printed, not asserted), and their queued anchor.
+
+    The sweep's points share one arrival stream (the same configuration
+    and seed; the fault draws come after every other draw) and differ
+    only in their fail/recover lanes, and replicas never interact, so the
+    five MTBF points run as five blocks of ``FAULT_SWEEP_RUNS`` replicas in
+    one engine run, each block reduced on its own; ``run_batched`` at MTBF
+    60 must return its block's dict.  The anchor is ``run_batched`` under
+    ``steady-queued``, as in the benchmark (the faulted protocol re-arms a
+    patience overrun that the queued one drops, so a fault-free faulted
+    run is not the anchor)."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.core import mig
+    from repro_torch.sim import batched
+    from repro_torch.sim.simulator import SimConfig
+
+    recorded = {line.split(",")[2]: line
+                for line in (ROOT / FAULT_SWEEP_CSV).read_text().splitlines()
+                if line.startswith("faults,mfi,")}
+    base = SimConfig(num_gpus=100, distribution="uniform", offered_load=QUEUED_LOAD, seed=0,
+                     protocol="steady-faulted", wait_capacity=8, wait_patience=16,
+                     num_tenants=4)
+    spec = base.spec()
+    fms = [mig.FaultModel(mtbf=m, mttr=FAULT_MTTR, max_retries=2) for m in FAULT_SWEEP_MTBFS]
+    streams = [batched.presample_arrivals(base, FAULT_SWEEP_RUNS, queued=True, fault_model=fm)
+               for fm in fms]
+    first, _, rows, cols = streams[0]
+    check(all(s[2:] == (rows, cols) and np.array_equal(s[0].pid, first.pid) for s in streams),
+          "fault sweep: the points' arrival streams differ")
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    anchor = batched.run_batched("mfi", dataclasses.replace(base, protocol="steady-queued"),
+                                 runs=FAULT_SWEEP_RUNS, device=device)["acceptance_rate"]
+    log(f"fault sweep anchor (run_batched, steady-queued mfi, R={FAULT_SWEEP_RUNS}): "
+        f"acceptance {anchor:.4f} ({time.perf_counter() - t0:.2f} s)")
+    for k, fn in wrappers.items():
+        totals[k] += fn.launches
+    blocks = [s[0] for s in streams]
+    events = batched.EventStream(*[
+        None if a is None else np.concatenate([getattr(b, name) for b in blocks], axis=1)
+        for name, a in zip(batched.EventStream._fields, first)])
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    _, trace = batched._simulate(events, policy="mfi", use_kernel=True,
+                                 **faulted_common(base, rows, cols, fms[0], device))
+    trace = batched.trace_to_numpy(trace)
+    seconds = time.perf_counter() - t0
+    counts = {k: fn.launches for k, fn in wrappers.items()}
+    e_max = events.pid.shape[0]
+    want = dict.fromkeys(wrappers, 0)
+    want.update(fragscore=3 * e_max, delta_from_base=2 * e_max)
+    check(counts == want, f"fault sweep: launch counts {counts} != {want}")
+    for k in totals:
+        totals[k] += counts[k]
+
+    def block(nt, b):
+        lo, hi = b * FAULT_SWEEP_RUNS, (b + 1) * FAULT_SWEEP_RUNS
+        return type(nt)(*[None if a is None else a[:, lo:hi] for a in nt])
+
+    log(f"fault sweep: {len(blocks)} blocks of R={FAULT_SWEEP_RUNS} (MTBF "
+        f"{', '.join(f'{m:g}' for m in FAULT_SWEEP_MTBFS)}) in one run of "
+        f"R={events.pid.shape[1]}, E_max={e_max}: {seconds:.2f} s, launches {counts}")
+    points = {}
+    for b, mtbf in enumerate(FAULT_SWEEP_MTBFS):
+        r = batched._aggregate_faulted(block(events, b), block(trace, b), spec, FAULT_SWEEP_RUNS)
+        row = (f"faults,mfi,{mtbf:g},{r['acceptance_rate']:.4f},{anchor:.4f},"
+               f"{r['goodput']:.4f},{r['evictions']:.2f},{r['recovered_fraction']:.4f},"
+               f"{r['ttr_p50']:.2f},{r['ttr_p99']:.2f}")
+        rec = recorded.get(f"{mtbf:g}")
+        points[f"{mtbf:g}"] = dict(row=row, recorded=rec, same=row == rec, result=r)
+        log(f"fault sweep mtbf {mtbf:g}: this run {row}; recorded {rec}; "
+            f"{'same' if row == rec else 'differs'}")
+    same = sum(p["same"] for p in points.values())
+    log(f"fault sweep: {same} of {len(points)} mfi rows print the recorded row "
+        f"({FAULT_SWEEP_CSV})")
+
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    got = batched.run_batched("mfi", dataclasses.replace(base, fault_model=fms[1]),
+                              runs=FAULT_SWEEP_RUNS, device=device, chunk_size=FAULTED_CHUNK)
+    seconds = time.perf_counter() - t0
+    for k, fn in wrappers.items():
+        totals[k] += fn.launches
+    want = points[f"{FAULT_SWEEP_MTBFS[1]:g}"].pop("result")
+    check(dicts_equal(got, want), "fault sweep: run_batched differs from its block")
+    for p in points.values():
+        p.pop("result", None)
+    keys = ("goodput", "evictions", "evictions_lost", "recovered_fraction", "ttr_p50",
+            "ttr_p99")
+    log(f"run_batched mfi at MTBF {FAULT_SWEEP_MTBFS[1]:g} (R={FAULT_SWEEP_RUNS}, chunk_size "
+        f"{FAULTED_CHUNK}): equal to its block; " + " ".join(f"{k} {got[k]:.4f}" for k in keys) + f" ({seconds:.2f} s)")
+    return dict(anchor_acceptance=anchor, points=points,
+                run_batched={k: got[k] for k in keys})
+
+
+def chunked_check(name, events, policy, common, chunk, want_trace, wrappers, want_counts,
+                  tmp):
+    """``simulate_chunked`` over ``events`` at ``chunk`` events a chunk
+    (kernels on; launch counts reset just before), checkpointing after
+    chunk 2: its trace equal to ``want_trace``; then the checkpoint
+    restored into a fresh carry and resumed for one more chunk, equal too.
+    Returns its numbers."""
+    import numpy as np
+    import torch
+    from repro_torch.sim import batched
+
+    e_max, runs = events.pid.shape
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    done = 2 * chunk
+    path = tmp / f"{name.replace(' ', '_')}_{chunk}"
+    save = batched.save_stream_checkpoint
+
+    def save_once(p, state, events_done, metadata=None):  # keep only chunk 2's
+        if events_done == done:
+            save(p, state, events_done, metadata)
+
+    batched.save_stream_checkpoint = save_once
+    t0 = time.perf_counter()
+    try:
+        _, trace = batched.simulate_chunked(events, chunk_size=chunk, policy=policy,
+                                            use_kernel=True, stats=stats,
+                                            checkpoint_path=path, checkpoint_every=2, **common)
+    finally:
+        batched.save_stream_checkpoint = save
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    counts = {k: fn.launches for k, fn in wrappers.items()}
+    for field in batched.EventTrace._fields:
+        a, b = getattr(trace, field), getattr(want_trace, field)
+        check((a is None) == (b is None) and (a is None or np.array_equal(a, b)),
+              f"{name} chunk {chunk}: trace differs from the monolithic run in {field}")
+    check(counts == want_counts, f"{name} chunk {chunk}: launches {counts} != {want_counts}")
+
+    statics = {k: v for k, v in common.items() if k not in ("ring_rows", "ring_cols")}
+    template = batched.init_carry(runs, policy=policy, use_kernel=True,
+                                  ring_rows=common["ring_rows"],
+                                  ring_cols=common["ring_cols"], **statics)
+    state, step = batched.load_stream_checkpoint(path, template)
+    check(step == done, f"{name}: checkpoint step {step} != {done}")
+    end = min(e_max, done + chunk)
+    upto = batched.EventStream(*[None if a is None else a[:end] for a in events])
+    _, tail = batched.simulate_chunked(upto, chunk_size=chunk, policy=policy,
+                                       use_kernel=True, carry=state, start=done, **common)
+    for field in batched.EventTrace._fields:
+        a, b = getattr(tail, field), getattr(want_trace, field)
+        check((a is None) == (b is None) and (a is None or np.array_equal(a, b[done:end])),
+              f"{name} chunk {chunk}: resumed tail differs from the monolithic run in {field}")
+    res = dict(seconds=seconds, replica_events_per_s=runs * e_max / seconds,
+               peak_mb=peak / 2**20, chunks=stats["chunks"],
+               h2d_overlap_frac=stats["h2d_overlap_frac"], h2d_seconds=stats["h2d_seconds"],
+               h2d_mb=stats["h2d_bytes"] / 2**20, d2h_seconds=stats["d2h_seconds"],
+               launches=counts)
+    log(f"{name} chunked at {chunk}: trace equal to the monolithic run; resumed from the "
+        f"checkpoint after chunk 2 (event {done}): events {done}-{end} equal; "
+        f"{stats['chunks']} chunks, "
+        f"h2d_overlap_frac {stats['h2d_overlap_frac']:.4f}, h2d {stats['h2d_bytes'] / 2**20:.1f} "
+        f"MiB in {stats['h2d_seconds']:.3f} s of staging, d2h wait {stats['d2h_seconds']:.3f} s; "
+        f"wall {seconds:.2f} s with the checkpoint ({runs * e_max / seconds:.0f} "
+        f"replica-events/s); peak device "
+        f"memory {peak / 2**20:.1f} MiB over the run's start")
+    return res
+
+
+def chunked_phase(device, wrappers, totals, faulted_mono):
+    """``simulate_chunked`` against the monolithic runs: the Fig. 4 point
+    (steady mfi, R = ``RUNS``) at ``STEADY_CHUNKS`` and the faulted point
+    (mfi) at ``FAULTED_CHUNK``, with a resume each."""
+    import tempfile
+
+    import torch
+    from repro_torch.sim import batched
+
+    out = {}
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        _, _, events, common = paper_stream(device)
+        e_max = events.pid.shape[0]
+        batched._simulate(batched.EventStream(*[None if a is None else a[:32] for a in events]),
+                          policy="mfi", use_kernel=True, **common)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        _, mono = batched._simulate(events, policy="mfi", use_kernel=True, **common)
+        mono = batched.trace_to_numpy(mono)
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        out["steady mfi"] = dict(monolithic=dict(seconds=seconds, peak_mb=peak / 2**20,
+                                                 replica_events_per_s=RUNS * e_max / seconds))
+        log(f"steady mfi monolithic (R={RUNS}, E_max={e_max}): wall {seconds:.2f} s, peak "
+            f"device memory {peak / 2**20:.1f} MiB over the run's start")
+        want = dict.fromkeys(wrappers, 0)
+        want.update(fragscore=2 * e_max, select_from_base=e_max)
+        for chunk in STEADY_CHUNKS:
+            res = chunked_check("steady mfi", events, "mfi", common, chunk, mono, wrappers,
+                                want, tmp)
+            out["steady mfi"][str(chunk)] = res
+            for k in totals:
+                totals[k] += res["launches"][k]
+
+        events, common = faulted_mono["events"], faulted_mono["common"]
+        e_max = events.pid.shape[0]
+        out["faulted mfi"] = dict(monolithic=dict(
+            seconds=faulted_mono["seconds"], peak_mb=faulted_mono["peak"] / 2**20,
+            replica_events_per_s=RUNS * e_max / faulted_mono["seconds"]))
+        lanes = 2 * events.fail.nbytes
+        log(f"faulted mfi monolithic (R={RUNS}, E_max={e_max}): wall "
+            f"{faulted_mono['seconds']:.2f} s, peak device memory "
+            f"{faulted_mono['peak'] / 2**20:.1f} MiB (fail/recover lanes {lanes / 2**20:.1f} "
+            f"MiB of it; two staged chunks of {FAULTED_CHUNK} hold "
+            f"{2 * lanes * FAULTED_CHUNK / e_max / 2**20:.1f} MiB)")
+        want = dict.fromkeys(wrappers, 0)
+        want.update(fragscore=3 * e_max, delta_from_base=2 * e_max)
+        res = chunked_check("faulted mfi", events, "mfi", common, FAULTED_CHUNK,
+                            faulted_mono["trace"], wrappers, want, tmp)
+        out["faulted mfi"][str(FAULTED_CHUNK)] = res
+        for k in totals:
+            totals[k] += res["launches"][k]
+    return out
+
+
+def faults_phase(device, wrappers):
+    totals = dict.fromkeys(wrappers, 0)
+    faulted, mono = faulted_phase(device, wrappers, totals)
+    out = dict(faulted=faulted, chunked=chunked_phase(device, wrappers, totals, mono))
+    for k in ("fragscore", "delta_from_base", "select_from_base"):
+        check(totals[k] > 0, f"{k} never launched on the faulted and chunked paths")
     out["launches"] = totals
     return out
 
@@ -2029,23 +2468,41 @@ def main() -> int:
     wrappers = {"fragscore": K.fragscore, "delta_from_base": K.delta_from_base,
                 "select_from_base": K.select_from_base, "migrate_refine": K.migrate_refine,
                 "decode_attention": D.decode_attention, "mfi_delta": K.mfi_delta}
+    clock = [time.perf_counter()]
+
+    def lap(phase):
+        now = time.perf_counter()
+        log(f"phase {phase}: {now - clock[0]:.1f} s")
+        clock[0] = now
+
     rows = kernel_phase(device)
+    lap(3)
     golden_phase(device)
+    lap(4)
     steady, rates = full_width_phase(device)
     fig5, fig5_launches = fig5_phase(device, wrappers)
+    lap(5)
     rows["decode_attention"] = decode_attention_phase(device)
+    lap(6)
     serving = serving_phase(device, wrappers)
+    lap(7)
     rows["mfi_delta"] = mfi_delta_phase(device)
+    lap(8)
     decisions = decision_phase(device, wrappers)
+    lap(9)
     protocols = protocols_phase(device, wrappers)
+    lap(10)
+    faults = faults_phase(device, wrappers)
+    lap(11)
     # each path's launches, counted from zero just before it ran
     by_path = {name: dict.fromkeys(wrappers, 0) for name in (
-        "steady", "fig5", "serving", "decisions", "protocols")}
+        "steady", "fig5", "serving", "decisions", "protocols", "faults")}
     by_path["steady"].update(steady)
     by_path["fig5"].update(fig5_launches)
     by_path["serving"]["decode_attention"] = serving["launches"]
     by_path["decisions"]["mfi_delta"] = decisions["launches"]
     by_path["protocols"].update(protocols["launches"])
+    by_path["faults"].update(faults["launches"])
     totals = {k: sum(p[k] for p in by_path.values()) for k in wrappers}
 
     kernels = []
@@ -2068,6 +2525,7 @@ def main() -> int:
     log(json.dumps({"decisions": decisions}))
     log(json.dumps({"fig5": fig5}))
     log(json.dumps({"protocols": protocols}))
+    log(json.dumps({"faults": faults}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -42,10 +42,6 @@ from repro_torch.core.policy import (  # noqa: F401  (re-exported API)
 )
 from repro_torch.core.schedulers import Scheduler, compile_policy, make_scheduler
 
-#: where the batched-engine knobs the port lacks stand in ROADMAP.md
-_NOT_PORTED = "ROADMAP.md §1 item 10, chunked streaming and checkpoints"
-
-
 def make_policy(policy: PolicyLike, metric: str = "blocked") -> Scheduler:
     """Compile a registered policy name (or ad-hoc spec) for the host
     engine — alias of :func:`repro_torch.core.schedulers.make_scheduler`."""
@@ -72,17 +68,22 @@ def simulate(
         (``num_gpus``, ``offered_load``, ``distribution``,
         ``cluster_spec``, ...) when omitted.
       engine: ``"python"`` (the host reference loop,
-        :func:`repro_torch.sim.run_many`, every protocol) or ``"batched"``
-        (:func:`repro_torch.sim.batched.run_batched`: the ``steady``,
-        ``cumulative`` and ``steady-queued`` protocols, taken from
-        ``cfg.protocol``; ``steady-faulted`` raises
-        ``NotImplementedError`` there, ROADMAP.md §1 item 9).
+        :func:`repro_torch.sim.run_many`) or ``"batched"``
+        (:func:`repro_torch.sim.batched.run_batched`); both run every
+        protocol (``steady`` | ``cumulative`` | ``steady-queued`` |
+        ``steady-faulted``, taken from ``cfg.protocol``; the faulted one
+        needs ``cfg.fault_model``).
       runs: replicas to average (the paper uses 500).
       use_kernel: batched engine only — route the stages through the CUDA
         kernels (default: on a CUDA device, unless the spec opts out).
-      chunk_size, stream: the reference's chunked-streaming knobs of the
-        batched engine; not ported (``NotImplementedError`` on either
-        engine).
+      chunk_size: batched engine only — run the events through the chunked
+        streaming driver (:func:`repro_torch.sim.batched.simulate_chunked`):
+        the device holds one replica carry plus two staged chunks of the
+        stream instead of the whole stream, with the same results for any
+        chunk size.  ``None`` (default) runs the whole stream at once.
+      stream: chunked runs only — ``True`` (default) copies each chunk's
+        trace back to the host as it completes; ``False`` keeps the trace
+        on the device.
       device: batched engine only — ``None`` means the card; pass
         ``"cpu"`` for the plain torch versions.
 
@@ -97,12 +98,18 @@ def simulate(
         cfg = SimConfig(**cfg_kwargs)
     elif cfg_kwargs:
         raise ValueError("pass either cfg or SimConfig kwargs, not both")
-    if chunk_size is not None or stream is not None:
-        raise NotImplementedError(
-            f"chunk_size/stream are not ported to repro_torch yet ({_NOT_PORTED})"
+    if chunk_size is not None and chunk_size <= 0:
+        raise ValueError(
+            f"chunk_size must be a positive event count (or None for the "
+            f"monolithic scan), got {chunk_size}"
         )
     if engine == "batched":
-        return run_batched(spec, cfg, runs=runs, use_kernel=use_kernel, device=device)
+        return run_batched(spec, cfg, runs=runs, use_kernel=use_kernel, device=device,
+                           chunk_size=chunk_size, stream=stream)
+    if chunk_size is not None or stream is not None:
+        raise ValueError(
+            "chunk_size/stream are batched-engine knobs; pass engine='batched'"
+        )
     if device is not None:
         raise ValueError("device is a batched-engine knob; pass engine='batched'")
     return run_many(spec, cfg, runs=runs)

@@ -6,10 +6,13 @@ Two engines simulate the same load model:
   replica at a time, every protocol (``steady`` | ``cumulative`` |
   ``steady-queued`` | ``steady-faulted``);
 * :mod:`repro_torch.sim.batched` — the batched engine on the device: R
-  replicas stepped together through a presampled event stream, the
-  ``steady``, ``cumulative`` and ``steady-queued`` protocols
-  (:mod:`repro_torch.sim.replay` replays its traces on the host and
-  drives the host schedulers over the same streams).
+  replicas stepped together through a presampled event stream, every
+  protocol (``steady`` | ``cumulative`` | ``steady-queued`` |
+  ``steady-faulted``), the whole stream at once or through the chunked
+  streaming driver (``simulate_chunked``: a staged host-to-device feed,
+  the carry checkpointed by :mod:`repro_torch.checkpoint`);
+  :mod:`repro_torch.sim.replay` replays its traces on the host and drives
+  the host schedulers over the same streams.
 
 Both run every registered policy (``mfi-defrag``'s migration search
 included) and accept a heterogeneous ``SimConfig.cluster_spec``

@@ -2,13 +2,15 @@
 
 R replicas step together through a host-presampled event stream: per event
 the staged :class:`EngineCore` runs *measure* (slot-boundary metrics;
-steady protocols), *expire* (drain this slot's expiry-ring row), *wait*
-(queued protocol: prune the wait ring and try to admit its head),
-*select* (the policy's decision), *migrate* (defrag specs: the
-single-migration search on reject), *commit*, *park* (queued: a rejected
-arrival enters the wait ring) and *post-measure* (cumulative protocol)
-over all replicas at once.  The replica axis is an explicit leading ``R``
-dimension of every state tensor, and the event scan is a Python loop over
+steady protocols), *expire* (drain this slot's expiry-ring row), *fault*
+(faulted protocol: this slot's GPU failures and recoveries, evicting and
+re-queueing the failed GPUs' workloads), *wait* (queued protocols: prune
+the wait ring and try to admit its head), *select* (the policy's
+decision), *migrate* (defrag specs: the single-migration search on
+reject), *commit*, *park* (queued: a rejected arrival enters the wait
+ring) and *post-measure* (cumulative protocol) over all replicas at
+once.  The replica axis is an explicit leading ``R`` dimension of every
+state tensor, and the event scan is a Python loop over
 events on state tensors that stay on the device: nothing leaves the
 device until the trace is fetched once at the end.  State is updated in
 place: the reference's ``x.at[i].add`` with repeated indices becomes
@@ -16,18 +18,23 @@ place: the reference's ``x.at[i].add`` with repeated indices becomes
 indices exactly because every quantity is an integer held in
 float32/int32.
 
-Three protocols run here: ``steady`` (the paper's experiment),
-``cumulative`` (one arrival per slot until the demand grid is crossed)
-and ``steady-queued`` (the steady stream with a bounded, tenant-aware wait
-ring); ``steady-faulted`` is not ported yet.
+Four protocols run here: ``steady`` (the paper's experiment),
+``cumulative`` (one arrival per slot until the demand grid is crossed),
+``steady-queued`` (the steady stream with a bounded, tenant-aware wait
+ring) and ``steady-faulted`` (the queued protocol under per-GPU failures
+with retry and backoff).  :func:`simulate_chunked` drives any of them in
+chunks of events from a host stream staged through pinned buffers, with
+the carry checkpointed through :mod:`repro_torch.checkpoint`.
 
 Policies are the registry's :class:`~repro_torch.core.policy.PolicySpec`\\ s,
 lowered to a masked-refinement lexicographic argmin over the
 ``(R, M, A)`` candidate tensor (:func:`_lower_select`).  Under
 ``use_kernel`` the stages go through the hand-written CUDA kernels:
 ``select_from_base`` for argmin-fusable specs (mfi, ff, bf-bi, wf-bi; the
-queued protocol's wait head too), ``delta_from_base`` for ΔF specs that
-keep the plain argmin (``kernel_lowering="delta"``), ``migrate_refine``
+queued protocol's wait head too; not under the faulted protocol, whose
+up-mask the kernel cannot see), ``delta_from_base`` for ΔF specs that
+keep the plain argmin (``kernel_lowering="delta"``, and every ΔF spec
+under the faulted protocol), ``migrate_refine``
 for the migrate search of fusable defrag specs (mfi-defrag), and
 ``fragscore`` for the drain/commit rescore on homogeneous fleets (which
 then tracks occupancy).  rr carries the unfusable ``rr-distance`` key, so
@@ -40,10 +47,12 @@ protocols' int32 ``free_sum``/``active`` and float32 ``frag``; the
 cumulative protocol's int32 ``post_free``/``post_active`` and float32
 ``post_frag``; defrag specs' bool ``mig`` and four int32 ``mig*``; the
 queued protocol's bool ``parked`` and int32 ``wadm_eidx``/``wadm_gpu``/
-``wadm_aidx``; each laid out ``(E_max, R)``, ``None`` where the protocol
+``wadm_aidx``; the faulted protocol's int32 ``evicted``/``evict_lost``/
+``evict_esum``; each laid out ``(E_max, R)``, ``None`` where the protocol
 or spec produces no such field), so they reproduce its golden SHA-256
 hashes, and :func:`state_from_numpy` / :func:`state_to_numpy` carry a
-replica state, wait ring included, between the two packages.
+replica state, wait ring and fault planes included, between the two
+packages.
 
 Entry points take ``device=None``, meaning ``"cuda"``; with no card they
 raise.  Pass ``device="cpu"`` to run the plain torch versions on the CPU.
@@ -53,6 +62,8 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import heapq
+import time
 from typing import Dict, Mapping, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -97,8 +108,9 @@ class Protocol:
     ``boundary_metrics`` samples utilization / active-GPU / fragmentation
     at slot boundaries before the drain (the steady protocols);
     ``post_metrics`` samples after every commit (cumulative); ``queued``
-    adds the wait ring and ``faulted`` the fault stage.  Every protocol but
-    the faulted one is ported.
+    adds the wait ring and ``faulted`` the fault stage, whose retry budget
+    and backoff base ride in ``fault_retries``/``fault_backoff``
+    (:func:`run_batched` fills them from ``SimConfig.fault_model``).
     """
 
     name: str
@@ -122,27 +134,20 @@ PROTOCOLS: Dict[str, Protocol] = {
     ),
 }
 
-#: where the faulted protocol, not ported yet, stands in ROADMAP.md
-_NOT_PORTED = "ROADMAP.md §1 item 9, faulted protocol"
+#: where the replica split across cards stands in ROADMAP.md
+_NOT_PORTED_SHARD = "ROADMAP.md §1 item 11, replica split across GPUs"
 
 
 def resolve_protocol(protocol: Union[str, Protocol]) -> Protocol:
     """Name-or-descriptor -> :class:`Protocol`; unknown names raise
-    ``ValueError``, the faulted protocol (not ported yet)
-    ``NotImplementedError``."""
+    ``ValueError``."""
     if isinstance(protocol, Protocol):
-        proto = protocol
-    elif protocol in PROTOCOLS:
-        proto = PROTOCOLS[protocol]
-    else:
-        raise ValueError(
-            f"unknown protocol {protocol!r}; options: {tuple(sorted(PROTOCOLS))}"
-        )
-    if proto.faulted:
-        raise NotImplementedError(
-            f"protocol {proto.name!r} is not ported to repro_torch yet ({_NOT_PORTED})"
-        )
-    return proto
+        return protocol
+    if protocol in PROTOCOLS:
+        return PROTOCOLS[protocol]
+    raise ValueError(
+        f"unknown protocol {protocol!r}; options: {tuple(sorted(PROTOCOLS))}"
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -418,11 +423,12 @@ def _feasibility(base, rows, valid) -> torch.Tensor:
 
 
 def _select(spec, base, free, f, metric, tables, midx, vg, pid, cursor,
-            delta_fn=None, select_fn=None):
+            delta_fn=None, select_fn=None, gpu_ok=None):
     """Shared decision path: ``(gpu, aidx, ok)`` per replica.
 
     ``select_fn`` runs the whole stage in the fused kernel; ``delta_fn``
     routes only the ΔF table through its kernel; ``None`` uses plain torch.
+    ``gpu_ok (R, M)`` masks out GPUs that are down (faulted protocol).
     """
     if select_fn is not None:
         return select_fn(base, free, f, pid)
@@ -432,6 +438,8 @@ def _select(spec, base, free, f, metric, tables, midx, vg, pid, cursor,
     mem_g = tables.profile_mem[mi, pi]       # (R, M)
     anchors_g = tables.profile_anchors[mi, pi]  # (R, M, A), -1 where padded
     feasible = _feasibility(base, rows, valid)
+    if gpu_ok is not None:
+        feasible = feasible & gpu_ok[:, :, None]
     delta = None
     if spec.requires_delta_f:  # ΔF table only for specs whose keys use it
         if delta_fn is not None:
@@ -977,6 +985,16 @@ class ReplicaState(NamedTuple):
     wait_ten: Optional[torch.Tensor] = None   # (R, Q) int32 — tenant id
     wait_eidx: Optional[torch.Tensor] = None  # (R, Q) int32 — original event index
     ev: Optional[torch.Tensor] = None         # (R,) int32 — running event index
+    # faulted protocol only (else None): GPU availability, the ring planes
+    # that let an eviction re-queue a live entry with its whole identity,
+    # and the wait ring's retry and backoff bookkeeping
+    up: Optional[torch.Tensor] = None         # (R, M) bool — GPU accepting placements
+    ring_end: Optional[torch.Tensor] = None   # (R, K+2, E) int32 — absolute lease deadline
+    ring_eidx: Optional[torch.Tensor] = None  # (R, K+2, E) int32 — original event index
+    ring_prio: Optional[torch.Tensor] = None  # (R, K+2, E) int32 — priority class
+    ring_ten: Optional[torch.Tensor] = None   # (R, K+2, E) int32 — tenant id
+    wait_try: Optional[torch.Tensor] = None   # (R, Q) int32 — re-queue attempts so far
+    wait_rdy: Optional[torch.Tensor] = None   # (R, Q) int32 — earliest admission slot
 
 
 class EventStream(NamedTuple):
@@ -995,6 +1013,10 @@ class EventStream(NamedTuple):
     prio: Optional[np.ndarray] = None    # int32 — priority class of the arrival
     tenant: Optional[np.ndarray] = None  # int32 — tenant id of the arrival
     wlive: Optional[np.ndarray] = None   # bool — real event (not padding/sentinel)
+    # faulted protocol only, ``(E_max, R, M)``: set on the first event of
+    # each slot only, so each slot's fail/recover set applies once
+    fail: Optional[np.ndarray] = None     # bool — GPU m fails at this slot
+    recover: Optional[np.ndarray] = None  # bool — GPU m recovers at this slot
 
 
 class EventMeta(NamedTuple):
@@ -1010,8 +1032,9 @@ class EventTrace(NamedTuple):
     ``aidx`` exist where the protocol or spec produces them and are
     ``None`` otherwise, as in the reference: the slot-boundary metrics
     for the steady protocols, the ``post_*`` metrics for the cumulative
-    one, the ``mig*`` fields for defrag specs, and ``parked`` / ``wadm_*``
-    for the queued protocol."""
+    one, the ``mig*`` fields for defrag specs, ``parked`` / ``wadm_*``
+    for the queued protocols and ``evicted`` / ``evict_*`` for the faulted
+    one."""
 
     ok: object        # bool — arrival accepted
     gpu: object       # int32 — chosen GPU (0 when not accepted)
@@ -1031,6 +1054,9 @@ class EventTrace(NamedTuple):
     wadm_eidx: object = None  # int32 — original event index of the wait-admit (-1 none)
     wadm_gpu: object = None   # int32 — the wait-admit's GPU (-1 none)
     wadm_aidx: object = None  # int32 — the wait-admit's anchor index (-1 none)
+    evicted: object = None     # int32 — live entries evicted by failing GPUs
+    evict_lost: object = None  # int32 — evictions lost (wait ring full, no retry budget)
+    evict_esum: object = None  # int32 — Σ original event indexes of the evictions
 
 
 _TRACE_DTYPES = dict(
@@ -1039,7 +1065,8 @@ _TRACE_DTYPES = dict(
     post_active=torch.int32, post_frag=torch.float32, mig=torch.bool,
     mig_from_gpu=torch.int32, mig_from_anchor=torch.int32, mig_to_gpu=torch.int32,
     mig_to_anchor=torch.int32, parked=torch.bool, wadm_eidx=torch.int32,
-    wadm_gpu=torch.int32, wadm_aidx=torch.int32,
+    wadm_gpu=torch.int32, wadm_aidx=torch.int32, evicted=torch.int32,
+    evict_lost=torch.int32, evict_esum=torch.int32,
 )
 
 
@@ -1054,16 +1081,23 @@ def _trace_fields(proto: Protocol, pspec: PolicySpec) -> Tuple[str, ...]:
         names += ["mig", "mig_from_gpu", "mig_from_anchor", "mig_to_gpu", "mig_to_anchor"]
     if proto.queued:
         names += ["parked", "wadm_eidx", "wadm_gpu", "wadm_aidx"]
+    if proto.faulted:
+        names += ["evicted", "evict_lost", "evict_esum"]
     return tuple(names)
 
 
 def _init_state(tables: SpecTables, midx: torch.Tensor, runs: int,
                 ring_rows: int, ring_cols: int, track_occ: bool,
-                track_alloc: bool, wait_slots: int = 0) -> ReplicaState:
+                track_alloc: bool, wait_slots: int = 0,
+                faulted: bool = False) -> ReplicaState:
+    """The initial state; the faulted protocol tracks every live entry's
+    whole identity on the ring (class and anchor planes too), so that an
+    eviction can re-queue it."""
     dev = tables.W.device
     num_gpus = midx.shape[0]
     n, s = tables.W.shape[1], tables.W.shape[2]
     i32 = dict(dtype=torch.int32, device=dev)
+    track_alloc = track_alloc or faulted
     st = ReplicaState(
         occ=torch.zeros((runs, num_gpus, s), **i32) if track_occ else None,
         base=torch.zeros((runs, num_gpus, n), dtype=torch.float32, device=dev),
@@ -1077,16 +1111,24 @@ def _init_state(tables: SpecTables, midx: torch.Tensor, runs: int,
     )
     if not wait_slots:
         return st
+    fault_only = () if faulted else ("wait_try", "wait_rdy")
     wait = {name: torch.zeros((runs, wait_slots), **i32)
-            for name in ReplicaState._fields if name.startswith("wait_")}
+            for name in ReplicaState._fields
+            if name.startswith("wait_") and name not in fault_only}
     wait["wait_pid"].fill_(-1)
-    return st._replace(ev=torch.zeros((runs,), **i32), **wait)
+    st = st._replace(ev=torch.zeros((runs,), **i32), **wait)
+    if not faulted:
+        return st
+    ring = {name: torch.zeros((runs, ring_rows, ring_cols), **i32)
+            for name in ("ring_end", "ring_eidx", "ring_prio", "ring_ten")}
+    return st._replace(up=torch.ones((runs, num_gpus), dtype=torch.bool, device=dev), **ring)
 
 
 def _occ_from_ring(st: ReplicaState, num_gpus: int) -> torch.Tensor:
-    """Occupancy rebuilt from the expiry ring: in the steady, cumulative and
-    queued protocols every running workload is one live ring entry (drained,
-    stale and trash entries hold zero masks; parked requests hold none)."""
+    """Occupancy rebuilt from the expiry ring: in every protocol each
+    running workload is one live ring entry (drained, stale, evicted and
+    trash entries hold zero masks; parked requests hold none, and a failed
+    GPU holds no live entry)."""
     r, rows, cols, s = st.ring_mask.shape
     occ = torch.zeros((r * num_gpus, s), dtype=torch.int32, device=st.base.device)
     rows_of = torch.arange(r, device=occ.device)[:, None, None] * num_gpus + st.ring_gpu
@@ -1096,11 +1138,12 @@ def _occ_from_ring(st: ReplicaState, num_gpus: int) -> torch.Tensor:
 
 def state_from_numpy(d: Mapping[str, np.ndarray], device) -> ReplicaState:
     """A :class:`ReplicaState` from numpy arrays keyed by field name — e.g.
-    the reference's vmapped ``ReplicaState`` after ``jax.device_get`` (its
-    fields of the faulted protocol are ignored; ``ring_pid``/``ring_aidx``
-    and the wait ring with ``ev`` are carried where present, as for defrag
-    specs and the queued protocol).  A missing ``occ`` is rebuilt from the
-    expiry ring."""
+    the reference's vmapped ``ReplicaState`` after ``jax.device_get``.
+    Every field present is carried (``ring_pid``/``ring_aidx`` of defrag
+    specs, the wait ring with ``ev`` of the queued protocols, ``up``, the
+    ``ring_end/eidx/prio/ten`` planes and ``wait_try/rdy`` of the faulted
+    one); a missing field stays ``None``.  A missing ``occ`` is rebuilt
+    from the expiry ring."""
     dev = torch.device(device)
     fields = {
         name: None if d.get(name) is None else torch.from_numpy(np.array(d[name])).to(dev)
@@ -1133,8 +1176,9 @@ class EngineCore:
 
     Stage order within one event is the simulators' semantic order:
     *measure* the just-finished slot (steady protocols), *expire* this
-    slot's ring row, *wait* (queued: admit the wait ring's head ahead of
-    the arrival), *select*, *migrate* (defrag specs, on reject), *commit*,
+    slot's ring row, *fault* (faulted: this slot's failures and
+    recoveries), *wait* (queued: admit the wait ring's head ahead of the
+    arrival), *select*, *migrate* (defrag specs, on reject), *commit*,
     *park* (queued: a rejected arrival enters the wait ring) and *measure*
     the post-commit state (cumulative).  ``frag_fn``/``delta_fn``/
     ``select_fn``/``migrate_fn`` route the stages through the CUDA kernels
@@ -1163,6 +1207,12 @@ class EngineCore:
         # reciprocal of M (18 / 5 gives 3.6000001, not 3.6), so does this
         one = torch.tensor(1.0, dtype=torch.float32)
         self.inv_num_gpus = (one / float(self.midx.shape[0])).to(dev)
+        if self.protocol.faulted:
+            # btable[k]: the wait after re-queue attempt k (1-based),
+            # fault_backoff · 2^(k-1), clamped at the retry budget
+            b, r = self.protocol.fault_backoff, self.protocol.fault_retries
+            self.btable = torch.tensor([b * 2 ** max(0, k - 1) for k in range(r + 2)],
+                                       dtype=torch.int32, device=dev)
 
     def _rescore(self, st: ReplicaState, idx) -> torch.Tensor:
         """F of the GPUs at ``idx`` (an advanced index into the (R, M) axes)."""
@@ -1200,13 +1250,67 @@ class EngineCore:
         st.f[idx] = self._rescore(st, idx)
         st.ring_mask[self.ridx, dr] = st.ring_mask[self.ridx, dr] * (1 - ns)[:, None, None]
 
+    def _stage_fault(self, st: ReplicaState, fail, rec, t):
+        """Faulted protocol: apply this slot's fail/recover lanes ``(R, M)``.
+
+        Runs after the expire drain (a lease ending the very slot its GPU
+        dies still completes) and before the wait stage.  A failing GPU is
+        cleared wholesale: every live allocation is a ring entry, so zeroing
+        its occupancy, window counts and F and restoring its free slices
+        equals releasing each eviction; ``up`` masks it out of feasibility
+        until its recover lane.  The evicted entries re-queue into the wait
+        ring in flat ``(row, col)`` ring order: the k-th eviction takes the
+        k-th free wait slot, and whatever exceeds the free slots (everything
+        when the retry budget is zero) is a final loss.  Returns ``(evicted,
+        evict_lost, evict_esum)``, each ``(R,)`` int32.
+        """
+        st.up.copy_((st.up | rec) & ~fail)
+        r, rows, cols = st.ring_gpu.shape
+        live = st.ring_mask.sum(dim=-1) > 0                              # (R, K+2, E)
+        evict = torch.gather(fail, 1, st.ring_gpu.view(r, -1).long()).view(r, rows, cols) & live
+        if st.occ is not None:
+            st.occ.masked_fill_(fail[..., None], 0)
+        st.base.masked_fill_(fail[..., None], 0.0)
+        st.free.copy_(torch.where(fail, self.slices_g, st.free))
+        st.f.masked_fill_(fail, 0.0)
+        st.ring_mask.masked_fill_(evict[..., None], 0)
+        ev_flat = evict.view(r, -1)                                      # flat (row, col) order
+        n_ev = ev_flat.sum(dim=1, dtype=torch.int32)
+        esum = (st.ring_eidx.view(r, -1) * ev_flat).sum(dim=1, dtype=torch.int32)
+        if self.protocol.fault_retries < 1:
+            return n_ev, n_ev, esum  # no retry budget: every eviction is lost
+
+        # wait slot j, the pos-th free one, takes the eviction of rank pos:
+        # the first flat ring index where the running eviction count
+        # reaches pos + 1 (a gather per field, no scatter)
+        free = st.wait_pid < 0
+        pos = torch.cumsum(free, dim=1, dtype=torch.int32) - 1             # (R, Q)
+        take = free & (pos < n_ev[:, None])
+        cum = torch.cumsum(ev_flat, dim=1, dtype=torch.int32)             # (R, C)
+        src = torch.searchsorted(cum, pos + 1).clamp_(max=cum.shape[1] - 1)
+
+        def put(plane, v):
+            plane.copy_(torch.where(take, v, plane))
+
+        for plane, ring in ((st.wait_pid, st.ring_pid), (st.wait_end, st.ring_end),
+                            (st.wait_prio, st.ring_prio), (st.wait_ten, st.ring_ten),
+                            (st.wait_eidx, st.ring_eidx)):
+            put(plane, torch.gather(ring.view(r, -1), 1, src))
+        src32 = src.to(torch.int32)
+        put(st.wait_row, src32 // cols)
+        put(st.wait_col, src32 % cols)
+        put(st.wait_arr, t[:, None])
+        put(st.wait_try, 1)
+        put(st.wait_rdy, t[:, None] + self.protocol.fault_backoff)  # btable[1]
+        return n_ev, n_ev - take.sum(dim=1, dtype=torch.int32), esum
+
     def _stage_select(self, st: ReplicaState, pid_c, valid):
         """Place (or reject) the arrival; ``pid == -1`` lanes still select
         with ``pid_c = 0`` and are masked by ``valid`` (as in the reference)."""
         gpu, aidx, ok = _select(
             self.spec, st.base, st.free, st.f, self.metric, self.tables,
             self.midx, self.vg, pid_c, st.rr, delta_fn=self.delta_fn,
-            select_fn=self.select_fn,
+            select_fn=self.select_fn, gpu_ok=st.up,
         )
         return gpu, aidx, ok & valid
 
@@ -1238,12 +1342,14 @@ class EngineCore:
         return gpu, aidx, ok | res.mig, res
 
     def _stage_commit(self, st: ReplicaState, pid_c, gpu, aidx, ok, exp_row, exp_col,
-                      mig_res: Optional[MigrationResult] = None) -> None:
+                      mig_res: Optional[MigrationResult] = None, meta=None) -> None:
         """Commit the accepted placement: occupancy/window/free updates, the
         rescore of the touched row (and of a migrated victim's landing GPU),
         the cursor and the expiry-ring insert.  A replica that does not
         accept adds zero masks at GPU 0 and ring cell ``(exp_row, exp_col)``
-        and rescores GPU 0 to its unchanged value, as in the reference."""
+        and rescores GPU 0 to its unchanged value, as in the reference.
+        ``meta`` (faulted protocol: ``(end, prio, ten, eidx)``, each
+        ``(R,)``) writes the entry's identity into the ring's fault planes."""
         t = self.tables
         oki = ok.to(torch.int32)
         gpu_c = torch.where(ok, gpu.long(), 0)
@@ -1269,6 +1375,9 @@ class EngineCore:
         if st.ring_pid is not None:
             st.ring_pid[ring] = torch.where(ok, pid_c, st.ring_pid[ring])
             st.ring_aidx[ring] = torch.where(ok, aidx.to(torch.int32), st.ring_aidx[ring])
+        if meta is not None:
+            for plane, v in zip((st.ring_end, st.ring_prio, st.ring_ten, st.ring_eidx), meta):
+                plane[ring] = torch.where(ok, v.to(torch.int32), plane[ring])
 
     def _stage_wait(self, st: ReplicaState, t, wlive):
         """Queued protocol: prune the wait ring, then try to admit its head.
@@ -1281,14 +1390,31 @@ class EngineCore:
         spec's selection and, on acceptance, commits with its original ring
         coordinates.  ``wlive`` gates the stage to real events.  The head's
         index ``j (R,)`` stays on the device: every read and write goes
-        through it as a gather or a scatter.  Returns ``(eidx, gpu, aidx,
-        ok_w)``, each ``(R,)``.
+        through it as a gather or a scatter.  Under the faulted protocol a
+        patience overrun re-arms with exponential backoff while the retry
+        budget and the lease allow it (a final drop only past the budget),
+        and the head is chosen among entries whose backoff ended
+        (``wait_rdy <= t``).  Returns ``(eidx, gpu, aidx, ok_w)``, each
+        ``(R,)``.
         """
         wl = wlive[:, None]
-        age = t[:, None] - st.wait_arr                                  # (R, Q)
-        drop = wl & ((st.wait_end <= t[:, None]) | (age > self.wait_patience))
-        keep = (st.wait_pid >= 0) & ~drop
-        mask = keep & wl
+        tq = t[:, None]
+        present = st.wait_pid >= 0
+        age = tq - st.wait_arr                                          # (R, Q)
+        if self.protocol.faulted:
+            overdue = wl & present & (age > self.wait_patience)
+            rearm = overdue & (st.wait_try < self.protocol.fault_retries) & (st.wait_end > tq)
+            drop = wl & present & ((st.wait_end <= tq) | (overdue & ~rearm))
+            keep = present & ~drop
+            st.wait_arr.copy_(torch.where(rearm, tq, st.wait_arr))
+            st.wait_try.add_(rearm.to(torch.int32))
+            wait = self.btable[st.wait_try.clamp(0, self.btable.shape[0] - 1).long()]
+            st.wait_rdy.copy_(torch.where(rearm, tq + wait, st.wait_rdy))
+            mask = keep & wl & (st.wait_rdy <= tq)
+        else:
+            drop = wl & ((st.wait_end <= tq) | (age > self.wait_patience))
+            keep = present & ~drop
+            mask = keep & wl
         for key in queue_order(self.spec):
             base_k = key_base(key)
             if base_k == "priority":
@@ -1310,10 +1436,14 @@ class EngineCore:
         gpu, aidx, sel_ok = _select(
             self.spec, st.base, st.free, st.f, self.metric, self.tables,
             self.midx, self.vg, pid_w, st.rr, delta_fn=self.delta_fn,
-            select_fn=self.select_fn,
+            select_fn=self.select_fn, gpu_ok=st.up,
         )
         ok_w = sel_ok & head
-        self._stage_commit(st, pid_w, gpu, aidx, ok_w, st.wait_row[at], st.wait_col[at])
+        meta = None
+        if self.protocol.faulted:
+            meta = (st.wait_end[at], st.wait_prio[at], st.wait_ten[at], st.wait_eidx[at])
+        self._stage_commit(st, pid_w, gpu, aidx, ok_w, st.wait_row[at], st.wait_col[at],
+                           meta=meta)
         st.wait_pid.copy_(torch.where(keep, st.wait_pid, -1))
         st.wait_pid[at] = torch.where(ok_w, -1, st.wait_pid[at])
         eidx = torch.where(ok_w, st.wait_eidx[at], -1)
@@ -1335,8 +1465,12 @@ class EngineCore:
         if self.protocol.boundary_metrics:
             row["frag"], row["free_sum"], row["active"] = self._measure(st)
         self._stage_expire(st, drain_row, new_slot)
-        if self.protocol.queued:  # waiting requests admit ahead of the arrival
+        if self.protocol.queued:
             t, end, prio, ten, wlive = x[5:10]
+        if self.protocol.faulted:  # after expire: same-slot completions win
+            row["evicted"], row["evict_lost"], row["evict_esum"] = self._stage_fault(
+                st, x[10], x[11], t)
+        if self.protocol.queued:  # waiting requests admit ahead of the arrival
             row["wadm_eidx"], wadm_gpu, wadm_aidx, ok_w = self._stage_wait(st, t, wlive)
             row["wadm_gpu"] = torch.where(ok_w, wadm_gpu, -1)
             row["wadm_aidx"] = torch.where(ok_w, wadm_aidx, -1)
@@ -1346,12 +1480,15 @@ class EngineCore:
         mig_res = None
         if self.spec.defrag:
             gpu, aidx, ok, mig_res = self._stage_migrate(st, pid_c, valid, gpu, aidx, ok)
-        self._stage_commit(st, pid_c, gpu, aidx, ok, exp_row, exp_col, mig_res)
+        meta = (end, prio, ten, st.ev) if self.protocol.faulted else None
+        self._stage_commit(st, pid_c, gpu, aidx, ok, exp_row, exp_col, mig_res, meta=meta)
         if self.protocol.queued:
             parked = valid & ~ok & wlive & (st.wait_pid < 0).any(dim=1)
-            self._stage_park(st, parked, dict(
-                wait_pid=pid_c, wait_arr=t, wait_end=end, wait_row=exp_row,
-                wait_col=exp_col, wait_prio=prio, wait_ten=ten, wait_eidx=st.ev))
+            values = dict(wait_pid=pid_c, wait_arr=t, wait_end=end, wait_row=exp_row,
+                          wait_col=exp_col, wait_prio=prio, wait_ten=ten, wait_eidx=st.ev)
+            if self.protocol.faulted:  # fresh parks: no retry used, no backoff
+                values.update(wait_try=torch.zeros_like(t), wait_rdy=t)
+            self._stage_park(st, parked, values)
             st.ev.add_(1)
             row["parked"] = parked
         if self.protocol.post_metrics:
@@ -1387,15 +1524,19 @@ def _build_core(
 ) -> EngineCore:
     """Validate one engine configuration and build its staged core.
 
-    The queued protocol refuses defrag specs and needs ``wait_slots > 0``,
-    as in the reference.  Kernel dispatch under ``use_kernel``: the
+    The one construction path of :func:`_simulate`, :func:`simulate_chunked`
+    and :func:`init_carry`.  The queued protocols refuse defrag specs and
+    need ``wait_slots > 0``, as in the reference.  Kernel dispatch under
+    ``use_kernel``: the
     occupancy-based ``fragscore`` rescore needs one placement table, so it
     runs on homogeneous fleets only; specs whose keys consume ΔF get the
     ``delta_from_base`` kernel; argmin-fusable specs run the whole select
     stage (the wait head's too) in ``select_from_base`` and, for defrag
     specs, both refinements of the migrate search in ``migrate_refine`` (a
     delta-only defrag spec keeps ``delta_from_base`` and the plain migrate
-    search).
+    search).  Under the faulted protocol the select stage stays plain torch,
+    since the fused kernel cannot see the up-mask; ``delta_from_base`` and
+    ``fragscore`` still apply.
     """
     dev = torch.device(device)
     pspec = resolve(policy, engine="batched")
@@ -1428,7 +1569,9 @@ def _build_core(
             frag_fn = make_frag_fn(metric, kspec.models[0], dev)
         if pspec.requires_delta_f:
             delta_fn = make_delta_fn(kspec, metric, dev)
-        if pspec.fused_argmin:
+        # the fused select kernel cannot see the faulted protocol's
+        # up-mask, so faulted runs keep the plain argmin (as the reference)
+        if pspec.fused_argmin and not proto.faulted:
             select_fn = make_select_fn(kspec, pspec, metric, dev)
             if pspec.defrag:
                 migrate_fn = make_migrate_fn(kspec, pspec, metric, dev)
@@ -1461,6 +1604,8 @@ def _stream_fields(proto: Protocol) -> Tuple[str, ...]:
     names = ("pid", "exp_row", "exp_col", "drain_row", "new_slot")
     if proto.queued:  # the wait stage's clock + per-arrival queue attributes
         names += ("slot", "end", "prio", "tenant", "wlive")
+    if proto.faulted:  # per-slot GPU fail/recover lanes, (E, R, M)
+        names += ("fail", "recover")
     return names
 
 
@@ -1492,37 +1637,52 @@ def _setup_run(
         runs=runs, device=dev, kernel_spec=kernel_spec, protocol=protocol,
         wait_slots=wait_slots, wait_patience=wait_patience, midx=midx, tables=tables,
     )
-    queued = core.protocol.queued
-    track_occ = core.frag_fn is not None
-    if state is None:
-        state = _init_state(core.tables, core.midx, runs, ring_rows, ring_cols, track_occ,
-                            track_alloc=core.spec.defrag,
-                            wait_slots=wait_slots if queued else 0)
-    else:
-        if core.spec.defrag and state.ring_pid is None:
-            raise ValueError(
-                f"policy {core.spec.name!r}: a defrag spec continues only from a state "
-                "with the ring_pid/ring_aidx allocation planes"
-            )
-        if queued and state.wait_pid is None:
-            raise ValueError(
-                f"protocol {core.protocol.name!r} continues only from a state with "
-                "the wait ring (wait_* and ev)"
-            )
-        if not track_occ:
-            state = state._replace(occ=None)
-        elif state.occ is None:
-            state = state._replace(occ=_occ_from_ring(state, core.midx.shape[0]))
+    state = _prepare_state(core, state, ring_rows, ring_cols, wait_slots)
     xs = [
         torch.as_tensor(np.ascontiguousarray(getattr(events, name))).to(dev)
         for name in _stream_fields(core.protocol)
     ]
-    e_max = xs[0].shape[0]
-    trace = EventTrace(**{
-        name: torch.empty((e_max, runs), dtype=_TRACE_DTYPES[name], device=dev)
+    return core, state, xs, _empty_trace(core, xs[0].shape[0], dev)
+
+
+def _prepare_state(core: EngineCore, state: Optional[ReplicaState], ring_rows: int,
+                   ring_cols: int, wait_slots: int) -> ReplicaState:
+    """The initial state of ``core``'s configuration, or ``state`` checked
+    against it, with its occupancy dropped or rebuilt as the core needs."""
+    track_occ = core.frag_fn is not None
+    if state is None:
+        return _init_state(core.tables, core.midx, core.runs, ring_rows, ring_cols,
+                           track_occ, track_alloc=core.spec.defrag,
+                           wait_slots=wait_slots if core.protocol.queued else 0,
+                           faulted=core.protocol.faulted)
+    if core.spec.defrag and state.ring_pid is None:
+        raise ValueError(
+            f"policy {core.spec.name!r}: a defrag spec continues only from a state "
+            "with the ring_pid/ring_aidx allocation planes"
+        )
+    if core.protocol.queued and state.wait_pid is None:
+        raise ValueError(
+            f"protocol {core.protocol.name!r} continues only from a state with "
+            "the wait ring (wait_* and ev)"
+        )
+    if core.protocol.faulted and state.up is None:
+        raise ValueError(
+            f"protocol {core.protocol.name!r} continues only from a state with "
+            "the fault planes (up, ring_end/eidx/prio/ten, wait_try/rdy)"
+        )
+    if not track_occ:
+        return state._replace(occ=None)
+    if state.occ is None:
+        return state._replace(occ=_occ_from_ring(state, core.midx.shape[0]))
+    return state
+
+
+def _empty_trace(core: EngineCore, events: int, device) -> EventTrace:
+    """Preallocated ``(events, R)`` trace of the fields ``core`` produces."""
+    return EventTrace(**{
+        name: torch.empty((events, core.runs), dtype=_TRACE_DTYPES[name], device=device)
         for name in _trace_fields(core.protocol, core.spec)
     })
-    return core, state, xs, trace
 
 
 def _event_loop(core: EngineCore, state: ReplicaState, xs, trace: EventTrace) -> None:
@@ -1576,8 +1736,46 @@ def _ring_columns(
     return exp_col, ring_cols
 
 
+def presample_fault_slots(
+    spec: mig.ClusterSpec,
+    fault_model: mig.FaultModel,
+    runs: int,
+    total_slots: int,
+    rng: np.random.Generator,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-GPU alternating fail/recover slot tables, ``(runs, total_slots,
+    M)`` bool each.
+
+    Each GPU alternates ``Exp(mtbf)`` up-phases and ``Exp(mttr)``
+    down-phases (per-model rates from :meth:`FaultModel.rates_for`), each
+    phase ceiled to at least one slot, so fail and recover marks strictly
+    alternate and never share a slot.  The draw order (replica, then GPU,
+    then alternating phases) is the reference's, so a seeded ``rng`` gives
+    its tables exactly.
+    """
+    m = spec.num_gpus
+    rates = [fault_model.rates_for(spec.model_of(g).name) for g in range(m)]
+    fail = np.zeros((runs, total_slots, m), dtype=bool)
+    recover = np.zeros((runs, total_slots, m), dtype=bool)
+    for r in range(runs):
+        for g in range(m):
+            mtbf, mttr = rates[g]
+            t = 0.0
+            while True:
+                t += max(1.0, np.ceil(rng.exponential(mtbf)))
+                if t >= total_slots:
+                    break
+                fail[r, int(t), g] = True
+                t += max(1.0, np.ceil(rng.exponential(mttr)))
+                if t >= total_slots:
+                    break
+                recover[r, int(t), g] = True
+    return fail, recover
+
+
 def presample_arrivals(
     cfg: SimConfig, runs: int, seed=None, queued: bool = False,
+    fault_model: Optional[mig.FaultModel] = None,
 ) -> Tuple[EventStream, EventMeta, int, int]:
     """Build per-replica steady-protocol event streams on host.
 
@@ -1592,7 +1790,10 @@ def presample_arrivals(
     absolute end slots, per-arrival tenant and priority, the live-event
     mask).  Tenant and priority are drawn strictly after the shared
     arrival stream, so every steady field is byte-identical with
-    ``queued=False``.
+    ``queued=False``.  ``fault_model`` (the faulted protocol, with
+    ``queued``) also draws the per-GPU fail/recover lanes, strictly after
+    every other draw, and puts each slot's lanes on the first event of that
+    slot (sentinel and padding lanes carry none).
     """
     rng = np.random.default_rng(cfg.seed if seed is None else seed)
     probs = request_probs(cfg)
@@ -1647,6 +1848,18 @@ def presample_arrivals(
         wlive = slot < total_slots  # padding/sentinel lanes have no clock
         queue = dict(slot=slot.T.astype(np.int32), end=end.T.astype(np.int32),
                      prio=prio.T, tenant=tenant.T, wlive=wlive.T)
+    if fault_model is not None:  # drawn strictly after every other draw
+        spec = cfg.spec()
+        fail_s, rec_s = presample_fault_slots(spec, fault_model, runs, total_slots, rng)
+        m = spec.num_gpus
+        fail = np.zeros((runs, e_max, m), dtype=bool)
+        recover = np.zeros((runs, e_max, m), dtype=bool)
+        first = new_slot & (slot < total_slots)  # sentinel/padding carry none
+        rr_idx, ee_idx = np.nonzero(first)
+        fail[rr_idx, ee_idx] = fail_s[rr_idx, slot[rr_idx, ee_idx]]
+        recover[rr_idx, ee_idx] = rec_s[rr_idx, slot[rr_idx, ee_idx]]
+        queue.update(fail=np.ascontiguousarray(fail.transpose(1, 0, 2)),
+                     recover=np.ascontiguousarray(recover.transpose(1, 0, 2)))
 
     events = EventStream(
         pid=pid.T,
@@ -1709,28 +1922,378 @@ def presample_cumulative(
     return events, meta, ring_k + 2, ring_cols
 
 
+# ---------------------------------------------------------------------------
+# Chunked streaming driver: a staged host-to-device feed, the carry in place
+# ---------------------------------------------------------------------------
+
+
+def init_carry(
+    runs: int,
+    *,
+    policy: PolicyLike,
+    metric: str,
+    num_gpus: int,
+    ring_rows: int,
+    ring_cols: int,
+    use_kernel: bool = False,
+    kernel_spec: Optional[mig.ClusterSpec] = None,
+    protocol: Union[str, Protocol] = "steady",
+    wait_slots: int = 0,
+    wait_patience: int = 0,
+    midx: Optional[torch.Tensor] = None,
+    tables: Optional[SpecTables] = None,
+    device=None,
+) -> ReplicaState:
+    """The initial carry of one configuration: the state :func:`_simulate`
+    starts from (so chunking at any boundary is exact: the carry holds
+    every datum that crosses events), and the template that
+    :func:`load_stream_checkpoint` restores into."""
+    dev = resolve_device(device)
+    core = _build_core(
+        policy=policy, metric=metric, num_gpus=num_gpus, use_kernel=use_kernel,
+        runs=runs, device=dev, kernel_spec=kernel_spec, protocol=protocol,
+        wait_slots=wait_slots, wait_patience=wait_patience, midx=midx, tables=tables,
+    )
+    return _prepare_state(core, None, ring_rows, ring_cols, wait_slots)
+
+
+def _scan_chunk(core: EngineCore, state: ReplicaState, xs, trace: EventTrace) -> EventTrace:
+    """One chunk of events: :func:`_simulate`'s event loop over ``xs`` (each
+    field ``(n, R, ...)`` on the device) through the same
+    :meth:`EngineCore.step`, the carry ``state`` updated in place and the
+    rows written into ``trace``."""
+    _event_loop(core, state, xs, trace)
+    return trace
+
+
+def save_stream_checkpoint(path, state: ReplicaState, events_done: int,
+                           metadata: Optional[dict] = None) -> None:
+    """Persist a chunked run's carry (a flat npz through
+    :mod:`repro_torch.checkpoint.ckpt`, keyed as the reference keys it, so
+    either package resumes the other's checkpoint).  ``events_done``, the
+    events the carry has consumed, is the checkpoint's step: resume by
+    presampling the same stream and calling :func:`simulate_chunked` with
+    ``carry=state, start=events_done``."""
+    from repro_torch.checkpoint import ckpt
+
+    ckpt.save_checkpoint(path, state, step=int(events_done),
+                         metadata={"kind": "replica-carry", **(metadata or {})})
+
+
+def load_stream_checkpoint(path, template: ReplicaState) -> Tuple[ReplicaState, int]:
+    """Restore a carry saved by :func:`save_stream_checkpoint` (or by the
+    reference's) into the structure, dtypes and device of ``template``, an
+    :func:`init_carry` of the same configuration: a carry of another
+    policy, protocol or ring geometry raises.  Returns ``(state,
+    events_done)``."""
+    from repro_torch.checkpoint import ckpt
+
+    return ckpt.load_checkpoint(path, template)
+
+
+def _concat_traces(traces, concat):
+    """Concatenate per-chunk :class:`EventTrace` s along the event axis
+    (``concat`` is ``np.concatenate`` or ``torch.cat``); absent fields stay
+    ``None``."""
+    if len(traces) == 1:
+        return traces[0]
+    return EventTrace(*[
+        None if getattr(traces[0], name) is None
+        else concat([getattr(t, name) for t in traces], 0)
+        for name in EventTrace._fields
+    ])
+
+
+def _torch_dtype(a: np.ndarray) -> torch.dtype:
+    return torch.from_numpy(a[:0]).dtype
+
+
+class _Feed:
+    """The host stream to the device, a chunk at a time.
+
+    On a CUDA device a chunk is staged into one of two pinned host buffers
+    and copied into one of two device buffers on a side stream
+    (``non_blocking``), while the host enqueues the previous chunk's
+    events.  The compute stream waits on the copy's event before it reads
+    the chunk; the side stream waits for the compute stream to be done with
+    a device buffer's previous chunk before it overwrites it.  On the CPU a
+    chunk is a view of the host stream.
+    """
+
+    def __init__(self, host, rows: int, device: torch.device):
+        self.host, self.dev = host, device
+        self.cuda = device.type == "cuda"
+        if self.cuda:
+            self.side = torch.cuda.Stream(device)
+            self.slots = [dict(
+                pinned=[torch.empty((rows,) + a.shape[1:], dtype=_torch_dtype(a),
+                                    pin_memory=True) for a in host],
+                dev=[torch.empty((rows,) + a.shape[1:], dtype=_torch_dtype(a), device=device)
+                     for a in host],
+                copied=torch.cuda.Event(), consumed=None) for _ in range(2)]
+
+    def put(self, k: int, lo: int, hi: int):
+        """Stage chunk ``k`` (events ``lo:hi``): ``(xs, seconds, bytes)``."""
+        n = hi - lo
+        nbytes = sum(a[lo:hi].nbytes for a in self.host)
+        t0 = time.perf_counter()
+        if not self.cuda:
+            return [torch.from_numpy(a[lo:hi]) for a in self.host], 0.0, nbytes
+        slot = self.slots[k % 2]
+        slot["copied"].synchronize()  # the pinned buffers' previous copy is done
+        for p, a in zip(slot["pinned"], self.host):
+            p[:n].numpy()[...] = a[lo:hi]
+        with torch.cuda.stream(self.side):
+            if slot["consumed"] is not None:
+                self.side.wait_event(slot["consumed"])
+            for d, p in zip(slot["dev"], slot["pinned"]):
+                d[:n].copy_(p[:n], non_blocking=True)
+            slot["copied"].record(self.side)
+        return [d[:n] for d in slot["dev"]], time.perf_counter() - t0, nbytes
+
+    def ready(self, k: int) -> None:
+        """The compute stream waits for chunk ``k``'s copy."""
+        if self.cuda:
+            torch.cuda.current_stream(self.dev).wait_event(self.slots[k % 2]["copied"])
+
+    def consumed(self, k: int) -> None:
+        """Chunk ``k``'s events are enqueued: its device buffers are free
+        once the compute stream gets here."""
+        if self.cuda:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(self.dev))
+            self.slots[k % 2]["consumed"] = ev
+
+
+class _Drain:
+    """The chunks' traces to the host.
+
+    ``stream=True``: the rows end in host arrays.  On a CUDA device each
+    chunk writes one of two device trace buffers, a side stream copies it
+    into pinned buffers (``non_blocking``) once the chunk's events ran, and
+    the host reads the copy, after its event, only once the next chunk is
+    enqueued; on the CPU a chunk writes the host arrays directly.
+    ``stream=False``: every chunk writes its rows of one device trace.
+    """
+
+    def __init__(self, core: EngineCore, total: int, rows: int, device: torch.device,
+                 stream: bool, side=None):
+        self.dev, self.stream, self.side = device, stream, side
+        self.cuda = device.type == "cuda"
+        self.pending = []
+        if not stream:
+            self.full = _empty_trace(core, total, device)
+            return
+        names = _trace_fields(core.protocol, core.spec)
+        self.out = EventTrace(**{
+            name: torch.empty((total, core.runs), dtype=_TRACE_DTYPES[name]).numpy()
+            for name in names})
+        if self.cuda:
+            self.slots = [dict(
+                dev=_empty_trace(core, rows, device),
+                pinned=EventTrace(**{name: torch.empty((rows, core.runs),
+                                                       dtype=_TRACE_DTYPES[name],
+                                                       pin_memory=True) for name in names}),
+                copied=None) for _ in range(2)]
+
+    def trace(self, k: int, lo: int, hi: int) -> EventTrace:
+        """Where chunk ``k``'s rows ``lo:hi`` (counted from the run's first
+        event) go."""
+        if not self.stream:
+            return EventTrace(*[None if t is None else t[lo:hi] for t in self.full])
+        if not self.cuda:
+            return EventTrace(*[None if a is None else torch.from_numpy(a)[lo:hi]
+                                for a in self.out])
+        slot = self.slots[k % 2]
+        if slot["copied"] is not None:  # the buffer's previous copy is done
+            torch.cuda.current_stream(self.dev).wait_event(slot["copied"])
+        return EventTrace(*[None if t is None else t[:hi - lo] for t in slot["dev"]])
+
+    def ran(self, k: int, lo: int, hi: int) -> None:
+        """Chunk ``k``'s events are enqueued: copy its trace out."""
+        if not (self.stream and self.cuda):
+            return
+        slot, n = self.slots[k % 2], hi - lo
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.dev))
+        with torch.cuda.stream(self.side):
+            self.side.wait_event(ev)
+            for p, d in zip(slot["pinned"], slot["dev"]):
+                if d is not None:
+                    p[:n].copy_(d[:n], non_blocking=True)
+            slot["copied"] = torch.cuda.Event()
+            slot["copied"].record(self.side)
+        self.pending.append((k, lo, hi))
+
+    def collect(self, keep: int = 0) -> float:
+        """Read every copied chunk but the last ``keep`` into the host
+        arrays; returns the seconds spent."""
+        t0 = time.perf_counter()
+        while len(self.pending) > keep:
+            k, lo, hi = self.pending.pop(0)
+            slot = self.slots[k % 2]
+            slot["copied"].synchronize()
+            for a, p in zip(self.out, slot["pinned"]):
+                if a is not None:
+                    a[lo:hi] = p[:hi - lo].numpy()
+        return time.perf_counter() - t0
+
+    def result(self) -> EventTrace:
+        return self.out if self.stream else self.full
+
+
+def simulate_chunked(
+    events: EventStream,
+    *,
+    chunk_size: int,
+    policy: PolicyLike,
+    metric: str,
+    num_gpus: int,
+    ring_rows: int,
+    ring_cols: int,
+    use_kernel: bool = False,
+    kernel_spec: Optional[mig.ClusterSpec] = None,
+    protocol: Union[str, Protocol] = "steady",
+    wait_slots: int = 0,
+    wait_patience: int = 0,
+    midx: Optional[torch.Tensor] = None,
+    tables: Optional[SpecTables] = None,
+    stream: bool = True,
+    carry: Optional[ReplicaState] = None,
+    start: int = 0,
+    shard: Optional[bool] = None,
+    checkpoint_path=None,
+    checkpoint_every: int = 0,
+    stats: Optional[dict] = None,
+    device=None,
+) -> Tuple[ReplicaState, EventTrace]:
+    """Drive the event loop over a host stream in chunks of ``chunk_size``
+    events.
+
+    Equal to :func:`_simulate` on the same stream for any ``chunk_size``
+    (the carry holds every datum that crosses events, and both run the same
+    :meth:`EngineCore.step`), but the device holds one carry plus two
+    staged chunks of the stream instead of the whole ``(E_max, R)`` stream
+    (``(E_max, R, M)`` for the fault lanes):
+
+    * the carry stays on the device and is updated in place;
+    * chunk ``k+1`` is copied host-to-device on a side stream while chunk
+      ``k``'s events are enqueued (:class:`_Feed`);
+    * with ``stream=True`` (default) each chunk's trace is copied back as
+      its events finish and the run returns a numpy trace;
+      ``stream=False`` keeps the whole trace on the device.
+
+    ``carry``/``start`` resume a run mid-stream (a passed carry is updated
+    in place; see :func:`load_stream_checkpoint`), ``checkpoint_path`` with
+    ``checkpoint_every`` (in chunks) saves the carry after every that many
+    chunks.  ``stats``, when given, receives the reference's chunk and
+    transfer keys: ``h2d_overlap_frac`` is the share of host-to-device
+    bytes staged while an earlier chunk was in flight (every chunk but the
+    first).  ``shard=True`` raises ``NotImplementedError``.
+    """
+    if chunk_size <= 0:
+        raise ValueError(f"chunk_size must be positive, got {chunk_size}")
+    e_max, runs = events.pid.shape
+    if not 0 <= start < e_max:
+        raise ValueError(f"start={start} outside the event stream [0, {e_max})")
+    if shard:
+        raise NotImplementedError(
+            f"shard=True: the replica split is not ported to repro_torch yet "
+            f"({_NOT_PORTED_SHARD})"
+        )
+    dev = resolve_device(device)
+    core = _build_core(
+        policy=policy, metric=metric, num_gpus=num_gpus, use_kernel=use_kernel,
+        runs=runs, device=dev, kernel_spec=kernel_spec, protocol=protocol,
+        wait_slots=wait_slots, wait_patience=wait_patience, midx=midx, tables=tables,
+    )
+    if carry is not None and tuple(carry.ring_gpu.shape[-2:]) != (ring_rows, ring_cols):
+        raise ValueError(
+            f"carry ring geometry {tuple(carry.ring_gpu.shape[-2:])} does not match "
+            f"this stream's ({ring_rows}, {ring_cols}); resumed with a carry from a "
+            "different presample?"
+        )
+    state = _prepare_state(core, carry, ring_rows, ring_cols, wait_slots)
+    host = [np.ascontiguousarray(getattr(events, name))
+            for name in _stream_fields(core.protocol)]
+    bounds = list(range(start, e_max, chunk_size)) + [e_max]
+    n_chunks = len(bounds) - 1
+    rows = min(chunk_size, e_max - start)
+    feed = _Feed(host, rows, dev)
+    drain = _Drain(core, e_max - start, rows, dev, stream,
+                   side=feed.side if feed.cuda else None)
+    h2d_s = h2d_overlap_s = d2h_s = 0.0
+    h2d_bytes = h2d_overlap_bytes = 0
+
+    xs, dt, nb = feed.put(0, bounds[0], bounds[1])  # chunk 0: nothing to overlap
+    h2d_s, h2d_bytes = dt, nb
+    for k in range(n_chunks):
+        lo, hi = bounds[k], bounds[k + 1]
+        if k + 1 < n_chunks:  # stage chunk k+1 before enqueuing chunk k's events
+            nxt, dt, nb = feed.put(k + 1, hi, bounds[k + 2])
+            h2d_s += dt
+            h2d_overlap_s += dt
+            h2d_bytes += nb
+            h2d_overlap_bytes += nb
+        feed.ready(k)
+        _scan_chunk(core, state, xs, drain.trace(k, lo - start, hi - start))
+        feed.consumed(k)
+        drain.ran(k, lo - start, hi - start)
+        d2h_s += drain.collect(keep=1)  # chunk k-1's trace, while chunk k runs
+        if checkpoint_path and checkpoint_every and (k + 1) % checkpoint_every == 0:
+            save_stream_checkpoint(checkpoint_path, state, hi)
+        if k + 1 < n_chunks:
+            xs = nxt
+    d2h_s += drain.collect()
+    if stats is not None:
+        stats.update(
+            chunks=n_chunks,
+            chunk_size=chunk_size,
+            events=e_max - start,
+            h2d_seconds=h2d_s,
+            h2d_overlapped_seconds=h2d_overlap_s,
+            h2d_bytes=h2d_bytes,
+            h2d_overlapped_bytes=h2d_overlap_bytes,
+            h2d_overlap_frac=h2d_overlap_bytes / h2d_bytes if h2d_bytes else 0.0,
+            d2h_seconds=d2h_s,
+        )
+    return state, drain.result()
+
+
 def run_batched(
     policy: PolicyLike,
     cfg: SimConfig,
     runs: int = 64,
     use_kernel: Optional[bool] = None,
     device=None,
+    shard: Optional[bool] = None,
+    chunk_size: Optional[int] = None,
+    stream: Optional[bool] = None,
+    stats: Optional[dict] = None,
 ) -> Dict[str, float]:
     """Average ``runs`` replicas of ``cfg.protocol`` on the device.
 
-    The protocol picks the stream and the reduction: ``steady`` and
-    ``steady-queued`` presample with :func:`presample_arrivals` (queued
-    draws tenant and priority too, and runs with ``cfg.wait_capacity``
-    wait slots and ``cfg.wait_patience``), ``cumulative`` with
-    :func:`presample_cumulative`; ``steady-faulted`` raises
-    ``NotImplementedError``.  Returns the reference's ``run_many``
-    aggregate keys; the queued protocol adds ``wait_p50``, ``wait_p99``,
-    ``fairness`` and ``queue_admits``, and the cumulative one the
-    demand-grid ``traces`` (each key's mean per grid point) and
-    ``demand_grid``.  ``use_kernel`` routes the stages through the CUDA
-    kernels (default: on a CUDA device, unless the spec opts out via
-    ``kernel_lowering=False``); on the CPU the kernel wrappers compute
-    their plain torch versions.
+    The protocol picks the stream and the reduction: ``steady``,
+    ``steady-queued`` and ``steady-faulted`` presample with
+    :func:`presample_arrivals` (the queued protocols draw tenant and
+    priority too and run with ``cfg.wait_capacity`` wait slots and
+    ``cfg.wait_patience``; the faulted one also draws the fail/recover
+    lanes of ``cfg.fault_model``, which it needs, and takes its retry
+    budget and backoff from it), ``cumulative`` with
+    :func:`presample_cumulative`.  Returns the reference's ``run_many``
+    aggregate keys; the queued protocols add ``wait_p50``, ``wait_p99``,
+    ``fairness`` and ``queue_admits``, the faulted one ``goodput``,
+    ``evictions``, ``evictions_lost``, ``recovered_fraction``, ``ttr_p50``
+    and ``ttr_p99``, and the cumulative one the demand-grid ``traces``
+    (each key's mean per grid point) and ``demand_grid``.  ``use_kernel``
+    routes the stages through the CUDA kernels (default: on a CUDA device,
+    unless the spec opts out via ``kernel_lowering=False``); on the CPU the
+    kernel wrappers compute their plain torch versions.
+
+    ``chunk_size`` runs the events through :func:`simulate_chunked` (the
+    same results for any chunk size); ``stream`` (default ``True``) and
+    ``stats`` are its knobs and need ``chunk_size``.  ``shard=True`` raises
+    ``NotImplementedError`` (the replica split is not ported).
     """
     dev = resolve_device(device)
     pspec = resolve(policy, engine="batched")
@@ -1738,12 +2301,30 @@ def run_batched(
     spec = cfg.spec()
     if use_kernel is None:
         use_kernel = dev.type == "cuda" and bool(pspec.kernel_lowering)
+    if chunk_size is not None and chunk_size <= 0:
+        raise ValueError(f"chunk_size must be positive, got {chunk_size}")
+    if chunk_size is None and (stream is not None or stats is not None):
+        raise ValueError("stream/stats are chunked-driver knobs; pass chunk_size as well")
+    if shard:
+        raise NotImplementedError(
+            f"shard=True: the replica split is not ported to repro_torch yet "
+            f"({_NOT_PORTED_SHARD})"
+        )
+    if proto.faulted:
+        if cfg.fault_model is None:
+            raise ValueError(
+                f"protocol {proto.name!r} needs SimConfig.fault_model "
+                "(a repro_torch.core.mig.FaultModel describing MTBF/MTTR)"
+            )
+        proto = dataclasses.replace(proto, fault_retries=cfg.fault_model.max_retries,
+                                    fault_backoff=cfg.fault_model.backoff_base)
     if proto.name == "cumulative":
         events, _, ring_rows, ring_cols = presample_cumulative(cfg, runs)
     else:
-        events, _, ring_rows, ring_cols = presample_arrivals(cfg, runs, queued=proto.queued)
-    _, trace = _simulate(
-        events,
+        events, _, ring_rows, ring_cols = presample_arrivals(
+            cfg, runs, queued=proto.queued,
+            fault_model=cfg.fault_model if proto.faulted else None)
+    common = dict(
         policy=pspec,
         metric=cfg.metric,
         num_gpus=cfg.num_gpus,
@@ -1758,9 +2339,19 @@ def run_batched(
         tables=spec_tables(spec, dev),
         device=dev,
     )
-    trace = trace_to_numpy(trace)
+    if chunk_size is not None:
+        _, trace = simulate_chunked(events, chunk_size=chunk_size,
+                                    stream=True if stream is None else stream,
+                                    stats=stats, **common)
+        if stream is False:
+            trace = trace_to_numpy(trace)
+    else:
+        _, trace = _simulate(events, **common)
+        trace = trace_to_numpy(trace)
     if proto.name == "cumulative":
         return _aggregate_cumulative(events, trace, spec, runs, cfg)
+    if proto.faulted:
+        return _aggregate_faulted(events, trace, spec, runs)
     if proto.queued:
         return _aggregate_queued(events, trace, spec, runs)
     return aggregate(events, trace, spec, runs)
@@ -1875,6 +2466,104 @@ def _aggregate_queued(
         "fairness": float(fair.mean()),
         "queue_admits": float((late_ok & meas).sum(axis=0).mean()),
     }
+
+
+def _aggregate_faulted(
+    events: EventStream, trace: EventTrace, spec, runs: int
+) -> Dict[str, float]:
+    """Reduce faulted-protocol traces (numpy): the queued keys plus the
+    failure keys, from a host walk of each replica's decision trace against
+    the stream's fail lanes (admit, maybe evict, maybe re-admit, complete):
+
+    * ``goodput``: the share of measured arrivals whose lease completed
+      (reached its end slot, or still ran at the horizon);
+    * ``evictions`` / ``evictions_lost``: evictions per replica and those
+      lost outright (wait ring full, or no retry budget);
+    * ``recovered_fraction``: evictions later re-admitted over evictions
+      (1.0 when nothing was evicted);
+    * ``ttr_p50`` / ``ttr_p99``: per-replica percentiles of the slots from
+      eviction to re-admission, averaged.
+
+    The walk is the reference's, with the running leases kept in a heap by
+    end slot and in per-GPU sets, so that a slot's expiries and a failing
+    GPU's evictions cost what they touch.
+    """
+    if isinstance(spec, int):
+        spec = _default_spec(spec)
+    out = _aggregate_queued(events, trace, spec, runs)
+
+    slot = np.asarray(events.slot)
+    end = np.asarray(events.end)
+    fail = np.asarray(events.fail)      # (E, R, M)
+    wlive = np.asarray(events.wlive)
+    new_slot = np.asarray(events.new_slot)
+    meas = np.asarray(events.measuring)
+    ok = np.asarray(trace.ok)
+    gpu_tr = np.asarray(trace.gpu)
+    wadm = np.asarray(trace.wadm_eidx)
+    wgpu = np.asarray(trace.wadm_gpu)
+
+    goodput = np.zeros(runs)
+    recovered = np.zeros(runs)
+    ttr_p50 = np.zeros(runs)
+    ttr_p99 = np.zeros(runs)
+    fail_e, fail_r, fail_g = np.nonzero(fail)
+    downs_of = {}
+    for e, r, g in zip(fail_e.tolist(), fail_r.tolist(), fail_g.tolist()):
+        downs_of.setdefault((e, r), []).append(g)
+    for r in range(runs):
+        gpu_of = {}     # running lease (original event index) -> its GPU
+        on_gpu = {}     # GPU -> its running leases
+        ends = []       # heap of (end slot, lease); entries of gone leases are stale
+        done = set()    # leases that ran to completion
+        pending = {}    # eviction awaiting re-admission -> eviction slot
+        n_evict = n_recovered = 0
+        ttrs = []
+
+        def admit(k, g):
+            gpu_of[k] = g
+            on_gpu.setdefault(g, set()).add(k)
+            heapq.heappush(ends, (int(end[k, r]), k))
+
+        for e in np.flatnonzero(wlive[:, r]).tolist():
+            t = int(slot[e, r])
+            if new_slot[e, r]:
+                # expire before faults, the device's order: a lease ending
+                # the very slot its GPU dies still completes
+                while ends and ends[0][0] <= t:
+                    _, k = heapq.heappop(ends)
+                    if k in gpu_of:
+                        on_gpu[gpu_of.pop(k)].discard(k)
+                        done.add(k)
+                for g in downs_of.get((e, r), ()):
+                    for k in on_gpu.pop(g, ()):
+                        del gpu_of[k]
+                        pending[k] = t
+                        n_evict += 1
+            a = int(wadm[e, r])
+            if a >= 0:
+                admit(a, int(wgpu[e, r]))
+                if a in pending:
+                    n_recovered += 1
+                    ttrs.append(t - pending.pop(a))
+            if ok[e, r]:
+                admit(e, int(gpu_tr[e, r]))
+        done.update(gpu_of)  # still running at the horizon: never disrupted
+        m = meas[:, r]
+        goodput[r] = sum(1 for k in done if m[k]) / max(1, int(m.sum()))
+        recovered[r] = (n_recovered / n_evict) if n_evict else 1.0
+        ttr_p50[r] = np.percentile(ttrs, 50) if ttrs else 0.0
+        ttr_p99[r] = np.percentile(ttrs, 99) if ttrs else 0.0
+
+    out.update(
+        goodput=float(goodput.mean()),
+        evictions=float(np.asarray(trace.evicted).sum(axis=0).mean()),
+        evictions_lost=float(np.asarray(trace.evict_lost).sum(axis=0).mean()),
+        recovered_fraction=float(recovered.mean()),
+        ttr_p50=float(ttr_p50.mean()),
+        ttr_p99=float(ttr_p99.mean()),
+    )
+    return out
 
 
 def _aggregate_cumulative(

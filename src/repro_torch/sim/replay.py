@@ -26,6 +26,10 @@ the device trace decision-for-decision — migrations included
 strongest cross-engine check we have, and it works on any ClusterSpec and
 either protocol's stream.
 
+:func:`queued_host_decisions` and :func:`faulted_host_decisions` do the
+same for the ``steady-queued`` and ``steady-faulted`` protocols (the wait
+ring, and the fault stage's evictions, retries and backoff).
+
 Tests use this to cross-check the device loop against an independent
 host implementation; it is also handy for debugging new policies.  It is
 numpy only: the walks read fetched traces
@@ -505,4 +509,251 @@ def queued_host_decisions(
                 parked[e, r] = True
     return QueuedHostTrace(
         ok, gpu, anchor, parked, wadm_eidx, wadm_gpu, wadm_anchor
+    )
+
+
+class FaultedHostTrace(NamedTuple):
+    """Reference decisions of the faulted protocol, shaped ``(E_max, R)``.
+
+    The :class:`QueuedHostTrace` fields plus the fault stage's eviction
+    accounting: ``evicted`` live entries torn off failing GPUs at this
+    event, ``evict_lost`` of which were final losses (wait ring full or a
+    zero retry budget), and ``evict_esum`` the sum of their original event
+    indexes (an order-insensitive identity check against the device).
+    """
+
+    ok: np.ndarray
+    gpu: np.ndarray
+    anchor: np.ndarray
+    parked: np.ndarray
+    wadm_eidx: np.ndarray
+    wadm_gpu: np.ndarray
+    wadm_anchor: np.ndarray
+    evicted: np.ndarray
+    evict_lost: np.ndarray
+    evict_esum: np.ndarray
+
+
+class _FWaiting(NamedTuple):
+    """One parked or evicted request in the faulted host reference."""
+
+    eidx: int   # original event index (= its workload id)
+    pid: int
+    arr: int    # arrival (or last re-arm) slot — the wait-age clock
+    end: int    # absolute lease deadline
+    prio: int
+    tenant: int
+    row: int    # original expiry-ring coordinates (unchanged for life)
+    col: int
+    tries: int  # re-queue attempts consumed (0 = fresh park)
+    rdy: int    # earliest slot this entry may be picked as queue head
+
+
+class _FAlive(NamedTuple):
+    """One running workload in the faulted host reference."""
+
+    end: int
+    wid: int
+    gpu: int
+    row: int
+    col: int
+    pid: int
+    prio: int
+    tenant: int
+
+
+def faulted_host_decisions(
+    events: EventStream,
+    meta: EventMeta,
+    policy: PolicyLike,
+    num_gpus: int,
+    metric: str = "blocked",
+    spec: Optional[mig.ClusterSpec] = None,
+    capacity: int = 8,
+    patience: int = 16,
+    max_retries: int = 2,
+    backoff_base: int = 2,
+) -> FaultedHostTrace:
+    """Drive the Python scheduler over a faulted presampled stream.
+
+    The independent host reference of the batched ``steady-faulted``
+    protocol, event-for-event.  Per event, in the engine's stage order:
+
+    1. on a slot boundary, release leases whose end slot arrived (a lease
+       ending the very slot its GPU dies still completes);
+    2. apply the slot's recover-then-fail lanes: a failing GPU evicts its
+       live workloads in flat expiry-ring ``(row, col)`` order, re-queuing
+       each (``tries=1``, ready after ``backoff_base`` slots) until the
+       wait queue's ``capacity``; the overflow — or everything, when
+       ``max_retries < 1`` — is a final loss;
+    3. the wait stage: entries past their lease are dropped; entries past
+       the ``patience`` budget re-arm with exponential backoff
+       (``backoff_base * 2**(tries-1)``) while ``tries < max_retries`` and
+       the lease allows, else drop; one admission attempt of the head —
+       the queue-order minimum among entries whose backoff expired;
+    4. the arrival selects (failed GPUs masked); a reject parks if the
+       queue has room (``tries=0``, immediately ready).
+
+    The device trace must agree element-for-element, eviction accounting
+    included.  The stream must have been presampled with ``queued=True``
+    and a fault model (:func:`repro_torch.sim.batched.presample_arrivals`).
+    """
+    if events.prio is None or events.fail is None:
+        raise ValueError(
+            "faulted_host_decisions needs a faulted stream "
+            "(presample_arrivals(..., queued=True, fault_model=...))"
+        )
+    spec = _spec_or_default(spec, num_gpus)
+    pspec = resolve(policy, engine="python")
+    order = queue_order(pspec)
+    e_max, runs = np.asarray(events.pid).shape
+    pid = np.asarray(events.pid)
+    new_slot = np.asarray(events.new_slot)
+    exp_row = np.asarray(events.exp_row)
+    exp_col = np.asarray(events.exp_col)
+    slot = np.asarray(meta.slot)
+    end = np.asarray(meta.end)
+    prio = np.asarray(events.prio)
+    tenant = np.asarray(events.tenant)
+    wlive = np.asarray(events.wlive)
+    fail = np.asarray(events.fail)      # (E, R, M)
+    recover = np.asarray(events.recover)
+
+    def backoff(k: int) -> int:
+        return backoff_base * 2 ** max(0, k - 1)
+
+    ok = np.zeros((e_max, runs), dtype=bool)
+    gpu = np.full((e_max, runs), -1, dtype=np.int32)
+    anchor = np.full((e_max, runs), -1, dtype=np.int32)
+    parked = np.zeros((e_max, runs), dtype=bool)
+    wadm_eidx = np.full((e_max, runs), -1, dtype=np.int32)
+    wadm_gpu = np.full((e_max, runs), -1, dtype=np.int32)
+    wadm_anchor = np.full((e_max, runs), -1, dtype=np.int32)
+    evicted = np.zeros((e_max, runs), dtype=np.int32)
+    evict_lost = np.zeros((e_max, runs), dtype=np.int32)
+    evict_esum = np.zeros((e_max, runs), dtype=np.int32)
+
+    def head_key(t):
+        def key_fn(w: _FWaiting):
+            key = []
+            for k in order:
+                base = key_base(k)
+                if base == "priority":
+                    v = w.prio
+                elif base == "wait-age":
+                    v = t - w.arr
+                else:  # tenant
+                    v = w.tenant
+                key.append(-v if k.startswith("-") else v)
+            key.append(w.eidx)  # FIFO tie-break
+            return tuple(key)
+
+        return key_fn
+
+    for r in range(runs):
+        cluster = mig.ClusterState(spec=spec)
+        scheduler = make_scheduler(pspec, metric)
+        alive: List[_FAlive] = []
+        waiting: List[_FWaiting] = []
+        for e in range(e_max):
+            if new_slot[e, r]:
+                t = int(slot[e, r])
+                for w in [w for w in alive if w.end <= t]:
+                    cluster.release(w.wid)
+                alive = [w for w in alive if w.end > t]
+            ups = np.flatnonzero(recover[e, r])
+            for g in ups:  # recover-then-fail, like the device's up update
+                cluster.recover_gpu(int(g))
+            downs = np.flatnonzero(fail[e, r])
+            if len(downs):
+                t = int(slot[e, r])
+                ds = set(int(g) for g in downs)
+                # device flat ring order: evictions fill the wait queue in
+                # ascending (row, col) until capacity
+                evs = sorted(
+                    (w for w in alive if w.gpu in ds),
+                    key=lambda w: (w.row, w.col),
+                )
+                alive = [w for w in alive if w.gpu not in ds]
+                for g in ds:
+                    cluster.fail_gpu(g)
+                evicted[e, r] = len(evs)
+                evict_esum[e, r] = sum(w.wid for w in evs)
+                lost = 0
+                for w in evs:
+                    if max_retries >= 1 and len(waiting) < capacity:
+                        waiting.append(
+                            _FWaiting(
+                                eidx=w.wid, pid=w.pid, arr=t, end=w.end,
+                                prio=w.prio, tenant=w.tenant,
+                                row=w.row, col=w.col,
+                                tries=1, rdy=t + backoff(1),
+                            )
+                        )
+                    else:
+                        lost += 1
+                evict_lost[e, r] = lost
+            if wlive[e, r]:
+                t = int(slot[e, r])
+                # prune / re-arm, then one admission attempt of the head
+                kept: List[_FWaiting] = []
+                for w in waiting:
+                    if t - w.arr > patience:
+                        if w.tries < max_retries and w.end > t:
+                            k = w.tries + 1
+                            kept.append(
+                                w._replace(arr=t, tries=k, rdy=t + backoff(k))
+                            )
+                        # else: retry budget or lease exhausted — final drop
+                    elif w.end > t:
+                        kept.append(w)
+                waiting = kept
+                ready = [w for w in waiting if w.rdy <= t]
+                if ready:
+                    w = min(ready, key=head_key(t))
+                    sel = scheduler.select(cluster, w.pid)
+                    if sel is not None:
+                        waiting.remove(w)
+                        g, a = sel
+                        cluster.allocate(w.eidx, w.pid, g, a)
+                        alive.append(
+                            _FAlive(
+                                w.end, w.eidx, g, w.row, w.col, w.pid,
+                                w.prio, w.tenant,
+                            )
+                        )
+                        wadm_eidx[e, r] = w.eidx
+                        wadm_gpu[e, r] = g
+                        wadm_anchor[e, r] = a
+            p = int(pid[e, r])
+            if p < 0:
+                continue
+            t = int(slot[e, r])
+            sel = scheduler.select(cluster, p)
+            if sel is not None:
+                g, a = sel
+                cluster.allocate(e, p, g, a)
+                alive.append(
+                    _FAlive(
+                        int(end[e, r]), e, g, int(exp_row[e, r]),
+                        int(exp_col[e, r]), p, int(prio[e, r]),
+                        int(tenant[e, r]),
+                    )
+                )
+                ok[e, r] = True
+                gpu[e, r] = g
+                anchor[e, r] = a
+            elif wlive[e, r] and len(waiting) < capacity:
+                waiting.append(
+                    _FWaiting(
+                        eidx=e, pid=p, arr=t, end=int(end[e, r]),
+                        prio=int(prio[e, r]), tenant=int(tenant[e, r]),
+                        row=int(exp_row[e, r]), col=int(exp_col[e, r]),
+                        tries=0, rdy=t,
+                    )
+                )
+                parked[e, r] = True
+    return FaultedHostTrace(
+        ok, gpu, anchor, parked, wadm_eidx, wadm_gpu, wadm_anchor,
+        evicted, evict_lost, evict_esum,
     )

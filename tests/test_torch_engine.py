@@ -332,15 +332,20 @@ def test_device_none_means_cuda_and_never_falls_back():
 
 
 def test_unported_configurations_raise():
-    """The faulted protocol, not ported yet, raises; the cumulative and
-    queued protocols and mfi-defrag, ported, run."""
-    with pytest.raises(NotImplementedError, match="steady-faulted"):
+    """Every protocol is ported: the faulted one raises only without a
+    fault model, as in the reference; the cumulative, queued and faulted
+    protocols and mfi-defrag run; the replica split (ROADMAP.md §1 item 11)
+    raises."""
+    with pytest.raises(ValueError, match="fault_model"):
         tb.run_batched("mfi", tsim.SimConfig(num_gpus=3, protocol="steady-faulted"),
                        runs=2, device="cpu")
-    for protocol in ("cumulative", "steady-queued"):
-        r = tb.run_batched("mfi", tsim.SimConfig(num_gpus=3, protocol=protocol),
+    for protocol in ("cumulative", "steady-queued", "steady-faulted"):
+        r = tb.run_batched("mfi", tsim.SimConfig(num_gpus=3, protocol=protocol,
+                                                 fault_model=tmig.FaultModel()),
                            runs=2, device="cpu")
         assert 0.0 < r["acceptance_rate"] <= 1.0, protocol
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 11"):
+        tb.run_batched("mfi", tsim.SimConfig(num_gpus=3), runs=2, shard=True, device="cpu")
     r = tb.run_batched("mfi-defrag", tsim.SimConfig(num_gpus=3), runs=2, device="cpu")
     assert 0.0 < r["acceptance_rate"] <= 1.0
     no_kernels = PolicySpec(name="plain-only", keys=("gpu",), kernel_lowering=False)

@@ -166,14 +166,23 @@ def test_simulate_batched_engine_on_cpu_equals_reference(policy):
 
 
 def test_simulate_refusals():
+    """The reference's refusals: the python engine refuses the chunked
+    knobs, a chunk size must be positive, the faulted protocol needs a
+    fault model; the batched engine takes ``chunk_size``/``stream``."""
     cfg = tsim.SimConfig(num_gpus=4)
+    for kw in (dict(chunk_size=8), dict(stream=True)):
+        with pytest.raises(ValueError, match="batched-engine knobs"):
+            tapi.simulate("mfi", cfg, engine="python", **kw)
     for engine in ("batched", "python"):
-        for kw in (dict(chunk_size=8), dict(stream=True)):
-            with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 10"):
-                tapi.simulate("mfi", cfg, engine=engine, **kw)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 9"):
+        with pytest.raises(ValueError, match="chunk_size"):
+            tapi.simulate("mfi", cfg, engine=engine, chunk_size=0)
+    with pytest.raises(ValueError, match="fault_model"):
         tapi.simulate("mfi", tsim.SimConfig(num_gpus=4, protocol="steady-faulted"),
                       engine="batched", device="cpu")
+    whole = tapi.simulate("mfi", cfg, engine="batched", runs=2, device="cpu")
+    chunked = tapi.simulate("mfi", cfg, engine="batched", runs=2, device="cpu",
+                            chunk_size=64, stream=False)
+    assert all(np.array_equal(chunked[k], v) for k, v in whole.items())
     with pytest.raises(ValueError, match="batched-engine knob"):
         tapi.simulate("mfi", cfg, device="cpu")
     with pytest.raises(ValueError, match="not both"):

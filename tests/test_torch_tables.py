@@ -279,12 +279,13 @@ def test_presampled_streams_are_byte_identical(kw, runs):
 
 
 def test_non_steady_protocols_are_not_ported_yet():
-    """Only the faulted protocol is left: it raises, naming its ROADMAP
-    item; the cumulative and queued protocols resolve."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 9"):
-        tb.resolve_protocol("steady-faulted")
-    for name in ("cumulative", "steady-queued"):
+    """None is left: the cumulative, queued and faulted protocols resolve
+    (a descriptor passes through as it is, as in the reference)."""
+    for name in ("cumulative", "steady-queued", "steady-faulted"):
         assert tb.resolve_protocol(name) == tb.PROTOCOLS[name]
+    proto = dataclasses.replace(tb.PROTOCOLS["steady-faulted"], fault_retries=0)
+    assert tb.resolve_protocol(proto) is proto
+    assert proto.faulted and proto.queued and not tb.PROTOCOLS["steady-queued"].faulted
     with pytest.raises(ValueError, match="unknown protocol"):
         tb.resolve_protocol("bursty")
     assert tb.resolve_protocol("steady") == tb.PROTOCOLS["steady"]
