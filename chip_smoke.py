@@ -117,7 +117,25 @@ Phases, each printing its own lines:
     checkpoint it wrote after chunk 2 equal for one more chunk, with the
     copies' overlap share, wall time and peak device memory of both
     drivers (each phase prints its seconds);
-12. a ``{"kernels": [...]}`` JSON line (each kernel's launches in total
+12. the LM training path, which launches none of the kernels (the
+    reference trains outside any Pallas kernel; the launch counts stay 0):
+    (a) the flash-attention ``autograd.Function`` against plain autograd of
+    the untiled attention at S = 4,096, B = 1, H = 32, KV = 8, D = 64,
+    output and dq/dk/dv, float32 within 1e-5 of each tensor's scale and
+    bfloat16 within 2e-2 + 2e-2·|plain|, with both times; (b) one SMOKE
+    train step on the card against the same step on the CPU (float32, TF32
+    off): loss, every gradient leaf, the parameters after AdamW; (c)
+    ``launch/train.py --arch llama3.2-1b --smoke --steps 50 --batch 8
+    --seq 128`` as it stands, which must print LEARNING; (d) at full width
+    (bf16, random weights seeded 0, float32 moments) ``launch/train.py
+    --arch llama3.2-1b --steps 10 --batch 8 --seq 128`` and five
+    ``steps.train_step`` steps at train_4k's S = 4,096 with a global batch
+    of 8 (cut from 256) as 4 micro-batches of 2, every loss finite, with
+    ms per step, tokens/s, peak device memory against its reckoning, model
+    FLOPs and their share of the bf16 dense peak, and a profiled step of
+    one micro-batch split by what launched each kernel (attention, CE,
+    optimizer, other matmuls, the rest), then a ``{"train": ...}`` line;
+13. a ``{"kernels": [...]}`` JSON line (each kernel's launches in total
     and by path), then the result line.
 
 Every equality of phases 3-5 and 8-11 is exact: all scores are integers
@@ -127,6 +145,7 @@ held in float32.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import hashlib
 import itertools
 import json
@@ -271,6 +290,32 @@ BF16_ATOL = BF16_RTOL = 2e-2
 #: float32 arithmetic, and 2^-10 of the row's rms where |plain| is near 0
 BF16_TIGHT_RTOL = 2.0 ** -7
 BF16_TIGHT_ROW_ATOL = 2.0 ** -10
+#: the training phase (phase 12): llama3.2-1b at train_4k's sequence length
+#: (src/repro/launch/shapes.py:31) with train_4k's global batch of 256
+#: cut to 8 (pod scale), as 4 micro-batches of 2
+TRAIN_ARCH = "llama3.2-1b"
+TRAIN_SEQ = 4096
+TRAIN_CUT_FROM = 256
+TRAIN_BATCH = 8
+TRAIN_ACCUM = 4
+TRAIN_STEPS = 5
+BF16_DENSE_OPS_PER_S = 989e12  # H100 SXM bf16 dense, tensor cores
+#: the flash Function against plain autograd: (B, S, H, KV, D); float32
+#: within decode_attention's 1e-5 scaled by the tensor's largest magnitude
+#: where that exceeds 1 (a gradient sums up to S·G terms), bfloat16 within
+#: decode_attention's 2e-2 + 2e-2·|plain|
+FLASH_SHAPE = (1, 4096, 32, 8, 64)
+TRAIN_F32_RTOL = 1e-5
+#: one SMOKE step card vs CPU: every gradient leaf within this share of its
+#: largest magnitude under the reference's initialiser (std 0.25 stacked
+#: weights: attention logits reach |456|, and on the CPU a one-ulp nudge of
+#: the parameters moves a gradient leaf by up to 5.4e-3 of its scale) and
+#: with the weights scaled by 0.1; the parameters after AdamW within
+#: 1e-5·|p| + 2·lr (a gradient element near 0 may flip its sign, and Adam's
+#: step with it)
+SMOKE_GRAD_TOL = 1e-2
+SMOKE_TAMED_GRAD_TOL = 2e-5
+SMOKE_STEP_LR = 3e-4
 #: victims per replica of the migrate search at M = 100 (min(C, M·S))
 C_LIVE = 800
 #: fleet sizes of the mfi_delta kernel check (A100-80GB): the paper's
@@ -2428,6 +2473,415 @@ def decision_phase(device, wrappers):
                 host_s=host_s, loop=loop, rates=rates, api_launches=api_counts)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the LM training path
+# ---------------------------------------------------------------------------
+
+
+def plain_attention(q, k, v):
+    """Untiled causal GQA attention in float32 from the same inputs, for
+    plain autograd: the (B, H, S, S) probabilities are materialised."""
+    import torch
+
+    b, s, h, d = q.shape
+    g = h // k.shape[2]
+    kk = k.float().repeat_interleave(g, dim=2)
+    vv = v.float().repeat_interleave(g, dim=2)
+    logits = torch.einsum("bqhd,bshd->bhqs", q.float(), kk) * d ** -0.5
+    causal = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+    p = torch.softmax(logits.masked_fill(~causal, float("-inf")), dim=-1)
+    return torch.einsum("bhqs,bshd->bqhd", p, vv)
+
+
+def flash_check(device, blk):
+    """The flash Function's output and dq/dk/dv against plain autograd of
+    the untiled attention at FLASH_SHAPE, float32 and bfloat16."""
+    import torch
+    from repro_torch.models import common
+
+    b, s, h, kv, d = FLASH_SHAPE
+    gen = torch.Generator(device).manual_seed(20)
+    q, do = (torch.randn(b, s, h, d, generator=gen, device=device) for _ in range(2))
+    k, v = (torch.randn(b, s, kv, d, generator=gen, device=device) for _ in range(2))
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        ins = [x.to(dtype).requires_grad_() for x in (q, k, v)]
+        dod = do.to(dtype)
+
+        def flash():
+            o = common.blockwise_attention(*ins, blk_q=blk, blk_k=blk)
+            return (o,) + torch.autograd.grad(o, ins, dod)
+
+        ref_ins = [x.detach().float().requires_grad_() for x in ins]
+
+        def plain():
+            o = plain_attention(*ref_ins)
+            return (o,) + torch.autograd.grad(o, ref_ins, dod.float())
+
+        got, want = flash(), plain()
+        errs = {}
+        for name, g, w in zip(("o", "dq", "dk", "dv"), got, want):
+            check(g.dtype == dtype and g.shape == w.shape, f"train: flash {name} {g.dtype} {g.shape}")
+            w = w.detach()
+            err = (g.detach().float() - w).abs()
+            scale = float(w.abs().max())
+            if dtype == torch.float32:
+                check(float(err.max()) <= TRAIN_F32_RTOL * max(1.0, scale),
+                      f"train: flash f32 {name} error {float(err.max())} at scale {scale}")
+            else:
+                bad = err > BF16_ATOL + BF16_RTOL * w.abs()
+                check(not bool(bad.any()), f"train: flash bf16 {name} error {float(err.max())}")
+            errs[name] = (float(err.max()), scale)
+        del got, want
+        flash_ms, plain_ms = cuda_ms(flash, 3, warm=1), cuda_ms(plain, 3, warm=1)
+        tag = str(dtype).removeprefix("torch.")
+        out[tag] = dict(errors={n: e for n, (e, _) in errs.items()}, flash_fwd_bwd_ms=flash_ms,
+                        plain_fwd_bwd_ms=plain_ms)
+        log(f"train: flash attention {tag} (B {b}, S {s}, H {h}, KV {kv}, D {d}, tiles {blk}) "
+            f"vs plain autograd of the untiled attention: max abs err "
+            + ", ".join(f"{n} {e:.3e} (|plain| <= {sc:.3g})" for n, (e, sc) in errs.items())
+            + f"; forward + backward {flash_ms:.3f} ms (plain {plain_ms:.3f} ms)")
+    return out
+
+
+def smoke_step_check(device):
+    """One SMOKE train step on the card against the same step on the CPU
+    (float32, TF32 off): the loss, every gradient leaf, and the parameters
+    after ``adamw_update`` at lr SMOKE_STEP_LR, under the reference's
+    initialiser and with the weight matrices scaled by 0.1."""
+    import torch
+    from repro_torch.configs import SMOKES
+    from repro_torch.data import make_batch_iterator
+    from repro_torch.launch import steps
+    from repro_torch.models import model
+    from repro_torch.optim import adamw_init, adamw_update
+
+    cfg = SMOKES[TRAIN_ARCH]
+    cpu = torch.device("cpu")
+    tree = model.params_to_tree(model.init_params(cfg, torch.Generator().manual_seed(0), cpu), cfg)
+    batch = next(make_batch_iterator(cfg, 8, 128, seed=0))
+    out = {}
+    for scale, grad_tol in ((1.0, SMOKE_GRAD_TOL), (0.1, SMOKE_TAMED_GRAD_TOL)):
+        def scaled(t):
+            if isinstance(t, dict):
+                return {k: scaled(v) for k, v in t.items()}
+            return t * scale if t.dim() > 1 else t.clone()
+
+        runs = {}
+        for dev in (cpu, device):
+            params = model.params_from_numpy(scaled(tree), cfg, dev)
+            b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+            loss, grads = steps.loss_and_grads(params, b, cfg)
+            adamw_update(params, grads, adamw_init(params), lr=SMOKE_STEP_LR)
+            runs[dev.type] = (float(loss), grads, dict(params.named_parameters()))
+        (hl, hg, hp), (cl, cg, cp) = runs["cpu"], runs[device.type]
+        gworst = pworst = 0.0  # as shares of their limits
+        for name in hg:
+            w = hg[name].float()
+            err = float((cg[name].cpu().float() - w).abs().max())
+            gworst = max(gworst, err / (grad_tol * float(w.abs().max())))
+            w = hp[name].detach().float()
+            err = float((cp[name].detach().cpu().float() - w).abs().max())
+            pworst = max(pworst, err / (1e-5 * float(w.abs().max()) + 2 * SMOKE_STEP_LR))
+        log(f"train: SMOKE step, weights x{scale:g}, card vs CPU (f32, TF32 off): loss {cl:.7f} vs "
+            f"{hl:.7f}; worst gradient leaf at {gworst:.3f} of its limit ({grad_tol:g} of the "
+            f"leaf's largest magnitude); parameters after AdamW (lr {SMOKE_STEP_LR:g}) at "
+            f"{pworst:.3f} of theirs (1e-5·|p| + 2·lr)")
+        check(abs(cl - hl) <= 1e-5 * abs(hl), f"train: smoke loss card {cl} vs cpu {hl}")
+        check(gworst <= 1.0 and pworst <= 1.0, f"train: smoke step x{scale:g} card vs CPU past its limits")
+        key = "reference_init" if scale == 1.0 else "tamed"
+        out[key] = dict(loss_card=cl, loss_cpu=hl, grad_share_of_limit=gworst,
+                        param_share_of_limit=pworst)
+    return out
+
+
+def launcher_run(argv):
+    """``launch/train.py``'s ``main(argv)`` on the card, its lines echoed;
+    returns (its return value, its lines, seconds)."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.launch import train
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        learned = train.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(f"  {line}")
+    return learned, lines, seconds
+
+
+def annotated(fn, name):
+    """``fn`` run inside a profiler range ``name``."""
+    from torch.profiler import record_function
+
+    def run(*args, **kwargs):
+        with record_function(name):
+            return fn(*args, **kwargs)
+
+    return run
+
+
+def mark(name):
+    """A zero-length profiler range: a timestamp on the calling thread."""
+    from torch.profiler import record_function
+
+    with record_function(name):
+        pass
+
+
+@contextlib.contextmanager
+def training_annotations():
+    """Profiler ranges around the flash Function's forward and backward, the
+    cross-entropy (its backward delimited by hooks on the loss and on the
+    hidden states it reads) and the optimizer, for :func:`step_split`."""
+    from repro_torch.launch import steps
+    from repro_torch.models import common
+
+    F = common._FlashQTile
+    saved = (F.__dict__["forward"], F.__dict__["backward"], common.chunked_ce_loss,
+             steps.adamw_update)
+
+    def ce_loss(x, *args, **kwargs):
+        loss = annotated(saved[2], "train:ce")(x, *args, **kwargs)
+        if loss.requires_grad:
+            loss.register_hook(lambda g: mark("train:ce-backward-start"))
+            x.register_hook(lambda g: mark("train:ce-backward-end"))
+        return loss
+
+    F.forward = staticmethod(annotated(saved[0].__func__, "train:attention"))
+    F.backward = staticmethod(annotated(saved[1].__func__, "train:attention"))
+    common.chunked_ce_loss = ce_loss
+    steps.adamw_update = annotated(saved[3], "train:optimizer")
+    try:
+        yield
+    finally:
+        F.forward, F.backward, common.chunked_ce_loss, steps.adamw_update = saved
+
+
+MATMUL_KERNEL_WORDS = ("gemm", "nvjet", "xmma", "cutlass", "wgmma")
+
+
+def step_split(prof, wall_s):
+    """Device time of a profiled step by what launched each kernel:
+    attention (the flash Function, forward and backward), CE (the loss and
+    its backward), optimizer, and the rest split into matmul kernels
+    (projections and MLP) and other kernels.  A kernel belongs to the
+    range that holds the start of the CPU operator that launched it, on
+    that operator's thread.  The ranges' own device-side spans (GPU user
+    annotations) are not kernels and are left out."""
+    import bisect
+    from torch.autograd import DeviceType
+
+    ops, kernels, spans, marks = {}, [], {}, []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            if not e.name().startswith("train:"):
+                kernels.append((e.linked_correlation_id(), e.name(), e.duration_ns()))
+            continue
+        if e.linked_correlation_id() > 0:  # a runtime call, not an operator
+            continue
+        name, thread = e.name(), e.start_thread_id()
+        ops[e.correlation_id()] = (thread, e.start_ns())
+        if name in ("train:ce-backward-start", "train:ce-backward-end"):
+            marks.append((thread, e.start_ns(), name.endswith("start")))
+        elif name.startswith("train:"):
+            spans.setdefault((name[6:], thread), []).append((e.start_ns(), e.end_ns()))
+    open_at = {}
+    for thread, ns, start in sorted(marks, key=lambda m: m[1]):
+        if start:
+            open_at.setdefault(thread, ns)
+        elif thread in open_at:
+            spans.setdefault(("ce", thread), []).append((open_at.pop(thread), ns))
+    merged = {}
+    for key, ivs in spans.items():
+        out = []
+        for a, b in sorted(ivs):
+            if out and a <= out[-1][1]:
+                out[-1][1] = max(out[-1][1], b)
+            else:
+                out.append([a, b])
+        merged[key] = ([a for a, _ in out], [b for _, b in out])
+
+    def inside(key, ns):
+        if key not in merged:
+            return False
+        starts, ends = merged[key]
+        i = bisect.bisect_right(starts, ns) - 1
+        return i >= 0 and ns <= ends[i]
+
+    totals, by_name = {}, {}
+    for corr, name, dur in kernels:
+        thread, ns = ops.get(corr, (None, None))
+        cat = next((c for c in ("attention", "ce", "optimizer") if inside((c, thread), ns)), None)
+        if cat is None:
+            cat = "matmul" if any(w in name.lower() for w in MATMUL_KERNEL_WORDS) else "other"
+        totals[cat] = totals.get(cat, 0) + dur
+        t, c = by_name.get(name, (0, 0))
+        by_name[name] = (t + dur, c + 1)
+    busy = sum(totals.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return dict(
+        busy_ms=busy / 1e6, wall_ms=wall_s * 1e3, busy_share=busy / 1e9 / wall_s,
+        kernels=len(kernels),
+        shares={c: totals.get(c, 0) / max(busy, 1)
+                for c in ("attention", "ce", "matmul", "optimizer", "other")},
+        top=[dict(name=n[:80], ms=t / 1e6, count=c) for n, (t, c) in top])
+
+
+def train_4k_run(device, wrappers):
+    """``steps.train_step`` at train_4k's sequence length: TRAIN_STEPS
+    timed steps of a global batch of TRAIN_BATCH sequences as TRAIN_ACCUM
+    micro-batches, then a step of one micro-batch, unprofiled and under the
+    profiler."""
+    import dataclasses
+    import math
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import make_batch_iterator
+    from repro_torch.launch import steps
+    from repro_torch.models import model
+    from repro_torch.optim import adamw_init
+
+    cfg = dataclasses.replace(ARCHS[TRAIN_ARCH], grad_accum=TRAIN_ACCUM)
+    t0 = time.perf_counter()
+    data = make_batch_iterator(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    batches = [next(data) for _ in range(TRAIN_STEPS + 1)]
+    sample_s = time.perf_counter() - t0
+    params = model.init_params(cfg, torch.Generator(device).manual_seed(0), device=device)
+    opt = adamw_init(params, cfg.opt_dtype)
+    n_alloc = sum(p.numel() for p in params.parameters())
+    param_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    moment_bytes = sum(t.numel() * t.element_size() for m in ("m", "v") for t in opt[m].values())
+    # params, their accumulated gradients, one micro-batch's gradients, moments
+    reckoned = 3 * param_bytes + moment_bytes
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in wrappers.values():
+        fn.launches = 0
+    step_s, losses = [], []
+    for b in batches[:TRAIN_STEPS]:
+        tb = {k: torch.as_tensor(v, device=device) for k, v in b.items()}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, opt, metrics = steps.train_step(params, opt, tb, cfg)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        check(math.isfinite(loss), f"train: train_4k loss {loss} at step {len(losses)}")
+        losses.append(loss)
+    peak = torch.cuda.max_memory_allocated()
+    counts = {k: fn.launches for k, fn in wrappers.items()}
+    check(not any(counts.values()), f"train: the training path launched kernels {counts}")
+
+    # the profiled window: one step of one micro-batch (grad_accum 1), run
+    # once unprofiled for its wall time; a whole step holds ~400k kernels,
+    # which the profiler takes ~40 s to collect and read
+    micro = dataclasses.replace(cfg, grad_accum=1)
+    tb = {k: torch.as_tensor(v[:TRAIN_BATCH // TRAIN_ACCUM], device=device)
+          for k, v in batches[-1].items()}
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    params, opt, metrics = steps.train_step(params, opt, tb, micro)
+    float(metrics["loss"])
+    torch.cuda.synchronize()
+    micro_wall = time.perf_counter() - t
+    with training_annotations():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            params, opt, metrics = steps.train_step(params, opt, tb, micro)
+            loss = float(metrics["loss"])
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t
+    check(math.isfinite(loss), f"train: profiled train_4k loss {loss}")
+    t = time.perf_counter()
+    split = step_split(prof, prof_wall)
+    split_s = time.perf_counter() - t
+    split["unprofiled_wall_ms"] = micro_wall * 1e3
+    split["busy_share_unprofiled"] = split["busy_ms"] / 1e3 / micro_wall
+
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n = cfg.param_count()
+    attn_flops = 6 * TRAIN_BATCH * cfg.n_layers * TRAIN_SEQ ** 2 * cfg.n_heads * cfg.head_dim
+    flops = 6 * n * tokens + attn_flops
+    warm = step_s[1:] if len(step_s) > 1 else step_s
+    ms = 1e3 * sum(warm) / len(warm)
+    out = dict(
+        seq=TRAIN_SEQ, global_batch=TRAIN_BATCH, micro_batch=TRAIN_BATCH // TRAIN_ACCUM,
+        grad_accum=TRAIN_ACCUM, cut_from_global_batch=TRAIN_CUT_FROM, steps=TRAIN_STEPS,
+        losses=losses, first_step_ms=1e3 * step_s[0], ms_per_step=ms,
+        tokens_per_s=tokens / (ms / 1e3), sample_s=sample_s, params=n_alloc,
+        param_count=n, state_gb=(param_bytes + moment_bytes) / 1e9,
+        reckoned_gb=reckoned / 1e9, base_gb=base / 1e9, peak_gb=peak / 1e9,
+        model_flops=flops, attention_flops=attn_flops,
+        bf16_peak_share=flops / (ms / 1e3) / BF16_DENSE_OPS_PER_S, profile=split,
+        profiled_loss=loss, split_s=split_s)
+    log(f"train: train_4k length, {TRAIN_ARCH} bf16 at its published widths ({n_alloc} parameters, "
+        f"f32 moments), global batch {TRAIN_BATCH} (cut from train_4k's {TRAIN_CUT_FROM}) as "
+        f"{TRAIN_ACCUM} micro-batches of {TRAIN_BATCH // TRAIN_ACCUM} x {TRAIN_SEQ} tokens; "
+        f"{len(batches)} batches sampled in {sample_s:.2f} s (not timed)")
+    log(f"train: {TRAIN_STEPS} steps, losses {', '.join(f'{x:.4f}' for x in losses)}; first "
+        f"step {out['first_step_ms']:.1f} ms, then {ms:.1f} ms/step, {out['tokens_per_s']:.1f} "
+        f"tokens/s; model FLOPs {flops:.4e} a step (6·N·tokens with N = {n}, plus attention "
+        f"{attn_flops:.4e}) = {100 * out['bf16_peak_share']:.2f}% of the bf16 dense peak "
+        f"(989 TFLOP/s)")
+    log(f"train: device memory: {base / 1e9:.3f} GB before the steps (parameters "
+        f"{param_bytes / 1e9:.3f} + moments {moment_bytes / 1e9:.3f}), peak {peak / 1e9:.3f} GB "
+        f"(reckoned: parameters, accumulated and micro-batch gradients, moments = "
+        f"{reckoned / 1e9:.3f} GB, plus activations)")
+    log(f"train: profiled window, one step of one micro-batch ({TRAIN_BATCH // TRAIN_ACCUM} x "
+        f"{TRAIN_SEQ}, grad_accum 1): device busy {split['busy_ms']:.1f} ms of "
+        f"{split['wall_ms']:.1f} ms profiled wall ({100 * split['busy_share']:.1f}%) and of "
+        f"{split['unprofiled_wall_ms']:.1f} ms unprofiled ({100 * split['busy_share_unprofiled']:.1f}%), "
+        f"{split['kernels']} kernels; by what launched them: "
+        + ", ".join(f"{c} {100 * s:.1f}%" for c, s in split["shares"].items())
+        + f"; split read in {split_s:.1f} s")
+    log("train: top device ops: " + "; ".join(
+        f"{t['name'][:60]} {t['ms']:.1f} ms x{t['count']}" for t in split["top"]))
+    return out
+
+
+def training_phase(device, wrappers):
+    """The LM training path: flash attention against plain autograd, one
+    SMOKE step card vs CPU, the smoke launcher, then full width."""
+    import gc
+    import math
+    import re
+    import torch
+    from repro_torch.configs import ARCHS
+
+    cfg = ARCHS[TRAIN_ARCH]
+    out = dict(flash=flash_check(device, cfg.attn_blk), smoke_step=smoke_step_check(device))
+
+    learned, lines, seconds = launcher_run(
+        ["--arch", TRAIN_ARCH, "--smoke", "--steps", "50", "--batch", "8", "--seq", "128"])
+    check(bool(learned) and lines[-1].endswith("(LEARNING)"), f"train: smoke launcher: {lines[-1]}")
+    out["smoke_launcher"] = dict(seconds=seconds, last=lines[-1])
+    log(f"train: launch/train.py --smoke --steps 50 --batch 8 --seq 128 in {seconds:.2f} s: LEARNING")
+
+    learned, lines, seconds = launcher_run(
+        ["--arch", TRAIN_ARCH, "--steps", "10", "--batch", "8", "--seq", "128"])
+    numbers = [float(x) for line in lines for x in re.findall(r"loss (\S+)", line)]
+    numbers += [float(x) for x in re.findall(r"-> (\S+)", lines[-1])]
+    check(len(numbers) >= 4 and all(math.isfinite(x) for x in numbers),
+          f"train: full-width launcher losses {numbers}")
+    out["full_width_launcher"] = dict(seconds=seconds, last=lines[-1], losses=numbers)
+    log(f"train: launch/train.py --arch {TRAIN_ARCH} --steps 10 --batch 8 --seq 128 (full width) "
+        f"in {seconds:.2f} s, every loss finite")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    out["train_4k"] = train_4k_run(device, wrappers)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2494,6 +2948,8 @@ def main() -> int:
     lap(10)
     faults = faults_phase(device, wrappers)
     lap(11)
+    training = training_phase(device, wrappers)
+    lap(12)
     # each path's launches, counted from zero just before it ran
     by_path = {name: dict.fromkeys(wrappers, 0) for name in (
         "steady", "fig5", "serving", "decisions", "protocols", "faults")}
@@ -2526,6 +2982,7 @@ def main() -> int:
     log(json.dumps({"fig5": fig5}))
     log(json.dumps({"protocols": protocols}))
     log(json.dumps({"faults": faults}))
+    log(json.dumps({"train": training}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

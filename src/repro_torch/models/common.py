@@ -1,7 +1,7 @@
-"""Shared layer library: parameter definitions, norms, RoPE, attention.
+"""Shared layer library: parameter definitions, norms, RoPE, attention, loss.
 
 The port's counterpart of the JAX package's ``models/common.py`` for the
-serving path:
+serving and training paths:
 
 * every parameter is declared once as a :class:`ParamDef` and
   :func:`materialize` draws the whole tree with the reference's scheme
@@ -9,19 +9,25 @@ serving path:
   override) from an explicit ``torch.Generator``;
 * activations keep the reference's layouts: (batch, seq, ...), attention
   heads (B, S, H, D), KV caches (B, S, KV, D);
-* prefill attention (:func:`blockwise_attention`) is plain torch, as the
-  reference's is plain jnp; single-token decode attention
-  (:func:`decode_gqa_attention`) goes through the hand-written
-  ``decode_attention`` kernel's wrapper.
+* prefill and training attention (:func:`blockwise_attention`, flash
+  attention over query and KV tiles with the reference's custom backward)
+  is plain torch, as the reference's is plain jnp; single-token decode
+  attention (:func:`decode_gqa_attention`) goes through the hand-written
+  ``decode_attention`` kernel's wrapper;
+* training adds the layer rematerialisation (:func:`remat_scan`) and the
+  S-chunked cross-entropy (:func:`chunked_ce_loss`).  The reference's
+  ``grad_dtype_barrier`` applies only under a sharding rule, which the
+  port does not have (ROADMAP.md §1 item 13).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.decode_attention import ops as decode_ops
 
@@ -115,32 +121,136 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 # ---------------------------------------------------------------------------
 
 
-def blockwise_attention(
-    q: torch.Tensor,  # (B, S, H, D)
-    k: torch.Tensor,  # (B, S, KV, D)
-    v: torch.Tensor,  # (B, S, KV, D)
-) -> torch.Tensor:
-    """Causal GQA attention of a prompt at scale ``D ** -0.5`` (the
-    forward of the reference's flash attention, whose backward the serving
-    path never runs).
+def _tile_logits(qt, kt, scale, qstart: int, kstart: int, causal: bool):
+    """Masked float32 logits of one (Q-tile, KV-tile) pair whose first query
+    and key sit at ``qstart`` and ``kstart``.
 
-    Logits and softmax statistics are float32; the unnormalised
-    probabilities are cast to v's dtype for the value product, which
-    accumulates in float32, and the sum is divided by the normaliser — the
-    reference's arithmetic when the prompt fits one of its KV tiles
-    (``attn_blk`` = 512 keys), and its result up to rounding otherwise.
+    qt: (B, KV, G, bq, D); kt: (B, KV, bk, D) -> (B, KV, G, bq, bk).  Both
+    operands are upcast before the product (the reference's
+    ``preferred_element_type=float32``).  A tile wholly at or below the
+    diagonal has nothing to mask, so the mask is built only where some key
+    lies after some query.
     """
-    b, s, h, d = q.shape
-    kv = k.shape[2]
-    qg = q.reshape(b, s, kv, h // kv, d)
-    logits = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) * d ** -0.5
-    pos = torch.arange(s, device=q.device)
-    logits = logits.masked_fill(pos[:, None] < pos[None, :], float("-inf"))
-    m = logits.amax(dim=-1, keepdim=True)  # finite: every query sees key 0
-    p = torch.exp(logits - m)
-    l = p.sum(dim=-1, keepdim=True)
-    o = torch.einsum("bkgqs,bskd->bkgqd", p.to(v.dtype).float(), v.float()) / l
-    return o.permute(0, 3, 1, 2, 4).reshape(b, s, h, d).to(q.dtype)
+    logits = torch.einsum("bkgqd,bksd->bkgqs", qt.float(), kt.float()) * scale
+    bq, bk = qt.shape[3], kt.shape[2]
+    if causal and kstart + bk - 1 > qstart:
+        qpos = qstart + torch.arange(bq, device=qt.device)
+        kpos = kstart + torch.arange(bk, device=qt.device)
+        logits = logits.masked_fill(qpos[:, None] < kpos[None, :], float("-inf"))
+    return logits
+
+
+def _flash_forward(qt, kts, vts, qstart: int, nk: int, scale: float, causal: bool):
+    """The online-softmax scan of one query tile over KV tiles ``0..nk-1``.
+    Returns ``(o, lse)`` in float32: (B, KV, G, bq, D), (B, KV, G, bq, 1)."""
+    b, kv, g, bq, d = qt.shape
+    blk_k = kts.shape[3]
+    dev = qt.device
+    m = torch.full((b, kv, g, bq, 1), float("-inf"), dtype=torch.float32, device=dev)
+    l = torch.zeros((b, kv, g, bq, 1), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, kv, g, bq, d), dtype=torch.float32, device=dev)
+    for j in range(nk):
+        kt, vt = kts[j], vts[j]
+        logits = _tile_logits(qt, kt, scale, qstart, j * blk_k, causal)
+        m_new = torch.maximum(m, logits.amax(dim=-1, keepdim=True))
+        safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        p = torch.where(torch.isfinite(logits), torch.exp(logits - safe), 0.0)
+        alpha = torch.where(torch.isfinite(m), torch.exp(m - safe), 0.0)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bkgqs,bksd->bkgqd",
+                                         p.to(vt.dtype).float(), vt.float())
+        m = m_new
+    o = acc / torch.where(l == 0, 1.0, l)
+    lse = torch.where(l > 0, m + torch.log(torch.clamp(l, min=1e-38)), float("-inf"))
+    return o, lse
+
+
+class _FlashQTile(torch.autograd.Function):
+    """Flash attention of ONE query tile against the KV tiles it can see.
+
+    The residuals are only ``(o, lse)``: the backward pass recomputes each
+    tile's logits from ``lse``, so autograd never stores (bq × bk)
+    probabilities, and training attention memory stays O(S·D) rather than
+    O(S²).  ``kts``/``vts`` hold every KV tile, (nk_all, B, KV, bk, D); only
+    the first ``nk`` are read (causal tiles past the diagonal add p = 0 at
+    alpha = 1, so skipping them changes no bit), and their gradients are
+    zero.
+    """
+
+    @staticmethod
+    def forward(ctx, qt, kts, vts, qstart: int, nk: int, scale: float, causal: bool):
+        o, lse = _flash_forward(qt, kts, vts, qstart, nk, scale, causal)
+        ctx.save_for_backward(qt, kts, vts, o, lse)
+        ctx.args = (qstart, nk, scale, causal)
+        return o.to(qt.dtype)
+
+    @staticmethod
+    def backward(ctx, do):
+        qt, kts, vts, o, lse = ctx.saved_tensors
+        qstart, nk, scale, causal = ctx.args
+        blk_k = kts.shape[3]
+        dev = qt.device
+        dof = do.float()
+        dsum = torch.sum(dof * o, dim=-1, keepdim=True)  # (B, KV, G, bq, 1)
+        qtf = qt.float()
+        lse_safe = torch.where(torch.isfinite(lse), lse, 0.0)
+        dq = torch.zeros(qt.shape, dtype=torch.float32, device=dev)
+        dks = torch.zeros_like(kts)
+        dvs = torch.zeros_like(vts)
+        for j in range(nk):
+            ktf, vtf = kts[j].float(), vts[j].float()
+            logits = _tile_logits(qtf, ktf, scale, qstart, j * blk_k, causal)
+            p = torch.where(torch.isfinite(logits), torch.exp(logits - lse_safe), 0.0)
+            dvs[j] = torch.einsum("bkgqs,bkgqd->bksd", p, dof)
+            dp = torch.einsum("bkgqd,bksd->bkgqs", dof, vtf)
+            ds = p * (dp - dsum) * scale
+            dq = dq + torch.einsum("bkgqs,bksd->bkgqd", ds, ktf)
+            dks[j] = torch.einsum("bkgqs,bkgqd->bksd", ds, qtf)
+        return dq.to(qt.dtype), dks, dvs, None, None, None, None
+
+
+def blockwise_attention(
+    q: torch.Tensor,  # (B, Sq, H, D)
+    k: torch.Tensor,  # (B, Sk, KV, D)
+    v: torch.Tensor,  # (B, Sk, KV, D)
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    blk_q: int = 512,
+    blk_k: int = 512,
+) -> torch.Tensor:
+    """Flash attention with GQA at scale ``D ** -0.5`` over query tiles of
+    ``blk_q`` and KV tiles of ``blk_k`` (the reference's global path),
+    differentiable through :class:`_FlashQTile`.
+
+    Logits and the softmax statistics are float32; the unnormalised
+    probabilities are cast to v's dtype for the value product, which
+    accumulates in float32.  The sliding-window path is not ported.
+    """
+    if window is not None:
+        raise NotImplementedError(
+            "sliding-window attention is not ported yet (ROADMAP.md §1 item 6 (b))")
+    b, sq, h, d = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    scale = d ** -0.5
+    blk_q = min(blk_q, sq)
+    blk_k = min(blk_k, sk)
+    if sq % blk_q or sk % blk_k:
+        raise ValueError(f"tiles must divide the sequences: {sq} % {blk_q}, {sk} % {blk_k}")
+    nq, nk = sq // blk_q, sk // blk_k
+
+    qg = q.reshape(b, nq, blk_q, kv, g, d).permute(1, 0, 3, 4, 2, 5)  # (nq, B, KV, G, bq, D)
+    kts = k.reshape(b, nk, blk_k, kv, d).permute(1, 0, 3, 2, 4)        # (nk, B, KV, bk, D)
+    vts = v.reshape(b, nk, blk_k, kv, d).permute(1, 0, 3, 2, 4)
+    out = []
+    for i in range(nq):
+        qstart = i * blk_q
+        # KV tiles holding a key at or before the tile's last query
+        seen = min(nk, (qstart + blk_q - 1) // blk_k + 1) if causal else nk
+        out.append(_FlashQTile.apply(qg[i], kts, vts, qstart, seen, scale, causal))
+    o = torch.stack(out)  # (nq, B, KV, G, bq, D)
+    return o.permute(1, 0, 4, 2, 3, 5).reshape(b, sq, h, d).to(q.dtype)
 
 
 def decode_gqa_attention(
@@ -168,3 +278,87 @@ def mask_padded_logits(logits: torch.Tensor, valid_vocab: int) -> torch.Tensor:
         return logits
     mask = torch.arange(v, device=logits.device) < valid_vocab
     return torch.where(mask, logits, torch.full_like(logits, -1e30))
+
+
+# ---------------------------------------------------------------------------
+# Training: layer rematerialisation, loss
+# ---------------------------------------------------------------------------
+
+
+def _sqrt_factor(n: int) -> int:
+    """Largest divisor of n that is <= sqrt(n)."""
+    best = 1
+    f = 1
+    while f * f <= n:
+        if n % f == 0:
+            best = f
+        f += 1
+    return best
+
+
+def remat_scan(body: Callable, x: torch.Tensor, xs: Sequence, *, train: bool) -> torch.Tensor:
+    """``x = body(x, xs[i])`` for every ``i`` in order, with sqrt(N)
+    two-level rematerialisation when training.
+
+    Training a stack of N layers normally keeps every layer's activations;
+    here each layer is checkpointed (only its input is kept) and the layers
+    are split into ``outer × inner`` super-groups, each checkpointed too,
+    which bounds the live checkpoints at outer + inner ≈ 2·sqrt(N).  This
+    changes memory, not numbers.  Inference (``train=False``) runs plain.
+    """
+    if not train:
+        for item in xs:
+            x = body(x, item)
+        return x
+    n = len(xs)
+    o = _sqrt_factor(n)
+    i = n // o
+
+    def inner(x, items):
+        for item in items:
+            x = checkpoint(body, x, item, use_reentrant=False)
+        return x
+
+    if o == 1:
+        return inner(x, xs)
+    for g in range(o):
+        x = checkpoint(inner, x, xs[g * i:(g + 1) * i], use_reentrant=False)
+    return x
+
+
+def _ce_chunk(xt: torch.Tensor, embed: torch.Tensor, lt: torch.Tensor,
+              valid_vocab: Optional[int]):
+    """Summed cross-entropy and label count of one S-chunk (float32)."""
+    logits = torch.einsum("bsd,vd->bsv", xt.float(), embed.float())
+    if valid_vocab is not None:
+        logits = mask_padded_logits(logits, valid_vocab)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, torch.clamp(lt, min=0).long()[..., None])[..., 0]
+    mask = (lt >= 0).float()
+    return torch.sum((lse - gold) * mask), torch.sum(mask)
+
+
+def chunked_ce_loss(
+    x: torch.Tensor,       # (B, S, D) final hidden states
+    embed: torch.Tensor,   # (Vp, D) tied softmax weights (padded vocab)
+    labels: torch.Tensor,  # (B, S) int, -1 = ignore
+    chunk: int = 512,
+    valid_vocab: Optional[int] = None,
+) -> torch.Tensor:
+    """Mean cross-entropy over valid labels with S-chunked float32 logits.
+
+    Each chunk is recomputed in the backward pass (a checkpoint), so
+    (B, S, V) logits never exist; at most one chunk's (B, chunk, V) do.
+    """
+    b, s, _ = x.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"chunk {chunk} must divide the sequence {s}")
+    loss_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    n = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(0, s, chunk):
+        part, count = checkpoint(_ce_chunk, x[:, c:c + chunk], embed, labels[:, c:c + chunk],
+                                 valid_vocab, use_reentrant=False)
+        loss_sum = loss_sum + part
+        n = n + count
+    return loss_sum / torch.clamp(n, min=1.0)

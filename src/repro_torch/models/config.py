@@ -104,3 +104,44 @@ class ModelConfig:
     @property
     def n_groups(self) -> int:
         return self.n_layers // sum(self.group_pattern)
+
+    @property
+    def ssm_dinner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_nheads(self) -> int:
+        return self.ssm_dinner // self.ssm_headdim
+
+    def param_count(self) -> int:
+        """Total parameters (N for roofline 6·N·D), the reference's count:
+        the unpadded vocabulary's embedding rows."""
+        d, f, v, hd = self.d_model, self.d_ff, self.vocab, self.head_dim
+        h, kv = self.n_heads, self.n_kv_heads
+        attn = d * hd * (h + 2 * kv) + h * hd * d  # qkv + out
+        if self.qk_norm:
+            attn += 2 * hd
+        gated = self.mlp in ("swiglu", "geglu")
+        mlp = d * f * (3 if gated else 2)
+        if self.family == "moe":
+            mlp = self.n_experts * mlp + d * self.n_experts  # + router
+        ssm = 0
+        if self.family in ("ssm", "hybrid"):
+            di, n, hh = self.ssm_dinner, self.ssm_state, self.ssm_nheads
+            # in_proj (z,x,B,C,dt) + conv + out_proj + A/D/dt_bias + gated norm
+            ssm = d * (2 * di + 2 * n + hh) + self.conv_width * (di + 2 * n) \
+                + di * d + 3 * hh + di
+        norms = 2 * d * (2 if self.post_norm else 1)
+        if self.family == "ssm":
+            per_layer = ssm + norms
+        elif self.family == "hybrid":
+            per_layer = attn + ssm + mlp + norms + d  # + fusion norms approx
+        else:
+            per_layer = attn + mlp + norms
+        total = self.n_layers * per_layer + v * d + d  # embed + final norm
+        if self.encdec:
+            enc_layer = attn + mlp + norms
+            total += self.n_enc_layers * (enc_layer + attn + d)  # + cross-attn
+        if self.frontend == "vision":
+            total += d * d  # projector
+        return int(total)

@@ -1,16 +1,17 @@
-"""Decoder-only transformer, dense family, for prefill and decode.
+"""Decoder-only transformer, dense family, for training, prefill and decode.
 
-The port's counterpart of the JAX package's ``models/transformer.py`` on
-the serving path.  The reference stacks its layers into scan groups
-(``n_local`` sliding-window + ``n_global`` full-attention layers, leading
+The port's counterpart of the JAX package's ``models/transformer.py``.
+The reference stacks its layers into scan groups (``n_local``
+sliding-window + ``n_global`` full-attention layers, leading
 ``(n_groups, n_layer)`` parameter axes) and runs ``lax.scan`` over them;
 here the parameters are held by :class:`Transformer`, an ``nn.Module``
 with one :class:`Params` module per layer in an ``nn.ModuleList``, and the
-stack is a Python loop over it.  The parameter definitions
-(:func:`model_defs`) keep the reference's stacked tree, so the same tree
-(drawn here, or carried over from the reference) builds the module.
+stack is a Python loop over it (rematerialised in groups when training).
+The parameter definitions (:func:`model_defs`) keep the reference's
+stacked tree, so the same tree (drawn here, or carried over from the
+reference) builds the module.
 
-Only the llama-style dense layer is served: full attention over a linear
+Only the llama-style dense layer is ported: full attention over a linear
 KV cache, RoPE, no qk-norm or post-norms, a swiglu/geglu/gelu MLP.  The
 sliding-window layers' ring cache, the other layer options and the
 moe/ssm/hybrid/encdec/vlm families raise ``NotImplementedError``
@@ -25,6 +26,7 @@ updated copy) and returns it.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional
 
 import torch
@@ -117,7 +119,11 @@ class Params(nn.Module):
 
 class Transformer(nn.Module):
     """The model's parameters: ``embed``, ``layers`` (one :class:`Params`
-    per layer, in depth order) and ``final_norm``."""
+    per layer, in depth order) and ``final_norm``.
+
+    They are frozen (``requires_grad=False``), so serving records no
+    autograd graph; training differentiates inside :meth:`trainable`.
+    """
 
     def __init__(self, cfg: ModelConfig, tree: Dict[str, object]):
         super().__init__()
@@ -136,6 +142,16 @@ class Transformer(nn.Module):
             Params(layer(g, j, stacked))
             for g in range(cfg.n_groups) for j in range(n_global))
 
+    @contextlib.contextmanager
+    def trainable(self):
+        """Parameters require gradients inside the block and are frozen
+        again when it ends."""
+        self.requires_grad_(True)
+        try:
+            yield self
+        finally:
+            self.requires_grad_(False)
+
 
 # ---------------------------------------------------------------------------
 # Blocks
@@ -152,9 +168,10 @@ def _qkv(p: Params, h_in: torch.Tensor, cfg: ModelConfig, positions: torch.Tenso
 
 
 def attention_block(p: Params, x: torch.Tensor, cfg: ModelConfig, *, positions):
-    """Full causal attention sub-block for prefill. Returns (out, (k, v))."""
+    """Full causal attention sub-block for training and prefill. Returns
+    (out, (k, v))."""
     q, k, v = _qkv(p, x, cfg, positions)
-    o = common.blockwise_attention(q, k, v)
+    o = common.blockwise_attention(q, k, v, causal=True, blk_q=cfg.attn_blk, blk_k=cfg.attn_blk)
     b, s = o.shape[:2]
     return o.reshape(b, s, -1) @ p.wo, (k, v)
 
@@ -191,7 +208,7 @@ def _residual(p: Params, x: torch.Tensor, attn_out: torch.Tensor, cfg: ModelConf
 
 
 def layer_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *, positions):
-    """One layer, prefill. Returns (x, (k, v))."""
+    """One layer, training or prefill. Returns (x, (k, v))."""
     attn_out, kv = attention_block(p.attn, common.rms_norm(x, p.ln1), cfg, positions=positions)
     return _residual(p, x, attn_out, cfg), kv
 
@@ -233,15 +250,28 @@ def embed_inputs(params: Transformer, batch: Dict[str, torch.Tensor], cfg: Model
 
 
 def forward(params: Transformer, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
-            return_cache: bool = False):
-    """Run the decoder stack. Returns (hidden (B,S,D), cache or None)."""
+            train: bool = False, return_cache: bool = False):
+    """Run the decoder stack. Returns (hidden (B,S,D), cache or None).
+
+    ``train=True`` rematerialises the layer groups (:func:`common.remat_scan`)
+    for the backward pass; it returns no cache.
+    """
+    if train and return_cache:
+        raise ValueError("a training forward returns no cache")
     x, positions = embed_inputs(params, batch, cfg)
+    n_global = cfg.group_pattern[1]
+    groups = [params.layers[g * n_global:(g + 1) * n_global] for g in range(cfg.n_groups)]
     ks, vs = [], []
-    for p in params.layers:
-        x, (k, v) = layer_forward(p, x, cfg, positions=positions)
-        if return_cache:
-            ks.append(k)
-            vs.append(v)
+
+    def group_body(x, layers):
+        for p in layers:
+            x, (k, v) = layer_forward(p, x, cfg, positions=positions)
+            if return_cache:
+                ks.append(k)
+                vs.append(v)
+        return x
+
+    x = common.remat_scan(group_body, x, groups, train=train)
     x = common.rms_norm(x, params.final_norm)
     if not return_cache:
         return x, None

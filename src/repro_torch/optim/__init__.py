@@ -1,0 +1,4 @@
+"""Optimizers and schedules in plain torch."""
+
+from repro_torch.optim.adamw import adamw_init, adamw_update  # noqa: F401
+from repro_torch.optim.schedule import cosine_schedule  # noqa: F401
