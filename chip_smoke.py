@@ -30,8 +30,8 @@ Phases, each printing its own lines:
    offered load 1.0, seed 0, R = 500) for mfi, ff, bf-bi, wf-bi, rr, a
    delta-only mfi spec and mfi-defrag, once through the kernels (launch
    counts reset just before and read just after) and once through the
-   plain lowering over the first 1,000 of the same events: traces equal
-   there, launch counts matching the events; then a profiled 256-event window of the mfi, the
+   plain lowering over the first 500 of the same events: traces equal
+   there, launch counts matching the events; then a profiled 128-event window of the mfi, the
    delta-only and the mfi-defrag step, each also run unprofiled, the
    kernel path's event loop under ``torch.cuda.set_sync_debug_mode("error")``
    (no host sync); then the paper's Fig. 5 through the kernels (ff, rr,
@@ -50,9 +50,17 @@ Phases, each printing its own lines:
    S = 2048, (d) B = 1, S = 32,768 (67 MB of cache, the split the only
    parallelism), float32 with a scale override and G = 12, and the
    split-KV edges (lengths 0, 1, one split and one split ± 1 with S not a
-   multiple of the split; G = 1 and G = 8; bf16 at D = 128 and 256); for
-   (a)-(d) its device time, time per call, bound, plain time and the time
-   of ``scaled_dot_product_attention`` (the kernel must beat it at (b));
+   multiple of the split; G = 1 and G = 8; bf16 at D = 128 and 256), the
+   per-row ``start`` of the sliding-window layers (a start inside a split,
+   at a split's first key and one before it, equal to the length, past it;
+   the tensor-core path at D = 128 and the CUDA-core one at D = 256), and
+   the decode shapes of phase 13's models: (e) gemma3-12b's local cache
+   padded past its window (B = 4, K = 8, G = 2, D = 256, S = 2,081, start
+   = pos - 1,023) and (f) its wrapped ring of 1,024 slots, (g) qwen3-14b's
+   G = 5 at D = 128, (h) starcoder2-15b's G = 12 at D = 128, (i)
+   paligemma-3b's K = 1, G = 8 at D = 256; for (a)-(i) its device time,
+   time per call, bound, plain time and the time of
+   ``scaled_dot_product_attention`` (the kernel must beat it at (b));
 7. the serving path at full width: ``llama3.2-1b`` (bf16, random weights
    from a ``torch.Generator`` seeded 0) behind the MIG admission controller
    (4 A100-80GB GPUs, mfi, 16 requests of the uniform mix, prompts of 128
@@ -89,24 +97,24 @@ Phases, each printing its own lines:
     (``sim/replay.py``) and ``run_batched`` to the host engine's
     ``run_many``; the reference's two pinned queued hashes with the
     kernels on; the queued protocol at M = 100, load 1.1, R = 500 for mfi
-    and mfi-queued, kernel equal to plain over the first 1,000 events,
+    and mfi-queued, kernel equal to plain over the first 500 events,
     with its wait percentiles,
     fairness, wait-admits and ``select_from_base`` launches per event (2),
     and on 4 of its replicas the card's trace equal to
     ``queued_host_decisions``;
     every kernel-path loop under ``set_sync_debug_mode("error")``, launch
-    counts reset just before each run; a profiled 256-event window of the
+    counts reset just before each run; a profiled 128-event window of the
     queued mfi loop;
 11. the faulted protocol and the chunked driver: the reference's two
     pinned faulted hashes with the kernels on; the faulted protocol at
     M = 100, load 1.1, MTBF 60, MTTR 10, wait ring 8, patience 16, seed 0,
     R = 500 for mfi (the kernel path over the whole stream) and mfi-queued
-    and ff (its first 1,000 events), kernel path equal to plain in every
-    field over the first 1,000 events, launches per event exact (``fragscore`` 3,
+    and ff (its first 500 events), kernel path equal to plain in every
+    field over the first 500 events, launches per event exact (``fragscore`` 3,
     ``delta_from_base`` 2 for the ΔF policies, ``select_from_base`` 0), the
     kernel loop under ``set_sync_debug_mode("error")``, evictions > 0 and
     the fault keys of the run; on 4 of its replicas the card's trace equal
-    to ``replay.faulted_host_decisions``; a profiled 256-event faulted
+    to ``replay.faulted_host_decisions``; a profiled 128-event faulted
     window; the mfi rows of ``experiments/fig_faults_batched_30.csv`` (R =
     30 each, as five blocks of one run) and their queued anchor through
     ``run_batched`` (printed beside the recorded rows, not asserted), and
@@ -134,8 +142,27 @@ Phases, each printing its own lines:
     ms per step, tokens/s, peak device memory against its reckoning, model
     FLOPs and their share of the bf16 dense peak, and a profiled step of
     one micro-batch split by what launched each kernel (attention, CE,
-    optimizer, other matmuls, the rest), then a ``{"train": ...}`` line;
-13. a ``{"kernels": [...]}`` JSON line (each kernel's launches in total
+    optimizer, other matmuls, the rest); (e) one SMOKE step of gemma3-12b
+    (post-norms, its window on ``blockwise_attention``'s local path at
+    S = 1,024) and of paligemma-3b (the patch prefix) on the card against
+    the CPU, weights scaled by 0.1: the loss and every gradient leaf, then
+    ``steps.train_step``; then a ``{"train": ...}`` line;
+13. the dense layer options at full width (bf16, random weights from a
+    ``torch.Generator`` seeded 0, one model at a time, each freed before
+    the next): gemma3-12b behind the MIG admission controller through
+    ``ServingEngine.run``, one wave of 4 prompts of 1,024 tokens (its
+    window: the local caches padded past it, so the decode reads from
+    start = pos - 1,023) and one of 2,048 (the local path of
+    ``blockwise_attention``, a wrapped ring of 1,024 slots), 32 new tokens
+    each, ``decode_attention`` launched 48 times a decode step (counts
+    reset just before and read just after), prefill and decode times and
+    a profiled window of 8 decode steps; qwen3-14b, starcoder2-15b and
+    llama3.2-1b-sw one wave of 4 prompts of 128 tokens and 8 new tokens
+    each (llama3.2-1b-sw also one prompt of 8,192 tokens, the local path
+    at its window of 4,096); paligemma-3b prefilled at 256 patches + 128
+    tokens and decoded 8 steps through ``model``; every logit finite; then
+    a ``{"dense_options": ...}`` line;
+14. a ``{"kernels": [...]}`` JSON line (each kernel's launches in total
     and by path), then the result line.
 
 Every equality of phases 3-5 and 8-11 is exact: all scores are integers
@@ -249,8 +276,10 @@ FAULTED_CHUNK = 512
 RUNS = 500
 #: phase 5 holds the plain path to the kernel path over the paper point's
 #: first this many events (the kernel path runs all of them), which keeps
-#: the whole script well inside its time limit
-PLAIN_EVENTS = 1000
+#: the whole script well inside its time limit on a slow host
+PLAIN_EVENTS = 500
+#: events of each profiled engine window (phases 5, 10, 11)
+WINDOW_EVENTS = 128
 #: phase 3's mixed fleet of four device models
 FOUR_MODEL_FLEET = "a100-80:30,a100-40:30,h100-96:20,h100-80:20"
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
@@ -282,6 +311,19 @@ SERVE_SLOTS = 4
 SERVE_PROMPT = 128
 SERVE_NEW = 32
 SERVE_MAX_LEN = SERVE_PROMPT + SERVE_NEW + 1
+#: phase 13, the dense layer options at full width: gemma3-12b behind MIG
+#: admission on one wave at its window (the local caches padded past it)
+#: and one at twice it (the local path of blockwise_attention, a wrapped
+#: ring), DENSE_NEW new tokens each; the other archs one short wave each
+DENSE_WINDOW = 1024            # gemma3-12b's window (src/repro/configs/gemma3_12b.py)
+DENSE_RING_PROMPT = 1024
+DENSE_LONG_PROMPT = 2048
+DENSE_NEW = 32
+DENSE_PROMPT = 128
+DENSE_SHORT_NEW = 8
+DENSE_PATCHES = 256            # paligemma-3b's num_patches
+DENSE_SW_PROMPT = 8192         # llama3.2-1b-sw: the local path at its window of 4,096
+DENSE_WINDOW_STEPS = 8         # decode steps of gemma3's profiled window
 #: tolerances of decode_attention against its plain version (PERF.md)
 F32_ATOL = 1e-5
 BF16_ATOL = BF16_RTOL = 2e-2
@@ -316,6 +358,8 @@ TRAIN_F32_RTOL = 1e-5
 SMOKE_GRAD_TOL = 1e-2
 SMOKE_TAMED_GRAD_TOL = 2e-5
 SMOKE_STEP_LR = 3e-4
+#: phase 12's SMOKE steps of the dense layer options: (batch, sequence)
+SMOKE_ARCH_STEPS = {"gemma3-12b": (4, 1024), "paligemma-3b": (4, 128)}
 #: victims per replica of the migrate search at M = 100 (min(C, M·S))
 C_LIVE = 800
 #: fleet sizes of the mfi_delta kernel check (A100-80GB): the paper's
@@ -930,7 +974,7 @@ def paper_stream(device):
     return cfg, spec, events, common
 
 
-def engine_windows(device, events, common, policies, n=256, label=""):
+def engine_windows(device, events, common, policies, n=WINDOW_EVENTS, label=""):
     """Where the device time goes: the first ``n`` events of each policy's
     step, kernel and plain, profiled, and the same window's wall time
     without the profiler, the kernel path's event loop under
@@ -1781,25 +1825,36 @@ def attention_error(got, want, dtype):
     return float(err.max()), ratio
 
 
-def attention_bound(q, k, lengths, out):
-    """The least time for one call: the valid K and V rows, q and out read
-    or written once, and 4·Σlength·H·D fp32 operations."""
+def attention_bound(q, k, lengths, out, starts=None):
+    """The least time for one call: the valid K and V rows (``[start,
+    length)`` of each row), q, the lengths and starts and out read or
+    written once, and 4·Σ(length - start)·H·D fp32 operations."""
+    import torch
+
     b, h, d = q.shape
     kheads = k.shape[2]
-    total = int(lengths.clamp(0, k.shape[1]).sum())
-    nbytes_ = 2 * total * kheads * d * k.element_size() + nbytes(q, out) + 4 * b
+    hi = lengths.clamp(0, k.shape[1])
+    lo = torch.zeros_like(hi) if starts is None else torch.minimum(starts.clamp(min=0), hi)
+    total = int((hi - lo).sum())
+    nbytes_ = (2 * total * kheads * d * k.element_size() + nbytes(q, out)
+               + 4 * b * (1 if starts is None else 2))
     return bound(nbytes_, 4 * total * h * d), nbytes_
 
 
-def sdpa_call(q, k, v, lengths):
-    """``scaled_dot_product_attention`` on the same inputs (GQA, a length
-    mask), as one PyTorch call: the library yardstick, never used by the
-    port.  Rows of length 0 give NaN there."""
+def sdpa_call(q, k, v, lengths, starts=None):
+    """``scaled_dot_product_attention`` on the same inputs (GQA, a mask of
+    the keys ``[start, length)``), as one PyTorch call: the library
+    yardstick, never used by the port.  Rows with no valid key give NaN
+    there."""
     import torch
     import torch.nn.functional as F
 
     s = k.shape[1]
-    mask = (torch.arange(s, device=q.device)[None, :] < lengths[:, None].long())[:, None, None, :]
+    t = torch.arange(s, device=q.device)[None, :]
+    mask = t < lengths[:, None].long()
+    if starts is not None:
+        mask = mask & (t >= starts[:, None].long())
+    mask = mask[:, None, None, :]
     qs, ks, vs = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
 
     def call():
@@ -1823,45 +1878,74 @@ def decode_attention_phase(device):
     edge_len, edge_splits = split.plan_splits(6, 8, 3000, sms)
     check(3000 % edge_len != 0 and edge_splits > 2, f"edge plan {edge_len} x {edge_splits}")
     edges = [0, 1, edge_len - 1, edge_len, edge_len + 1, 3000]
+    # per-row starts over the same plan: inside a split, at a split's first
+    # key, one before it, equal to the length (the row gives 0), past it
+    start_lengths = [3000, 3000, 3000, 2000, 2 * edge_len + 5, 100]
+    starts = [edge_len + 37, edge_len, edge_len - 1, 2000, 1, 150]
+    # the dense layer options' decode shapes at full width (phase 13):
+    # gemma3's ring padded past its window of 1,024 (prompt 1,024, max_len
+    # 2,081, the wave's last step: start = pos - 1,023) and its wrapped
+    # ring of 1,024 slots; qwen3's G = 5, starcoder2's G = 12 at D = 128,
+    # paligemma's K = 1, G = 8 at D = 256 behind its 256 patches
+    ring_pos = DENSE_RING_PROMPT + DENSE_NEW - 2
+    gemma_len = DENSE_LONG_PROMPT + DENSE_NEW + 1
     cases = {
-        "serving": (SERVE_SLOTS, SERVE_MAX_LEN, 8, 4, 64, bf16, [pos + 1] * SERVE_SLOTS, None),
-        "long": (8, 8192, 8, 4, 64, bf16, [1, 8192, 4000, 17, 8191, 5000, 2, 6000], None),
-        "middle": (4, 2048, 8, 4, 64, bf16, [2048, 1500, 700, 2047], None),
-        "b1-32k": (1, 32768, 8, 4, 64, bf16, [32768], None),
-        "f32-scale": (4, 1000, 8, 4, 64, f32, [1, 1000, 0, 517], 0.1),
-        "f32-wide": (3, 300, 2, 12, 128, f32, [300, 1, 150], 0.3),
-        "split-edges-f32": (6, 3000, 8, 4, 64, f32, edges, None),
-        "split-edges-bf16": (6, 3000, 8, 4, 64, bf16, edges, None),
-        "g1": (4, 1000, 8, 1, 64, bf16, [1000, 1, 0, 333], None),
-        "g8": (4, 1000, 8, 8, 64, bf16, [1000, 64, 65, 999], None),
-        "bf16-d128": (4, 1000, 8, 4, 128, bf16, [1000, 128, 0, 771], None),
-        "bf16-d256": (2, 600, 4, 4, 256, bf16, [600, 257], None),
+        "serving": (SERVE_SLOTS, SERVE_MAX_LEN, 8, 4, 64, bf16, [pos + 1] * SERVE_SLOTS, None, None),
+        "long": (8, 8192, 8, 4, 64, bf16, [1, 8192, 4000, 17, 8191, 5000, 2, 6000], None, None),
+        "middle": (4, 2048, 8, 4, 64, bf16, [2048, 1500, 700, 2047], None, None),
+        "b1-32k": (1, 32768, 8, 4, 64, bf16, [32768], None, None),
+        "f32-scale": (4, 1000, 8, 4, 64, f32, [1, 1000, 0, 517], 0.1, None),
+        "f32-wide": (3, 300, 2, 12, 128, f32, [300, 1, 150], 0.3, None),
+        "split-edges-f32": (6, 3000, 8, 4, 64, f32, edges, None, None),
+        "split-edges-bf16": (6, 3000, 8, 4, 64, bf16, edges, None, None),
+        "g1": (4, 1000, 8, 1, 64, bf16, [1000, 1, 0, 333], None, None),
+        "g8": (4, 1000, 8, 8, 64, bf16, [1000, 64, 65, 999], None, None),
+        "bf16-d128": (4, 1000, 8, 4, 128, bf16, [1000, 128, 0, 771], None, None),
+        "bf16-d256": (2, 600, 4, 4, 256, bf16, [600, 257], None, None),
+        "start-splits-f32": (6, 3000, 8, 4, 64, f32, start_lengths, None, starts),
+        "start-splits-bf16": (6, 3000, 8, 4, 64, bf16, start_lengths, None, starts),
+        "start-d128-bf16": (4, 1000, 8, 4, 128, bf16, [1000, 700, 300, 1000], None,
+                            [129, 0, 300, 999]),
+        "start-d256-bf16": (2, 600, 4, 4, 256, bf16, [600, 500], None, [257, 499]),
+        "gemma3-ring": (SERVE_SLOTS, gemma_len, 8, 2, 256, bf16, [ring_pos + 1] * SERVE_SLOTS,
+                        None, [ring_pos - DENSE_WINDOW + 1] * SERVE_SLOTS),
+        "gemma3-wrapped": (SERVE_SLOTS, DENSE_WINDOW, 8, 2, 256, bf16,
+                           [DENSE_WINDOW] * SERVE_SLOTS, None, None),
+        "qwen3-g5-d128": (SERVE_SLOTS, 2048, 8, 5, 128, bf16, [2048, 1500, 129, 2000], None, None),
+        "starcoder2-g12-d128": (SERVE_SLOTS, DENSE_PROMPT + DENSE_SHORT_NEW + 1, 4, 12, 128, bf16,
+                                [DENSE_PROMPT + DENSE_SHORT_NEW] * SERVE_SLOTS, None, None),
+        "paligemma-k1-g8-d256": (SERVE_SLOTS, DENSE_PATCHES + DENSE_PROMPT + DENSE_SHORT_NEW, 1, 8,
+                                 256, bf16,
+                                 [DENSE_PATCHES + DENSE_PROMPT + DENSE_SHORT_NEW] * SERVE_SLOTS,
+                                 None, None),
     }
-    timed_cases = ("serving", "long", "middle", "b1-32k")
+    timed_cases = ("serving", "long", "middle", "b1-32k", "gemma3-ring", "gemma3-wrapped",
+                   "qwen3-g5-d128", "starcoder2-g12-d128", "paligemma-k1-g8-d256")
     errs, ratios = {}, {}
     row = {}
-    for tag, (b, s, kh, g, d, dtype, lengths, scale) in cases.items():
+    for tag, (b, s, kh, g, d, dtype, lengths, scale, st) in cases.items():
         q, k, v, ln = attention_inputs(b, s, kh, g, d, dtype, lengths, gen, device)
-        got = D.decode_attention(q, k, v, ln, scale=scale)
-        again = D.decode_attention(q, k, v, ln, scale=scale)
-        want = decode_attention_ref(q.float(), k.float(), v.float(), ln, scale=scale)
+        sv = None if st is None else torch.as_tensor(st, dtype=torch.int32, device=device)
+        got = D.decode_attention(q, k, v, ln, scale=scale, start=sv)
+        again = D.decode_attention(q, k, v, ln, scale=scale, start=sv)
+        want = decode_attention_ref(q.float(), k.float(), v.float(), ln, scale=scale, start=sv)
         torch.cuda.synchronize()
         check(torch.equal(got, again), f"decode_attention [{tag}]: two calls differ")
         errs[tag], ratios[tag] = attention_error(got, want, dtype)
         if tag not in timed_cases:
             continue
-        ms, call_ms, src = timed(lambda: D.decode_attention(q, k, v, ln), 200, "decode_")
-        plain_ms, plain_call_ms, _ = timed(lambda: decode_attention_ref(q, k, v, ln), 50)
-        lib = sdpa_call(q, k, v, ln)
+        ms, call_ms, src = timed(lambda: D.decode_attention(q, k, v, ln, start=sv), 200, "decode_")
+        plain_ms, plain_call_ms, _ = timed(lambda: decode_attention_ref(q, k, v, ln, start=sv), 50)
+        lib = sdpa_call(q, k, v, ln, sv)
         lib_ms, lib_call_ms, _ = timed(lib, 200)
-        if 0 not in lengths:
+        if all(hi > lo for hi, lo in zip(lengths, st or [0] * b)):
             lib_err = float((lib()[:, :, 0].float() - want).abs().max())
         else:
             lib_err = None
-        (b_ms, b_by), nb = attention_bound(q, k, ln, got)
+        (b_ms, b_by), nb = attention_bound(q, k, ln, got, sv)
         split_len, n_splits = split.plan_splits(b, kh, s, sms)
         shape = (f"q ({b}, {kh * g}, {d}), k/v ({b}, {s}, {kh}, {d}) {str(dtype)[6:]}, "
-                 f"lengths {lengths}, {n_splits} splits of {split_len}")
+                 f"lengths {lengths}, starts {st}, {n_splits} splits of {split_len}")
         log(f"kernel decode_attention [{tag}]: {shape}: max abs err {errs[tag]:.3e} "
             f"against the f32 plain version; device {ms:.5f} ms ({src}), per call "
             f"{call_ms:.4f} ms; plain device {plain_ms:.5f} ms, per call {plain_call_ms:.4f} ms; "
@@ -2562,14 +2646,9 @@ def smoke_step_check(device):
     batch = next(make_batch_iterator(cfg, 8, 128, seed=0))
     out = {}
     for scale, grad_tol in ((1.0, SMOKE_GRAD_TOL), (0.1, SMOKE_TAMED_GRAD_TOL)):
-        def scaled(t):
-            if isinstance(t, dict):
-                return {k: scaled(v) for k, v in t.items()}
-            return t * scale if t.dim() > 1 else t.clone()
-
         runs = {}
         for dev in (cpu, device):
-            params = model.params_from_numpy(scaled(tree), cfg, dev)
+            params = model.params_from_numpy(scaled_tree(tree, scale), cfg, dev)
             b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
             loss, grads = steps.loss_and_grads(params, b, cfg)
             adamw_update(params, grads, adamw_init(params), lr=SMOKE_STEP_LR)
@@ -2592,6 +2671,64 @@ def smoke_step_check(device):
         key = "reference_init" if scale == 1.0 else "tamed"
         out[key] = dict(loss_card=cl, loss_cpu=hl, grad_share_of_limit=gworst,
                         param_share_of_limit=pworst)
+    return out
+
+
+def scaled_tree(t, scale):
+    """A parameter tree with its weight matrices (not the norms) times
+    ``scale``."""
+    if isinstance(t, dict):
+        return {k: scaled_tree(v, scale) for k, v in t.items()}
+    return t * scale if t.dim() > 1 else t.clone()
+
+
+def smoke_arch_steps(device):
+    """One SMOKE step of the dense layer options on the card against the
+    CPU, weights scaled by 0.1 (float32, TF32 off): gemma3 (post-norms,
+    its window of 32 on blockwise_attention's local path at S = 1,024) and
+    paligemma (128 tokens behind 16 patches, the patch labels padded): the
+    loss and every gradient leaf of ``loss_and_grads``, then
+    ``steps.train_step`` on the card, whose loss must be that loss."""
+    import math
+    import torch
+    from repro_torch.configs import SMOKES
+    from repro_torch.data import make_batch_iterator
+    from repro_torch.launch import steps
+    from repro_torch.models import model
+    from repro_torch.optim import adamw_init
+
+    cpu = torch.device("cpu")
+    out = {}
+    for arch, (batch_size, seq) in SMOKE_ARCH_STEPS.items():
+        cfg = SMOKES[arch]
+        tree = model.params_to_tree(model.init_params(cfg, torch.Generator().manual_seed(0), cpu),
+                                    cfg)
+        tree = scaled_tree(tree, 0.1)
+        batch = next(make_batch_iterator(cfg, batch_size, seq, seed=0))
+        runs = {}
+        for dev in (cpu, device):
+            params = model.params_from_numpy(tree, cfg, dev)
+            b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+            loss, grads = steps.loss_and_grads(params, b, cfg)
+            runs[dev.type] = (float(loss), grads, params, b)
+        (hl, hg, _, _), (cl, cg, params, b) = runs["cpu"], runs[device.type]
+        worst = max(float((cg[n].cpu().float() - hg[n].float()).abs().max())
+                    / (SMOKE_TAMED_GRAD_TOL * float(hg[n].abs().max())) for n in hg)
+        t0 = time.perf_counter()
+        _, _, metrics = steps.train_step(params, adamw_init(params), b, cfg)
+        step_loss = float(metrics["loss"])
+        step_s = time.perf_counter() - t0
+        log(f"train: SMOKE {arch} (B {batch_size}, S {seq}{', window ' + str(cfg.window) if cfg.local_global else ''}"
+            f"{', ' + str(cfg.num_patches) + ' patches' if cfg.frontend else ''}), weights x0.1, "
+            f"card vs CPU: loss {cl:.7f} vs {hl:.7f}; worst gradient leaf at {worst:.3f} of its "
+            f"limit ({SMOKE_TAMED_GRAD_TOL:g} of the leaf's largest magnitude); train_step on the "
+            f"card: loss {step_loss:.7f} in {step_s:.2f} s")
+        check(abs(cl - hl) <= 1e-5 * abs(hl), f"train: SMOKE {arch} loss card {cl} vs cpu {hl}")
+        check(worst <= 1.0, f"train: SMOKE {arch} gradients card vs CPU past their limit")
+        check(math.isfinite(step_loss) and abs(step_loss - cl) <= 1e-5 * abs(cl),
+              f"train: SMOKE {arch} train_step loss {step_loss} vs {cl}")
+        out[arch] = dict(loss_card=cl, loss_cpu=hl, grad_share_of_limit=worst,
+                         train_step_loss=step_loss)
     return out
 
 
@@ -2858,7 +2995,8 @@ def training_phase(device, wrappers):
     from repro_torch.configs import ARCHS
 
     cfg = ARCHS[TRAIN_ARCH]
-    out = dict(flash=flash_check(device, cfg.attn_blk), smoke_step=smoke_step_check(device))
+    out = dict(flash=flash_check(device, cfg.attn_blk), smoke_step=smoke_step_check(device),
+               smoke_archs=smoke_arch_steps(device))
 
     learned, lines, seconds = launcher_run(
         ["--arch", TRAIN_ARCH, "--smoke", "--steps", "50", "--batch", "8", "--seq", "128"])
@@ -2879,6 +3017,266 @@ def training_phase(device, wrappers):
     torch.cuda.empty_cache()
 
     out["train_4k"] = train_4k_run(device, wrappers)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the dense layer options at full width
+# ---------------------------------------------------------------------------
+
+
+def draw_model(arch, device):
+    """``arch`` at its published widths in bf16 from a Generator seeded 0:
+    (config, module, weight bytes, seconds)."""
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import model
+
+    cfg = ARCHS[arch]
+    t0 = time.perf_counter()
+    params = model.init_params(cfg, torch.Generator(device).manual_seed(0), device=device)
+    torch.cuda.synchronize()
+    weight_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    return cfg, params, weight_bytes, time.perf_counter() - t0
+
+
+def release():
+    """Return the memory of a model the caller dropped before the next one
+    is drawn."""
+    import gc
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def dense_requests(cfg, prompts, new, seed):
+    """SERVE_SLOTS requests for each prompt length in turn (a wave each),
+    profiles of the uniform mix, random prompts, from one numpy generator."""
+    import numpy as np
+    from repro_torch.core import mig
+    from repro_torch.serving import Request
+    from repro_torch.sim import distributions
+
+    rng = np.random.default_rng(seed)
+    n = SERVE_SLOTS * len(prompts)
+    profiles = distributions.sample_profiles("uniform", n, rng)
+    return [Request(request_id=i,
+                    prompt=rng.integers(0, cfg.vocab, prompts[i // SERVE_SLOTS]).astype(np.int32),
+                    max_new_tokens=new, profile=mig.PROFILE_NAMES[profiles[i]])
+            for i in range(n)]
+
+
+def dense_serve(cfg, params, prompts, new, device, wrappers, seed=0):
+    """One wave of SERVE_SLOTS requests per prompt length through
+    ``ServingEngine.run`` behind MIG admission (SERVE_GPUS A100-80GB, mfi),
+    launch counts reset just before and read just after; every request
+    admitted and served, every logit finite, ``decode_attention`` launched
+    once per layer and decode step.  Returns the wave's timings."""
+    import torch
+    from repro_torch.serving import ServingEngine
+
+    engine = ServingEngine(cfg, params, num_slots=SERVE_SLOTS, max_len=max(prompts) + new + 1,
+                           num_gpus=SERVE_GPUS, policy="mfi", device=device)
+    prefill_s, decode_s, waves_at, finite = [], [], [], []
+
+    def watched(fn, seconds):
+        timed_fn = timed_calls(fn, seconds)
+
+        def call(*args):
+            if seconds is prefill_s:
+                waves_at.append(len(decode_s))
+            out = timed_fn(*args)
+            finite.append(bool(torch.isfinite(out[0]).all()))
+            return out
+
+        return call
+
+    engine._prefill = watched(engine._prefill, prefill_s)
+    engine._decode = watched(engine._decode, decode_s)
+    requests = dense_requests(cfg, prompts, new, seed)
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    stats = engine.run(requests)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: fn.launches for k, fn in wrappers.items()}
+    want = dict.fromkeys(wrappers, 0)
+    want["decode_attention"] = cfg.n_layers * len(decode_s)
+    check(counts == want, f"dense {cfg.name}: launch counts {counts} != expected {want}")
+    check(stats["waves"] == len(prompts) == len(prefill_s) and all(finite),
+          f"dense {cfg.name}: {stats['waves']} waves, finite logits {all(finite)}")
+    for r in requests:
+        check(r.finished and r.admitted and len(r.output) == new
+              and all(0 <= t < cfg.vocab for t in r.output),
+              f"dense {cfg.name}: request {r.request_id} ended {r.admitted, r.finished, r.output}")
+    check(engine.admission.cluster.used_mem_slices == 0, f"dense {cfg.name}: slices left")
+    bounds = waves_at + [len(decode_s)]
+    waves = [dict(prompt=p, prefill_ms=1e3 * prefill_s[i],
+                  decode_ms_per_step=1e3 * sum(decode_s[bounds[i]:bounds[i + 1]])
+                  / max(1, bounds[i + 1] - bounds[i]), decode_steps=bounds[i + 1] - bounds[i])
+             for i, p in enumerate(prompts)]
+    return dict(waves=waves, launches=counts["decode_attention"], run_s=wall, stats=stats)
+
+
+def gemma3_window(cfg, params, device):
+    """A profiled window of DENSE_WINDOW_STEPS decode steps of one wave
+    prefilled at DENSE_RING_PROMPT tokens, its local caches padded past the
+    window (every step reads keys from start = pos - window + 1), then the
+    same steps unprofiled: device busy, wall, ops per step."""
+    import torch
+    from repro_torch.models import model
+
+    gen = torch.Generator(device).manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab, (SERVE_SLOTS, DENSE_RING_PROMPT), generator=gen,
+                           device=device, dtype=torch.int32)
+    logits, cache = model.prefill(params, {"tokens": tokens}, cfg)
+    cache = model.pad_cache(cache, DENSE_RING_PROMPT, DENSE_LONG_PROMPT + DENSE_NEW + 1)
+    token = torch.argmax(logits, dim=-1).to(torch.int32)
+
+    def steps():
+        t = token
+        for i in range(DENSE_WINDOW_STEPS):
+            lg, _ = model.decode_step(params, cache, t, DENSE_RING_PROMPT + i, cfg)
+            t = torch.argmax(lg, dim=-1).to(torch.int32)
+        return t
+
+    times = device_times(steps, 1)
+    t0 = time.perf_counter()
+    steps()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = sum(t for t, _ in times.values()) / 1e3
+    ops = sum(c for _, c in times.values())
+    top = sorted(times.items(), key=lambda kv: -kv[1][0])[:5]
+    return dict(window_busy_ms=busy_ms, window_wall_ms=wall_ms, busy_share=busy_ms / wall_ms,
+                device_ops_per_step=ops / DENSE_WINDOW_STEPS,
+                top=[(k[:48], t / c, c) for k, (t, c) in top])
+
+
+def dense_options_phase(device, wrappers):
+    """The dense layer options at full width, one model at a time, each
+    freed before the next: gemma3-12b served behind MIG admission on a wave
+    at its window and one at twice it, qwen3-14b, starcoder2-15b and
+    llama3.2-1b-sw on a short wave each (llama3.2-1b-sw also one prompt of
+    8,192 tokens, the local path at its window of 4,096), paligemma-3b
+    prefilled at 256 patches + 128 tokens and decoded through ``model``."""
+    import torch
+    from repro_torch.models import model
+
+    out, launches = {}, 0
+
+    cfg, params, wbytes, draw_s = draw_model("gemma3-12b", device)
+    check(cfg.window == DENSE_WINDOW and DENSE_LONG_PROMPT > cfg.attn_blk + cfg.window,
+          "dense: gemma3-12b's window or tiles moved")
+    warm = dense_serve(cfg, params, [DENSE_RING_PROMPT], 3, device, wrappers, seed=1)
+    served = dense_serve(cfg, params, [DENSE_RING_PROMPT, DENSE_LONG_PROMPT], DENSE_NEW, device,
+                         wrappers)
+    launches += served["launches"]
+    check(served["launches"] == cfg.n_layers * sum(w["decode_steps"] for w in served["waves"]),
+          "dense: gemma3-12b launches")
+    window = gemma3_window(cfg, params, device)
+    out["gemma3-12b"] = dict(weights_gb=wbytes / 1e9, draw_s=draw_s, warm_run_s=warm["run_s"],
+                             **served, **window)
+    for w in served["waves"]:
+        log(f"dense: gemma3-12b wave of {SERVE_SLOTS} x {w['prompt']}-token prompts, "
+            f"{DENSE_NEW} new tokens: prefill {w['prefill_ms']:.3f} ms, decode "
+            f"{w['decode_ms_per_step']:.3f} ms/step over {w['decode_steps']} steps")
+    log(f"dense: gemma3-12b ({cfg.n_layers} layers, {cfg.group_pattern} local/global, window "
+        f"{cfg.window}, {wbytes / 1e9:.3f} GB of bf16 weights drawn in {draw_s:.2f} s) served "
+        f"behind admission in {served['run_s']:.3f} s: decode_attention launches "
+        f"{served['launches']} = {cfg.n_layers} x "
+        f"{sum(w['decode_steps'] for w in served['waves'])}; stats {served['stats']}")
+    log(f"dense: gemma3-12b window ({DENSE_WINDOW_STEPS} decode steps from position "
+        f"{DENSE_RING_PROMPT}, start > 0): device busy {window['window_busy_ms']:.3f} ms of "
+        f"{window['window_wall_ms']:.3f} ms wall ({100 * window['busy_share']:.1f}% busy), "
+        f"{window['device_ops_per_step']:.1f} device ops/step; top: "
+        + "; ".join(f"{k} {t:.1f} us x{c}" for k, t, c in window["top"]))
+    del params
+    release()
+
+    for arch in ("qwen3-14b", "starcoder2-15b", "llama3.2-1b-sw"):
+        cfg, params, wbytes, draw_s = draw_model(arch, device)
+        served = dense_serve(cfg, params, [DENSE_PROMPT], DENSE_SHORT_NEW, device, wrappers)
+        launches += served["launches"]
+        row = dict(weights_gb=wbytes / 1e9, draw_s=draw_s, **served)
+        w = served["waves"][0]
+        log(f"dense: {arch} ({cfg.n_layers} layers, {wbytes / 1e9:.3f} GB drawn in {draw_s:.2f} s) "
+            f"wave of {SERVE_SLOTS} x {DENSE_PROMPT}-token prompts, {DENSE_SHORT_NEW} new tokens "
+            f"in {served['run_s']:.3f} s: prefill {w['prefill_ms']:.3f} ms, decode "
+            f"{w['decode_ms_per_step']:.3f} ms/step, decode_attention launches "
+            f"{served['launches']}, logits finite")
+        if arch == "llama3.2-1b-sw":
+            for fn in wrappers.values():
+                fn.launches = 0
+            gen = torch.Generator(device).manual_seed(4)
+            tokens = torch.randint(0, cfg.vocab, (1, DENSE_SW_PROMPT), generator=gen,
+                                   device=device, dtype=torch.int32)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = model.prefill(params, {"tokens": tokens}, cfg)
+            torch.cuda.synchronize()
+            prefill_ms = (time.perf_counter() - t0) * 1e3
+            check(cache["local"]["k"].shape[2] == cfg.window, "dense: llama3.2-1b-sw ring slots")
+            cache = model.pad_cache(cache, DENSE_SW_PROMPT, DENSE_SW_PROMPT + DENSE_SHORT_NEW)
+            finite = [bool(torch.isfinite(logits).all())]
+            token = torch.argmax(logits, dim=-1).to(torch.int32)
+            for i in range(DENSE_SHORT_NEW):
+                logits, _ = model.decode_step(params, cache, token, DENSE_SW_PROMPT + i, cfg)
+                finite.append(bool(torch.isfinite(logits).all()))
+                token = torch.argmax(logits, dim=-1).to(torch.int32)
+            n = wrappers["decode_attention"].launches
+            check(all(finite) and n == cfg.n_layers * DENSE_SHORT_NEW,
+                  f"dense: llama3.2-1b-sw at {DENSE_SW_PROMPT}: finite {all(finite)}, launches {n}")
+            launches += n
+            row["long_prompt"] = dict(prompt=DENSE_SW_PROMPT, prefill_ms=prefill_ms, launches=n)
+            log(f"dense: llama3.2-1b-sw one {DENSE_SW_PROMPT}-token prompt (local path, ring of "
+                f"{cfg.window} slots): prefill {prefill_ms:.3f} ms, {DENSE_SHORT_NEW} decode steps, "
+                f"decode_attention launches {n}, logits finite")
+            del cache, logits
+        out[arch] = row
+        del params
+        release()
+
+    cfg, params, wbytes, draw_s = draw_model("paligemma-3b", device)
+    check(cfg.num_patches == DENSE_PATCHES, "dense: paligemma-3b's patches moved")
+    gen = torch.Generator(device).manual_seed(5)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (SERVE_SLOTS, DENSE_PROMPT), generator=gen,
+                                     device=device, dtype=torch.int32),
+             "patches": torch.randn(SERVE_SLOTS, cfg.num_patches, cfg.d_model, generator=gen,
+                                    device=device).to(cfg.torch_dtype)}
+    seq = cfg.num_patches + DENSE_PROMPT
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, batch, cfg)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    cache = model.pad_cache(cache, seq, seq + DENSE_SHORT_NEW)
+    finite = [bool(torch.isfinite(logits).all())]
+    token = torch.argmax(logits, dim=-1).to(torch.int32)
+    t0 = time.perf_counter()
+    for i in range(DENSE_SHORT_NEW):
+        logits, _ = model.decode_step(params, cache, token, seq + i, cfg)
+        finite.append(bool(torch.isfinite(logits).all()))
+        token = torch.argmax(logits, dim=-1).to(torch.int32)
+    decode_ms = (time.perf_counter() - t0) * 1e3 / DENSE_SHORT_NEW
+    n = wrappers["decode_attention"].launches
+    check(all(finite) and n == cfg.n_layers * DENSE_SHORT_NEW,
+          f"dense: paligemma-3b finite {all(finite)}, launches {n}")
+    launches += n
+    out["paligemma-3b"] = dict(weights_gb=wbytes / 1e9, draw_s=draw_s, prefill_ms=prefill_ms,
+                               decode_ms_per_step=decode_ms, launches=n)
+    log(f"dense: paligemma-3b ({cfg.n_layers} layers, {wbytes / 1e9:.3f} GB drawn in "
+        f"{draw_s:.2f} s) {SERVE_SLOTS} x ({cfg.num_patches} patches + {DENSE_PROMPT} tokens) "
+        f"through model: prefill {prefill_ms:.3f} ms, decode {decode_ms:.3f} ms/step over "
+        f"{DENSE_SHORT_NEW} steps (positions from {seq}), decode_attention launches {n}, "
+        f"logits finite")
+    del params, cache, logits
+    release()
+    out["launches"] = launches
     return out
 
 
@@ -2950,20 +3348,25 @@ def main() -> int:
     lap(11)
     training = training_phase(device, wrappers)
     lap(12)
+    dense = dense_options_phase(device, wrappers)
+    lap(13)
     # each path's launches, counted from zero just before it ran
     by_path = {name: dict.fromkeys(wrappers, 0) for name in (
-        "steady", "fig5", "serving", "decisions", "protocols", "faults")}
+        "steady", "fig5", "serving", "decisions", "protocols", "faults", "dense_options")}
     by_path["steady"].update(steady)
     by_path["fig5"].update(fig5_launches)
     by_path["serving"]["decode_attention"] = serving["launches"]
     by_path["decisions"]["mfi_delta"] = decisions["launches"]
     by_path["protocols"].update(protocols["launches"])
     by_path["faults"].update(faults["launches"])
+    by_path["dense_options"]["decode_attention"] = dense["launches"]
     totals = {k: sum(p[k] for p in by_path.values()) for k in wrappers}
 
     kernels = []
     for name, row in rows.items():
         extra = {k: row[k] for k in ("tolerance", "errors", "bound_ratios", "long", "middle", "b1_32k",
+                                     "gemma3_ring", "gemma3_wrapped", "qwen3_g5_d128",
+                                     "starcoder2_g12_d128", "paligemma_k1_g8_d256",
                                      "library_call_ms", "by_m", "pass0_ms", "pass1_ms")
                  if k in row}
         kernels.append(dict(
@@ -2983,6 +3386,7 @@ def main() -> int:
     log(json.dumps({"protocols": protocols}))
     log(json.dumps({"faults": faults}))
     log(json.dumps({"train": training}))
+    log(json.dumps({"dense_options": dense}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,16 +6,17 @@
 // (Pallas, _decode_kernel; src/repro/kernels/decode_attention/
 // decode_attention.py:73) of the JAX package: one new query token per batch
 // row attends to a (B, S, K, D) KV cache, query head h reading KV head
-// h / G (H = G·K), keys t < length[b] valid, f32 online softmax, the result
-// cast to q's dtype.  A row with no valid key gives 0 (normaliser 0 -> 1, as
-// in the TPU kernel).  The plain torch version is
+// h / G (H = G·K), keys start[b] <= t < length[b] valid (start = 0 when
+// the caller passes none; a sliding-window layer's ring cache sets it), f32
+// online softmax, the result cast to q's dtype.  A row with no valid key
+// gives 0 (normaliser 0 -> 1, as in the TPU kernel).  The plain torch version is
 // repro_torch/kernels/decode_attention/ref.py::decode_attention_ref.
 //
 // Bound on an H100: bytes.  A call reads each valid key and value row once
-// (2 · Σ_b length[b] · K · D elements) plus q, and writes out; it does
-// 4 · Σ_b length[b] · H · D operations, about one per byte read in bf16,
-// far below the ~295 bf16 tensor-core operations per byte at which the
-// arithmetic would bound it.  At the serving path's shape (B = 4 slots,
+// (2 · Σ_b (length[b] - start[b]) · K · D elements) plus q, and writes out;
+// it does 4 · Σ_b (length[b] - start[b]) · H · D operations, about one per
+// byte read in bf16, far below the ~295 bf16 tensor-core operations per byte
+// at which the arithmetic would bound it.  At the serving path's shape (B = 4 slots,
 // K = 8, D = 64, lengths ~160, bf16) that is ~1.3 MB, 0.4 µs of HBM time,
 // so a call is bound by its launch; at B = 8, S = 8192 with ragged lengths
 // it is 64 MB, 19 µs.
@@ -24,10 +25,11 @@
 //  * Grid (B·K·ceil(G / rows per block), n_splits).  The host planner
 //    (split.py::plan_splits) picks the split length from S, B·K and the
 //    card's SM count so that the card holds about two blocks per SM; it
-//    never reads `length`, which stays on the device.  A block whose split
-//    starts at or past length[b] exits at once (split 0 of an empty row
-//    writes its zeros), so short rows cost nothing and the longest row is
-//    spread over many SMs.
+//    never reads `length` or `start`, which stay on the device.  A block
+//    whose split ends at or before start[b], or starts at or past
+//    length[b], exits at once (split 0 of an empty row writes its zeros),
+//    so short rows cost nothing and the longest row is spread over many
+//    SMs.  The split holding start[b] begins its walk there.
 //  * Staging.  A block walks its split in tiles of keys.  The K and V rows
 //    of a tile go to shared memory by 16-byte cp.async into a ring of
 //    stages, so the next tile is in flight while one is consumed.  Rows are
@@ -54,9 +56,10 @@
 //  * Merge.  With one split the block normalises and writes the output.
 //    Otherwise each split writes its partial (m, l, acc) in f32 to scratch
 //    that the wrapper allocates, and counts itself done on an int32 counter
-//    of its (b, kh, row chunk); the last block to finish merges the
-//    ceil(length / split_len) valid splits in split order (a split with
-//    m = -inf weighs 0) and resets the counter to 0 for the next call.
+//    of its (b, kh, row chunk); the last block to finish merges the valid
+//    splits, floor(start / split_len) to ceil(length / split_len) - 1, in
+//    split order (a split with m = -inf weighs 0) and resets the counter
+//    to 0 for the next call.
 //    Every sum runs in a fixed order, so two calls on the same inputs give
 //    the same bits, whichever block merges.
 // The launcher never synchronises, allocates nothing and returns
@@ -148,12 +151,13 @@ __device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi, uint3
 
 // What every split block shares: where its rows and keys are.
 struct Split {
-  int b, kh, g0, gc, len, t_begin, t_end, split;
+  int b, kh, g0, gc, len, lo, t_begin, t_end, split;
   size_t row0;  // first output row (b·H + kh·G + g0)
 };
 
-__device__ __forceinline__ Split locate(const int32_t* length, int s, int kheads, int group,
-                                        int rows_per_block, int split_len) {
+__device__ __forceinline__ Split locate(const int32_t* length, const int32_t* start, int s,
+                                        int kheads, int group, int rows_per_block,
+                                        int split_len) {
   Split sp;
   const int chunks = (group + rows_per_block - 1) / rows_per_block;
   const int bk = blockIdx.x / chunks;
@@ -162,9 +166,10 @@ __device__ __forceinline__ Split locate(const int32_t* length, int s, int kheads
   sp.b = bk / kheads;
   sp.kh = bk % kheads;
   sp.len = max(0, min(length[sp.b], s));
+  sp.lo = start ? max(0, min(start[sp.b], sp.len)) : 0;
   sp.split = blockIdx.y;
-  sp.t_begin = sp.split * split_len;
-  sp.t_end = min(sp.len, sp.t_begin + split_len);
+  sp.t_begin = max(sp.split * split_len, sp.lo);
+  sp.t_end = min(sp.len, (sp.split + 1) * split_len);
   sp.row0 = static_cast<size_t>(sp.b) * kheads * group + static_cast<size_t>(sp.kh) * group + sp.g0;
   return sp;
 }
@@ -223,9 +228,10 @@ __device__ __forceinline__ void zero_tails(unsigned char* stages, int d) {
 
 // After every thread of a block wrote its share of the split's partial
 // (m, l, acc), the block that finishes last among the splits of its (b, kh,
-// row chunk) merges the partials of the row's valid splits in split order
-// and writes the output.  Which block that is does not change the sums.  Its
-// counter is reset for the next call on the stream.
+// row chunk) merges the partials of the row's valid splits (those that hold
+// a key of [lo, len)) in split order and writes the output.  Which block
+// that is does not change the sums.  Its counter is reset for the next call
+// on the stream.
 template <int THREADS, typename T>
 __device__ void merge_if_last(const Split& sp, int* counters, const float* part_ml,
                               const float* part_acc, T* out, int d, int split_len,
@@ -233,23 +239,23 @@ __device__ void merge_if_last(const Split& sp, int* counters, const float* part_
   __shared__ int last;
   __threadfence();  // this block's partial is visible before it is counted
   __syncthreads();
+  const int j0 = sp.lo / split_len;                   // the first valid split
+  const int nv = (sp.len + split_len - 1) / split_len;  // one past the last
   if (threadIdx.x == 0) {
-    const int nv = (sp.len + split_len - 1) / split_len;
-    last = atomicAdd(counters + blockIdx.x, 1) == nv - 1;
+    last = atomicAdd(counters + blockIdx.x, 1) == nv - j0 - 1;
     if (last) counters[blockIdx.x] = 0;
   }
   __syncthreads();
   if (!last) return;
   __threadfence();
-  const int nv = (sp.len + split_len - 1) / split_len;
   for (int i = threadIdx.x; i < sp.gc * d; i += THREADS) {
     const int g = i / d, e = i % d;
     const size_t slot0 = (sp.row0 + g) * n_splits;
     float mx = -CUDART_INF_F;
-    for (int j = 0; j < nv; ++j) mx = fmaxf(mx, __ldcg(part_ml + (slot0 + j) * 2));
+    for (int j = j0; j < nv; ++j) mx = fmaxf(mx, __ldcg(part_ml + (slot0 + j) * 2));
     float a = 0.f, l = 0.f;
 #pragma unroll 4
-    for (int j = 0; j < nv; ++j) {
+    for (int j = j0; j < nv; ++j) {
       const float m = __ldcg(part_ml + (slot0 + j) * 2);
       const float wt = m == -CUDART_INF_F ? 0.f : expf(m - mx);
       l += __ldcg(part_ml + (slot0 + j) * 2 + 1) * wt;
@@ -282,7 +288,8 @@ template <int DMAX>
 __global__ void __launch_bounds__(MmaGeometry<DMAX>::kThreads) decode_split_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const int32_t* __restrict__ length,
-    __nv_bfloat16* __restrict__ out, float* __restrict__ part_ml, float* __restrict__ part_acc,
+    const int32_t* __restrict__ start, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ part_ml, float* __restrict__ part_acc,
     int* __restrict__ counters, int s, int kheads, int group, int d, float scale, int split_len,
     int n_splits, int vec16) {
   using G = MmaGeometry<DMAX>;
@@ -293,10 +300,10 @@ __global__ void __launch_bounds__(MmaGeometry<DMAX>::kThreads) decode_split_mma_
   unsigned char* qs = smem;                               // [16][DMAX] bf16, padded
   unsigned char* stages = smem + G::kRows * G::kQRowBytes;  // ring
 
-  const Split sp = locate(length, s, kheads, group, G::kRows, split_len);
+  const Split sp = locate(length, start, s, kheads, group, G::kRows, split_len);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  if (sp.t_begin >= sp.t_end) {  // no valid key in this split
-    if (sp.split == 0)            // nor in the row: it gives 0
+  if (sp.t_begin >= sp.t_end) {         // no valid key in this split
+    if (sp.split == 0 && sp.lo >= sp.len)  // nor in the row: it gives 0
       for (int i = tid; i < sp.gc * d; i += G::kThreads) store(out + sp.row0 * d + i, 0.f);
     return;
   }
@@ -482,7 +489,8 @@ struct SimtGeometry {
 template <typename T, int DMAX>
 __global__ void __launch_bounds__(kThreads) decode_split_simt_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const int32_t* __restrict__ length, T* __restrict__ out, float* __restrict__ part_ml,
+    const int32_t* __restrict__ length, const int32_t* __restrict__ start, T* __restrict__ out,
+    float* __restrict__ part_ml,
     float* __restrict__ part_acc, int* __restrict__ counters, int s, int kheads, int group,
     int d, float scale, int split_len, int n_splits, int vec16) {
   using G = SimtGeometry<T, DMAX>;
@@ -494,10 +502,10 @@ __global__ void __launch_bounds__(kThreads) decode_split_simt_kernel(
   float* sc = reinterpret_cast<float*>(stages + kStages * G::kStageBytes);  // [8][TK]
   __shared__ float alpha_s[R], m_s[R], l_s[R];
 
-  const Split sp = locate(length, s, kheads, group, R, split_len);
+  const Split sp = locate(length, start, s, kheads, group, R, split_len);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   if (sp.t_begin >= sp.t_end) {
-    if (sp.split == 0)
+    if (sp.split == 0 && sp.lo >= sp.len)
       for (int i = tid; i < sp.gc * d; i += kThreads) store(out + sp.row0 * d + i, 0.f);
     return;
   }
@@ -664,8 +672,9 @@ __global__ void __launch_bounds__(kThreads) decode_split_simt_kernel(
 template <typename T, typename Kernel>
 cudaError_t launch_split(Kernel kernel, int threads, int rows_per_block, int smem,
                          const void* q, const void* k, const void* v, const void* length,
-                         void* out, void* scratch, void* counters, int b, int h, int kheads,
-                         int s, int d, float scale, int split_len, int n_splits, int vec16,
+                         const void* start, void* out, void* scratch, void* counters, int b,
+                         int h, int kheads, int s, int d, float scale, int split_len,
+                         int n_splits, int vec16,
                          cudaStream_t stream) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -679,8 +688,9 @@ cudaError_t launch_split(Kernel kernel, int threads, int rows_per_block, int sme
   const dim3 grid(static_cast<unsigned>(rows), static_cast<unsigned>(n_splits));
   kernel<<<grid, threads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int32_t*>(length), static_cast<T*>(out), ml, acc,
-      static_cast<int*>(counters), s, kheads, group, d, scale, split_len, n_splits, vec16);
+      static_cast<const int32_t*>(length), static_cast<const int32_t*>(start),
+      static_cast<T*>(out), ml, acc, static_cast<int*>(counters), s, kheads, group, d, scale,
+      split_len, n_splits, vec16);
   return cudaGetLastError();
 }
 
@@ -689,13 +699,14 @@ cudaError_t launch_split(Kernel kernel, int threads, int rows_per_block, int sme
 extern "C" {
 
 // q (B, H, D), k and v (B, S, K, D), out (B, H, D), all contiguous and of one
-// type (bf16 != 0: bfloat16, else float32); length (B,) int32.  With
-// n_splits > 1: scratch f32 of B·H·n_splits·(D + 2) elements, and counters
-// int32 of B·K·ceil(G / 8) elements that are 0 (the kernel leaves them 0).
+// type (bf16 != 0: bfloat16, else float32); length (B,) int32; start (B,)
+// int32, or null for a start of 0 in every row.  With n_splits > 1: scratch
+// f32 of B·H·n_splits·(D + 2) elements, and counters int32 of
+// B·K·ceil(G / 8) elements that are 0 (the kernel leaves them 0).
 int decode_attention_launch(const void* q, const void* k, const void* v,
-                            const void* length, void* out, void* scratch, void* counters,
-                            int b, int h, int kheads, int s, int d, int bf16, float scale,
-                            int split_len, int n_splits, int device, void* stream) {
+                            const void* length, const void* start, void* out, void* scratch,
+                            void* counters, int b, int h, int kheads, int s, int d, int bf16,
+                            float scale, int split_len, int n_splits, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (b <= 0 || kheads <= 0 || h % kheads != 0 || s < 0 || d <= 0 ||
@@ -707,7 +718,7 @@ int decode_attention_launch(const void* q, const void* k, const void* v,
   const int elem = bf16 ? 2 : 4;
   const int vec16 = (d * elem) % 16 == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
                     reinterpret_cast<uintptr_t>(v) % 16 == 0;
-#define DECODE_ARGS q, k, v, length, out, scratch, counters, b, h, kheads, s, d, scale, \
+#define DECODE_ARGS q, k, v, length, start, out, scratch, counters, b, h, kheads, s, d, scale, \
                     split_len, n_splits, vec16, st
   if (bf16 && d <= 64)
     return launch_split<__nv_bfloat16>(decode_split_mma_kernel<64>, MmaGeometry<64>::kThreads,

@@ -36,7 +36,7 @@ _MAX_HEAD_DIM = 256
 def _lib() -> ctypes.CDLL:
     lib = build.library("decode_attention")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.decode_attention_launch.argtypes = [p] * 7 + [i] * 6 + [ctypes.c_float] + [i] * 3 + [p]
+    lib.decode_attention_launch.argtypes = [p] * 8 + [i] * 6 + [ctypes.c_float] + [i] * 3 + [p]
     lib.decode_attention_launch.restype = ctypes.c_int
     return lib
 
@@ -66,12 +66,15 @@ def decode_attention(
     length: torch.Tensor,  # (B,) int32 valid KV length
     *,
     scale: Optional[float] = None,
+    start: Optional[torch.Tensor] = None,  # (B,) int32 first valid key
 ) -> torch.Tensor:
     """One query token per row against a GQA KV cache: ``(B, H, D)`` in
-    q's dtype.  Keys ``t < length[b]`` are valid (lengths are clamped to
-    ``[0, S]``); the default scale is ``D ** -0.5``."""
-    if on_cpu(q, k, v, length):
-        return ref.decode_attention_ref(q, k, v, length, scale=scale)
+    q's dtype.  Keys ``start[b] <= t < length[b]`` are valid (lengths are
+    clamped to ``[0, S]``, starts to ``[0, length]``; ``start=None`` means
+    0); the default scale is ``D ** -0.5``."""
+    extra = () if start is None else (start,)
+    if on_cpu(q, k, v, length, *extra):
+        return ref.decode_attention_ref(q, k, v, length, scale=scale, start=start)
     b, h, d = q.shape
     s, kheads = k.shape[1], k.shape[2]
     if q.dtype not in _DTYPES:
@@ -84,6 +87,8 @@ def decode_attention(
     check("k", k, q.dtype, (b, s, kheads, d))
     check("v", v, q.dtype, (b, s, kheads, d))
     check("length", length, torch.int32, (b,))
+    if start is not None:
+        check("start", start, torch.int32, (b,))
     if scale is None:
         scale = d ** -0.5
     out = torch.empty_like(q)
@@ -96,7 +101,8 @@ def decode_attention(
             scratch = torch.empty((b * h * n_splits * (d + 2),), dtype=torch.float32, device=dev)
             counters = _counters(dev, b * kheads * -(-(h // kheads) // 8))
         launch(_lib().decode_attention_launch, q.data_ptr(), k.data_ptr(),
-               v.data_ptr(), length.data_ptr(), out.data_ptr(),
+               v.data_ptr(), length.data_ptr(),
+               start.data_ptr() if start is not None else None, out.data_ptr(),
                scratch.data_ptr() if scratch is not None else None,
                counters.data_ptr() if counters is not None else None,
                b, h, kheads, s, d, int(q.dtype == torch.bfloat16), float(scale),

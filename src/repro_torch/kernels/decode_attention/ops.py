@@ -17,11 +17,13 @@ def gqa_decode_attention(
     length: Optional[torch.Tensor] = None,
     *,
     scale: Optional[float] = None,
+    start: Optional[torch.Tensor] = None,
     use_kernel: bool = True,
 ) -> torch.Tensor:
     """GQA decode attention: (B,H,D) × (B,S,K,D) KV cache -> (B,H,D).
 
-    ``length=None`` means every one of the S slots is valid.
+    ``length=None`` means every one of the S slots is valid; keys before
+    ``start`` (per row, int32; ``None`` means 0) are not.
     ``use_kernel=True`` goes through the kernel's wrapper (the CUDA kernel
     for CUDA tensors, its plain version for CPU tensors);
     ``use_kernel=False`` runs the plain torch version on any device.
@@ -29,5 +31,5 @@ def gqa_decode_attention(
     if length is None:
         length = torch.full((q.shape[0],), k.shape[1], dtype=torch.int32, device=q.device)
     if not use_kernel:
-        return decode_attention_ref(q, k, v, length, scale=scale)
-    return decode_attention(q, k, v, length, scale=scale)
+        return decode_attention_ref(q, k, v, length, scale=scale, start=start)
+    return decode_attention(q, k, v, length, scale=scale, start=start)

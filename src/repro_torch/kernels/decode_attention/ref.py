@@ -2,7 +2,8 @@
 
 One new query token per batch row attends to a GQA KV cache: ``q (B, H, D)``
 against ``k, v (B, S, K, D)``, ``H = G·K`` (query head ``h`` reads KV head
-``h // G``), keys ``t < length[b]`` valid.  Logits, softmax and the weighted
+``h // G``), keys ``start[b] <= t < length[b]`` valid (``start`` defaults
+to 0; a sliding-window layer's ring cache sets it).  Logits, softmax and the weighted
 sum are float32 whatever the input type; the result is cast to q's dtype.
 
 A row with no valid key gives 0, as the TPU kernel does (its normaliser
@@ -25,6 +26,7 @@ def decode_attention_ref(
     length: torch.Tensor,  # (B,) int32 valid KV length
     *,
     scale: Optional[float] = None,
+    start: Optional[torch.Tensor] = None,  # (B,) int32 first valid key
 ) -> torch.Tensor:
     b, h, d = q.shape
     s, kheads = k.shape[1], k.shape[2]
@@ -36,7 +38,10 @@ def decode_attention_ref(
 
     qf = q.float().reshape(b, kheads, g, d)
     logits = torch.einsum("bkgd,bskd->bkgs", qf, k.float()) * scale
-    valid = torch.arange(s, device=q.device)[None, :] < length.to(q.device).long()[:, None]
+    t = torch.arange(s, device=q.device)[None, :]
+    valid = t < length.to(q.device).long()[:, None]
+    if start is not None:
+        valid &= t >= start.to(q.device).long()[:, None]
     logits = logits.masked_fill(~valid[:, None, None, :], float("-inf"))
     m = logits.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))

@@ -10,8 +10,9 @@ serving and training paths:
 * activations keep the reference's layouts: (batch, seq, ...), attention
   heads (B, S, H, D), KV caches (B, S, KV, D);
 * prefill and training attention (:func:`blockwise_attention`, flash
-  attention over query and KV tiles with the reference's custom backward)
-  is plain torch, as the reference's is plain jnp; single-token decode
+  attention over query and KV tiles with the reference's custom backward,
+  causal with an optional sliding window) is plain torch, as the
+  reference's is plain jnp; single-token decode
   attention (:func:`decode_gqa_attention`) goes through the hand-written
   ``decode_attention`` kernel's wrapper;
 * training adds the layer rematerialisation (:func:`remat_scan`) and the
@@ -121,27 +122,40 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 # ---------------------------------------------------------------------------
 
 
-def _tile_logits(qt, kt, scale, qstart: int, kstart: int, causal: bool):
+def _tile_logits(qt, kt, scale, qstart: int, kstart: int, causal: bool,
+                 window: Optional[int]):
     """Masked float32 logits of one (Q-tile, KV-tile) pair whose first query
-    and key sit at ``qstart`` and ``kstart``.
+    and key sit at positions ``qstart`` and ``kstart``.
 
     qt: (B, KV, G, bq, D); kt: (B, KV, bk, D) -> (B, KV, G, bq, bk).  Both
     operands are upcast before the product (the reference's
-    ``preferred_element_type=float32``).  A tile wholly at or below the
-    diagonal has nothing to mask, so the mask is built only where some key
-    lies after some query.
+    ``preferred_element_type=float32``).  The reference's mask: a key is
+    valid when ``kpos >= 0`` (left padding of the local path), when
+    ``kpos <= qpos`` (causal) and, with a window, when
+    ``kpos > qpos - window``.  A tile none of whose keys breaks a rule has
+    nothing to mask, so the mask is built only where one does.
     """
     logits = torch.einsum("bkgqd,bksd->bkgqs", qt.float(), kt.float()) * scale
     bq, bk = qt.shape[3], kt.shape[2]
-    if causal and kstart + bk - 1 > qstart:
-        qpos = qstart + torch.arange(bq, device=qt.device)
-        kpos = kstart + torch.arange(bk, device=qt.device)
-        logits = logits.masked_fill(qpos[:, None] < kpos[None, :], float("-inf"))
+    negative = kstart < 0
+    future = causal and kstart + bk - 1 > qstart
+    stale = window is not None and kstart <= qstart + bq - 1 - window
+    if negative or future or stale:
+        qpos = qstart + torch.arange(bq, device=qt.device)[:, None]
+        kpos = kstart + torch.arange(bk, device=qt.device)[None, :]
+        valid = kpos >= 0
+        if causal:
+            valid = valid & (qpos >= kpos)
+        if window is not None:
+            valid = valid & (kpos > qpos - window)
+        logits = logits.masked_fill(~valid, float("-inf"))
     return logits
 
 
-def _flash_forward(qt, kts, vts, qstart: int, nk: int, scale: float, causal: bool):
-    """The online-softmax scan of one query tile over KV tiles ``0..nk-1``.
+def _flash_forward(qt, kts, vts, qstart: int, kstart: int, nk: int, scale: float,
+                   causal: bool, window: Optional[int]):
+    """The online-softmax scan of one query tile over KV tiles ``0..nk-1``
+    (tile ``j``'s first key at position ``kstart + j·bk``).
     Returns ``(o, lse)`` in float32: (B, KV, G, bq, D), (B, KV, G, bq, 1)."""
     b, kv, g, bq, d = qt.shape
     blk_k = kts.shape[3]
@@ -151,7 +165,7 @@ def _flash_forward(qt, kts, vts, qstart: int, nk: int, scale: float, causal: boo
     acc = torch.zeros((b, kv, g, bq, d), dtype=torch.float32, device=dev)
     for j in range(nk):
         kt, vt = kts[j], vts[j]
-        logits = _tile_logits(qt, kt, scale, qstart, j * blk_k, causal)
+        logits = _tile_logits(qt, kt, scale, qstart, kstart + j * blk_k, causal, window)
         m_new = torch.maximum(m, logits.amax(dim=-1, keepdim=True))
         safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
         p = torch.where(torch.isfinite(logits), torch.exp(logits - safe), 0.0)
@@ -169,25 +183,27 @@ class _FlashQTile(torch.autograd.Function):
     """Flash attention of ONE query tile against the KV tiles it can see.
 
     The residuals are only ``(o, lse)``: the backward pass recomputes each
-    tile's logits from ``lse``, so autograd never stores (bq × bk)
-    probabilities, and training attention memory stays O(S·D) rather than
-    O(S²).  ``kts``/``vts`` hold every KV tile, (nk_all, B, KV, bk, D); only
+    tile's logits (with the same masks) from ``lse``, so autograd never
+    stores (bq × bk) probabilities, and training attention memory stays
+    O(S·D) rather than O(S²).  ``kts``/``vts`` hold KV tiles, (nk, B, KV,
+    bk, D), the first key of tile ``j`` at position ``kstart + j·bk``; only
     the first ``nk`` are read (causal tiles past the diagonal add p = 0 at
     alpha = 1, so skipping them changes no bit), and their gradients are
     zero.
     """
 
     @staticmethod
-    def forward(ctx, qt, kts, vts, qstart: int, nk: int, scale: float, causal: bool):
-        o, lse = _flash_forward(qt, kts, vts, qstart, nk, scale, causal)
+    def forward(ctx, qt, kts, vts, qstart: int, kstart: int, nk: int, scale: float,
+                causal: bool, window: Optional[int]):
+        o, lse = _flash_forward(qt, kts, vts, qstart, kstart, nk, scale, causal, window)
         ctx.save_for_backward(qt, kts, vts, o, lse)
-        ctx.args = (qstart, nk, scale, causal)
+        ctx.args = (qstart, kstart, nk, scale, causal, window)
         return o.to(qt.dtype)
 
     @staticmethod
     def backward(ctx, do):
         qt, kts, vts, o, lse = ctx.saved_tensors
-        qstart, nk, scale, causal = ctx.args
+        qstart, kstart, nk, scale, causal, window = ctx.args
         blk_k = kts.shape[3]
         dev = qt.device
         dof = do.float()
@@ -199,14 +215,14 @@ class _FlashQTile(torch.autograd.Function):
         dvs = torch.zeros_like(vts)
         for j in range(nk):
             ktf, vtf = kts[j].float(), vts[j].float()
-            logits = _tile_logits(qtf, ktf, scale, qstart, j * blk_k, causal)
+            logits = _tile_logits(qtf, ktf, scale, qstart, kstart + j * blk_k, causal, window)
             p = torch.where(torch.isfinite(logits), torch.exp(logits - lse_safe), 0.0)
             dvs[j] = torch.einsum("bkgqs,bkgqd->bksd", p, dof)
             dp = torch.einsum("bkgqd,bksd->bkgqs", dof, vtf)
             ds = p * (dp - dsum) * scale
             dq = dq + torch.einsum("bkgqs,bksd->bkgqd", ds, ktf)
             dks[j] = torch.einsum("bkgqs,bkgqd->bksd", ds, qtf)
-        return dq.to(qt.dtype), dks, dvs, None, None, None, None
+        return dq.to(qt.dtype), dks, dvs, None, None, None, None, None, None
 
 
 def blockwise_attention(
@@ -220,16 +236,21 @@ def blockwise_attention(
     blk_k: int = 512,
 ) -> torch.Tensor:
     """Flash attention with GQA at scale ``D ** -0.5`` over query tiles of
-    ``blk_q`` and KV tiles of ``blk_k`` (the reference's global path),
-    differentiable through :class:`_FlashQTile`.
+    ``blk_q``, causal and with an optional sliding window, differentiable
+    through :class:`_FlashQTile`.  The reference's two paths:
+
+    * global: KV tiles of ``blk_k`` (the window, if any, masked inside the
+      tiles); each query tile reads the tiles up to its diagonal;
+    * local, taken with a window when ``Sk > blk_q + window``: K and V are
+      left-padded by ``window`` zero rows, and query tile ``i`` reads the
+      one ``(blk_q + window)``-key span that starts at position
+      ``i·blk_q - window`` as a single KV tile (the padding masked by
+      ``kpos >= 0``), so a local layer costs O(S·window), not O(S²).
 
     Logits and the softmax statistics are float32; the unnormalised
     probabilities are cast to v's dtype for the value product, which
-    accumulates in float32.  The sliding-window path is not ported.
+    accumulates in float32.
     """
-    if window is not None:
-        raise NotImplementedError(
-            "sliding-window attention is not ported yet (ROADMAP.md §1 item 6 (b))")
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
     g = h // kv
@@ -238,37 +259,56 @@ def blockwise_attention(
     blk_k = min(blk_k, sk)
     if sq % blk_q or sk % blk_k:
         raise ValueError(f"tiles must divide the sequences: {sq} % {blk_q}, {sk} % {blk_k}")
-    nq, nk = sq // blk_q, sk // blk_k
+    nq = sq // blk_q
 
     qg = q.reshape(b, nq, blk_q, kv, g, d).permute(1, 0, 3, 4, 2, 5)  # (nq, B, KV, G, bq, D)
-    kts = k.reshape(b, nk, blk_k, kv, d).permute(1, 0, 3, 2, 4)        # (nk, B, KV, bk, D)
-    vts = v.reshape(b, nk, blk_k, kv, d).permute(1, 0, 3, 2, 4)
     out = []
-    for i in range(nq):
-        qstart = i * blk_q
-        # KV tiles holding a key at or before the tile's last query
-        seen = min(nk, (qstart + blk_q - 1) // blk_k + 1) if causal else nk
-        out.append(_FlashQTile.apply(qg[i], kts, vts, qstart, seen, scale, causal))
+    if window is not None and sk > blk_q + window:
+        span = blk_q + window
+        pad = (0, 0, 0, 0, window, 0)
+        kp = torch.nn.functional.pad(k, pad).permute(0, 2, 1, 3)  # (B, KV, window + Sk, D)
+        vp = torch.nn.functional.pad(v, pad).permute(0, 2, 1, 3)
+        for i in range(nq):
+            qstart = i * blk_q
+            kt = kp[:, :, qstart:qstart + span][None]  # (1, B, KV, span, D)
+            vt = vp[:, :, qstart:qstart + span][None]
+            out.append(_FlashQTile.apply(qg[i], kt, vt, qstart, qstart - window, 1, scale,
+                                         causal, window))
+    else:
+        nk = sk // blk_k
+        kts = k.reshape(b, nk, blk_k, kv, d).permute(1, 0, 3, 2, 4)  # (nk, B, KV, bk, D)
+        vts = v.reshape(b, nk, blk_k, kv, d).permute(1, 0, 3, 2, 4)
+        for i in range(nq):
+            qstart = i * blk_q
+            # KV tiles holding a key at or before the tile's last query (on
+            # this path Sk <= blk_q + window, so every tile holds a key of
+            # some query's window)
+            seen = min(nk, (qstart + blk_q - 1) // blk_k + 1) if causal else nk
+            out.append(_FlashQTile.apply(qg[i], kts, vts, qstart, 0, seen, scale, causal,
+                                         window))
     o = torch.stack(out)  # (nq, B, KV, G, bq, D)
     return o.permute(1, 0, 4, 2, 3, 5).reshape(b, sq, h, d).to(q.dtype)
 
 
 def decode_gqa_attention(
     q: torch.Tensor,        # (B, H, D) single token
-    k_cache: torch.Tensor,  # (B, C, KV, D) linear cache
+    k_cache: torch.Tensor,  # (B, C, KV, D) linear or ring cache
     v_cache: torch.Tensor,
-    length: torch.Tensor,   # (B,) int32: pos + 1
+    length: torch.Tensor,   # (B,) int32: one past the last valid slot
+    *,
+    start: Optional[torch.Tensor] = None,  # (B,) int32: the first valid slot
 ) -> torch.Tensor:
-    """Single-token decode attention over a linear KV cache.
+    """Single-token decode attention over the slots ``[start, length)`` of
+    a KV cache.
 
-    The reference masks slot ``i`` of a linear cache valid when
-    ``kv_pos = i <= pos``, i.e. when ``i < pos + 1``: exactly the
-    ``decode_attention`` kernel's per-row length mask with
-    ``length = pos + 1``.  So this calls the kernel's wrapper, which
-    launches the CUDA kernel for CUDA tensors (its plain version on the
-    CPU).  Ring caches (sliding-window layers) are not served here.
+    The reference masks each slot by its position, window and the current
+    position (``transformer.DecodeSpan`` turns that into the slot range,
+    for linear caches and the rings of sliding-window layers); the softmax
+    does not depend on the order of the slots.  So this calls the
+    ``decode_attention`` kernel's wrapper, which launches the CUDA kernel
+    for CUDA tensors (its plain version on the CPU).
     """
-    return decode_ops.gqa_decode_attention(q, k_cache, v_cache, length)
+    return decode_ops.gqa_decode_attention(q, k_cache, v_cache, length, start=start)
 
 
 def mask_padded_logits(logits: torch.Tensor, valid_vocab: int) -> torch.Tensor:

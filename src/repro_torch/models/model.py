@@ -1,4 +1,4 @@
-"""Model API of the dense family: training loss and serving.
+"""Model API of the dense and vlm families: training loss and serving.
 
   * ``param_defs(cfg)`` / ``init_params(cfg, generator, device=None)``
   * ``params_from_numpy(tree, cfg, device=None)`` — the JAX package's
@@ -56,8 +56,8 @@ def _tensor(a, device: torch.device) -> torch.Tensor:
 def params_from_numpy(tree, cfg: ModelConfig, device=None) -> transformer.Transformer:
     """The reference's ``init_params`` tree (leaves as numpy arrays, bf16
     leaves as ``ml_dtypes.bfloat16``, or as tensors) as the port's module;
-    the stacked ``(n_groups, n_global, …)`` layer leaves become one module
-    per layer."""
+    the stacked ``(n_groups, n_local | n_global, …)`` layer leaves become
+    one module per layer."""
     dev = resolve_device(device)
 
     def walk(t):
@@ -70,22 +70,28 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None) -> transformer.Transf
 
 def params_to_tree(params: Union[nn.Module, Mapping[str, torch.Tensor]], cfg: ModelConfig):
     """The inverse of :func:`params_from_numpy`: the reference's tree
-    (``embed``, ``final_norm``, ``groups/global/...`` with leading
-    ``(n_groups, n_global)`` axes) of detached tensors.  ``params`` is the
-    module or a ``{name: tensor}`` mapping keyed as its
-    ``named_parameters()`` (an AdamW moment)."""
+    (``embed``, ``final_norm``, ``groups/local/...`` and
+    ``groups/global/...`` with leading ``(n_groups, n_local | n_global)``
+    axes, ``vision_proj``) of detached tensors.  ``params`` is the module
+    or a ``{name: tensor}`` mapping keyed as its ``named_parameters()`` (an
+    AdamW moment)."""
     named = dict(params.named_parameters()) if isinstance(params, nn.Module) else dict(params)
-    lead = (cfg.n_groups, cfg.group_pattern[1])
-    stacked: Dict[str, object] = {}
-    for path in (k[len("layers.0."):] for k in named if k.startswith("layers.0.")):
-        t = torch.stack([named[f"layers.{i}.{path}"].detach() for i in range(cfg.n_layers)])
-        node = stacked
-        *parents, leaf = path.split(".")
-        for key in parents:
-            node = node.setdefault(key, {})
-        node[leaf] = t.reshape(lead + t.shape[1:])
-    return {"embed": named["embed"].detach(), "final_norm": named["final_norm"].detach(),
-            "groups": {"global": stacked}}
+    kinds = transformer.layer_kinds(cfg)
+    groups: Dict[str, Dict[str, object]] = {}
+    for kind in dict.fromkeys(kinds):
+        index = [i for i, k in enumerate(kinds) if k == kind]
+        lead = (cfg.n_groups, len(index) // cfg.n_groups)
+        prefix = f"layers.{index[0]}."
+        stacked = groups[kind] = {}
+        for path in (k[len(prefix):] for k in named if k.startswith(prefix)):
+            t = torch.stack([named[f"layers.{i}.{path}"].detach() for i in index])
+            node = stacked
+            *parents, leaf = path.split(".")
+            for key in parents:
+                node = node.setdefault(key, {})
+            node[leaf] = t.reshape(lead + t.shape[1:])
+    tree = {name: named[name].detach() for name in named if not name.startswith("layers.")}
+    return {**tree, "groups": groups}
 
 
 def opt_state_from_numpy(state, cfg: ModelConfig, device=None) -> Dict[str, object]:
@@ -104,36 +110,46 @@ def opt_state_from_numpy(state, cfg: ModelConfig, device=None) -> Dict[str, obje
 
 def loss_fn(params: transformer.Transformer, batch: Dict[str, torch.Tensor],
             cfg: ModelConfig) -> torch.Tensor:
-    """Mean next-token cross-entropy (float32) of a dense-family batch:
-    ``tokens`` (B, S) and ``labels`` (B, S), -1 = ignore."""
-    if cfg.encdec or cfg.frontend == "vision":
+    """Mean next-token cross-entropy (float32): ``tokens`` (B, S) and
+    ``labels`` (B, S), -1 = ignore; with the vision frontend also
+    ``patches`` (B, P, D), whose positions the loss ignores (labels cover
+    the text only)."""
+    if cfg.encdec:
         raise NotImplementedError(
-            "the encdec and vlm losses are not ported yet (ROADMAP.md §1 item 6 (b))")
+            "the encdec loss is not ported yet (ROADMAP.md §1 item 6 (b))")
     x, _ = transformer.forward(params, batch, cfg, train=True)
-    return common.chunked_ce_loss(x, params.embed, batch["labels"], valid_vocab=cfg.vocab)
+    labels = batch["labels"]
+    if cfg.frontend == "vision":
+        pad = torch.full((labels.shape[0], cfg.num_patches), -1, dtype=labels.dtype,
+                         device=labels.device)
+        labels = torch.cat([pad, labels], dim=1)
+    return common.chunked_ce_loss(x, params.embed, labels, valid_vocab=cfg.vocab)
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device=None):
     return transformer.init_cache(cfg, batch, seq_len, resolve_device(device))
 
 
-def pad_cache(cache: Dict[str, torch.Tensor], prefill_len: int, max_len: int):
-    """Grow the linear KV caches from ``prefill_len`` to ``max_len`` slots
-    (zeros after the prompt)."""
-    out = {}
-    for name, x in cache.items():
-        if x.shape[-3] != prefill_len:
-            raise ValueError(f"cache {name!r} holds {x.shape[-3]} slots, not {prefill_len}")
-        shape = x.shape[:-3] + (max_len,) + x.shape[-2:]
-        y = torch.zeros(shape, dtype=x.dtype, device=x.device)
-        y[..., :prefill_len, :, :] = x
-        out[name] = y
-    return out
+def pad_cache(cache, prefill_len: int, max_len: int):
+    """Grow every KV cache of ``prefill_len`` slots to ``max_len`` (zeros
+    after the prompt), as the reference does: the global layers' linear
+    caches, and a local layer's ring when the prompt was no longer than its
+    window (its ``min(window, prefill_len)`` slots are then the prompt's,
+    in order).  Caches of another length (rings of a longer prompt) pass
+    through unchanged."""
+    if isinstance(cache, dict):
+        return {name: pad_cache(x, prefill_len, max_len) for name, x in cache.items()}
+    if cache.shape[-3] != prefill_len:
+        return cache
+    shape = cache.shape[:-3] + (max_len,) + cache.shape[-2:]
+    y = torch.zeros(shape, dtype=cache.dtype, device=cache.device)
+    y[..., :prefill_len, :, :] = cache
+    return y
 
 
 def prefill(params: transformer.Transformer, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
-    """Process the full prompt; returns (last-token logits (B, V) float32,
-    cache)."""
+    """Process the full prompt (``tokens``, and ``patches`` with the vision
+    frontend); returns (last-token logits (B, V) float32, cache)."""
     x, cache = transformer.forward(params, batch, cfg, return_cache=True)
     return transformer.logits_of(params, x[:, -1], cfg), cache
 
@@ -141,5 +157,6 @@ def prefill(params: transformer.Transformer, batch: Dict[str, torch.Tensor], cfg
 def decode_step(params: transformer.Transformer, cache, token: torch.Tensor, pos: int,
                 cfg: ModelConfig):
     """One new token (B,) at position ``pos`` -> (logits (B, V), cache);
-    the cache is updated in place."""
+    the cache is updated in place.  With the vision frontend, positions
+    count the ``num_patches`` patch slots of the prefill."""
     return transformer.decode(params, cache, token, pos, cfg)

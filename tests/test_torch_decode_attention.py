@@ -10,9 +10,13 @@ in the port; the reference's ``ref.py`` gives NaN there, so that case is
 held against the kernel only.
 
 The kernel's split-KV plan (``split.py``) is held here too: every key in
-exactly one split, and the grid within CUDA's limits.
+exactly one split, and the grid within CUDA's limits.  So is the per-row
+``start`` of the sliding-window layers' caches: the plain version with
+``start`` against the reference's windowed ``decode_gqa_attention`` over
+ring and padded caches (float32, atol = rtol = 1e-5).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,6 +31,7 @@ from repro_torch.kernels.decode_attention import ops as tops
 from repro_torch.kernels.decode_attention import split as tsplit
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref as t_ref
 from repro_torch.models import common as tcommon
+from repro_torch.models.transformer import DecodeSpan
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -162,6 +167,91 @@ def test_linear_cache_decode_is_the_kernel_with_length_pos_plus_one(pos):
     got = tcommon.decode_gqa_attention(torch.as_tensor(q), torch.as_tensor(k),
                                        torch.as_tensor(v), length)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL["float32"])
+
+
+#: the reference's oracle and windowed decode attention, each shape compiled
+#: once (op by op, each call would compile every operation anew)
+J_REF = jax.jit(j_ref)
+J_DECODE = jax.jit(jcommon.decode_gqa_attention, static_argnames=("window",))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lengths_past_the_cache_match_the_oracle(dtype):
+    """Lengths past S are clamped to S, as the reference's ``ref.py``
+    masks ``arange(S) < length`` (its Pallas kernel pads K and V with zero
+    keys there instead; ROADMAP.md §3).  The row of length 0 gives 0 (the
+    oracle NaN)."""
+    q, k, v, length = inputs((4, 40, 2, 4, 64), dtype, seed=3, lengths=[0, 40, 41, 1000])
+    got = t_ref(to_torch(q, dtype), to_torch(k, dtype), to_torch(v, dtype),
+                torch.as_tensor(length)).float().numpy()
+    oracle = np.asarray(J_REF(to_jax(q, dtype), to_jax(k, dtype), to_jax(v, dtype),
+                              length=jnp.asarray(length)).astype(jnp.float32))
+    assert np.all(got[0] == 0) and np.isnan(oracle[0]).all()
+    np.testing.assert_allclose(got[1:], oracle[1:], **TOL[dtype])
+
+
+#: (cache slots C, window, decode position): rings of C = min(window,
+#: seq_len) slots (filling, full, wrapped, narrower than the window) and
+#: caches grown past the window by pad_cache (the window inside, at its
+#: end, and before it reaches the window)
+RINGS = [(16, 16, 5), (16, 16, 15), (16, 16, 37), (12, 16, 30), (48, 16, 20), (48, 16, 47),
+         (48, 16, 10), (48, 48, 30)]
+
+
+@pytest.mark.parametrize("c,window,pos", RINGS, ids=lambda x: str(x))
+def test_ring_cache_decode_is_the_kernel_with_a_start(c, window, pos):
+    """The reference's decode attention over a local layer's cache (slot i
+    holds position ``pos - ((pos - i) % C)`` in a ring, ``i`` in a padded
+    cache; valid when ``0 <= kv_pos <= pos`` and ``kv_pos > pos - window``)
+    equals the kernel's function on the slot range ``[start, length)`` that
+    ``DecodeSpan`` gives — the identity the port's windowed decode rests
+    on."""
+    q, k, v, _ = inputs((3, c, 2, 4, 64), "float32", seed=pos)
+    b = k.shape[0]
+    idx = np.arange(c, dtype=np.int32)
+    kv_pos = idx if c > window else pos - ((pos - idx) % c)
+    kv_pos = np.broadcast_to(kv_pos[None, :], (b, c))
+    want = J_DECODE(q, k, v, kv_pos, np.int32(pos), window=window)
+    span = DecodeSpan(c, pos, window, b, torch.device("cpu"))
+    assert span.slot == pos % c
+    assert (span.start is not None) == (c > window and pos >= window)
+    got = t_ref(torch.as_tensor(q), torch.as_tensor(k), torch.as_tensor(v), span.length,
+                start=span.start)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL["float32"])
+    assert torch.equal(tops.gqa_decode_attention(torch.as_tensor(q), torch.as_tensor(k),
+                                                 torch.as_tensor(v), span.length,
+                                                 start=span.start), got)
+
+
+def test_a_padded_cache_past_its_slots_raises():
+    """Past C a padded cache's window would wrap into two slot ranges; the
+    serving engine stops at ``max_len - 1``."""
+    with pytest.raises(ValueError, match="wider than the window"):
+        DecodeSpan(48, 48, 16, 2, torch.device("cpu"))
+    with pytest.raises(ValueError, match="past a 8-slot cache"):
+        DecodeSpan(8, 8, None, 2, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_start_masks_the_keys_before_it(dtype):
+    """Per-row ``start``: inside a row, at 0, equal to the length (the row
+    gives 0) and past it; against the oracle on the same keys, each row
+    cut to its ``[start, length)``."""
+    q, k, v, length = inputs((4, 300, 2, 4, 64), dtype, seed=9, lengths=[300, 200, 130, 50])
+    start = np.asarray([130, 0, 130, 60], np.int32)
+    got = t_ref(to_torch(q, dtype), to_torch(k, dtype), to_torch(v, dtype),
+                torch.as_tensor(length), start=torch.as_tensor(start)).float().numpy()
+    assert np.all(got[2] == 0) and np.all(got[3] == 0)
+    for row in (0, 1):
+        lo, hi = start[row], length[row]
+        want = J_REF(to_jax(q[row:row + 1], dtype), to_jax(k[row:row + 1, lo:hi], dtype),
+                     to_jax(v[row:row + 1, lo:hi], dtype))
+        np.testing.assert_allclose(got[row:row + 1], np.asarray(want.astype(jnp.float32)),
+                                   **TOL[dtype])
+    zero = t_ref(to_torch(q, dtype), to_torch(k, dtype), to_torch(v, dtype),
+                 torch.as_tensor(length), start=torch.zeros(4, dtype=torch.int32))
+    assert torch.equal(zero, t_ref(to_torch(q, dtype), to_torch(k, dtype), to_torch(v, dtype),
+                                   torch.as_tensor(length)))
 
 
 #: (B, K, S, SM count): the serving and long shapes, B = 1 at S = 32,768,

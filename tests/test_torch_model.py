@@ -102,8 +102,13 @@ def flat(tree, prefix=()):
     return {prefix: tree}
 
 
+#: the architectures the port runs: the reference's dense-layer ones
+PORTED = ["gemma3-12b", "llama3.2-1b", "llama3.2-1b-sw", "paligemma-3b", "qwen3-14b",
+          "starcoder2-15b"]
+
+
 def test_configs_are_the_references():
-    assert sorted(ARCHS) == ["llama3.2-1b"] and sorted(SMOKES) == ["llama3.2-1b"]
+    assert sorted(ARCHS) == PORTED and sorted(SMOKES) == PORTED
     for arch in ARCHS:
         assert dataclasses.asdict(ARCHS[arch]) == dataclasses.asdict(J_ARCHS[arch])
         assert dataclasses.asdict(SMOKES[arch]) == dataclasses.asdict(J_SMOKES[arch])
@@ -111,15 +116,21 @@ def test_configs_are_the_references():
     cfg = ARCHS["llama3.2-1b"]
     assert (cfg.padded_vocab, cfg.group_pattern, cfg.n_groups, cfg.torch_dtype) == (
         J_ARCHS["llama3.2-1b"].padded_vocab, (0, 1), 16, torch.bfloat16)
+    for arch in ("gemma3-12b", "llama3.2-1b-sw"):
+        assert (ARCHS[arch].group_pattern, ARCHS[arch].n_groups) == (
+            J_ARCHS[arch].group_pattern, J_ARCHS[arch].n_groups)
+    # the reference gives the sliding-window variant the windowless SMOKE
+    assert SMOKES["llama3.2-1b-sw"] is SMOKES["llama3.2-1b"]
     with pytest.raises(ValueError, match="unknown arch"):
-        get_config("llama3.2-1b-sw")
+        get_config("mamba2-2.7b")
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b"])
+@pytest.mark.parametrize("arch", PORTED)
 def test_full_width_params_match_reference_shapes_and_dtypes(arch):
     """At the published widths, on the meta device: every leaf of the
     port's module has the reference's shape and dtype."""
-    got = flat(restack(tmodel.init_params(ARCHS[arch], None, device="meta"), ARCHS[arch]))
+    got = flat(tmodel.params_to_tree(tmodel.init_params(ARCHS[arch], None, device="meta"),
+                                     ARCHS[arch]))
     want = flat(jmodel.abstract_params(J_ARCHS[arch]))
     assert sorted(got) == sorted(want)
     for path, w in want.items():
@@ -182,8 +193,9 @@ def test_prefill_and_teacher_forced_decode_match(carried):
     tl, tc = tmodel.prefill(tp, {"tokens": torch.as_tensor(prompt)}, tcfg)
     assert tl.dtype == torch.float32 and tuple(tl.shape) == (b, jcfg.padded_vocab)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    assert sorted(tc) == ["global"]
     for name in ("k", "v"):
-        assert_cache_close(tc[name], np.asarray(jc["global"]["attn"][name]))
+        assert_cache_close(tc["global"][name], np.asarray(jc["global"]["attn"][name]))
 
     jc = jmodel.pad_cache(jc, plen, plen + steps)
     tc = tmodel.pad_cache(tc, plen, plen + steps)
@@ -193,42 +205,58 @@ def test_prefill_and_teacher_forced_decode_match(carried):
         tl, tc = tmodel.decode_step(tp, tc, torch.as_tensor(forced[step]), plen + step, tcfg)
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
     for name in ("k", "v"):
-        assert_cache_close(tc[name], np.asarray(jc["global"]["attn"][name]))
+        assert_cache_close(tc["global"][name], np.asarray(jc["global"]["attn"][name]))
 
 
 def test_pad_cache_matches():
+    """The reference's rule on the port's ``{kind: {"k", "v"}}`` caches:
+    every cache of ``prefill_len`` slots grows (zeros after the prompt),
+    and a cache of another length passes through unchanged."""
     cfg = SMOKES["llama3.2-1b"]
     rng = np.random.default_rng(4)
     k = rng.standard_normal((cfg.n_layers, 2, 5, cfg.n_kv_heads, cfg.head_dim)).astype(np.float32)
     jcache = {"global": {"attn": {"k": jnp.asarray(k.reshape((cfg.n_layers, 1) + k.shape[1:])),
                                   "v": jnp.asarray(2 * k.reshape((cfg.n_layers, 1) + k.shape[1:]))}}}
-    got = tmodel.pad_cache({"k": torch.as_tensor(k), "v": torch.as_tensor(2 * k)}, 5, 9)
+    got = tmodel.pad_cache({"global": {"k": torch.as_tensor(k), "v": torch.as_tensor(2 * k)}},
+                           5, 9)["global"]
     want = jmodel.pad_cache(jcache, 5, 9)["global"]["attn"]
     for name in ("k", "v"):
         assert tuple(got[name].shape) == (cfg.n_layers, 2, 9, cfg.n_kv_heads, cfg.head_dim)
         assert np.array_equal(got[name].numpy(), np.asarray(want[name]).reshape(got[name].shape))
-    with pytest.raises(ValueError, match="slots"):
-        tmodel.pad_cache(got, 5, 12)
+    again = tmodel.pad_cache({"global": got}, 5, 12)["global"]
+    assert all(again[name] is got[name] for name in ("k", "v"))
+    assert jmodel.pad_cache(jmodel.pad_cache(jcache, 5, 9), 5, 12)["global"]["attn"]["k"].shape[-3] == 9
 
 
 def test_init_cache_matches_reference_layout():
     cfg = SMOKES["llama3.2-1b"]
     got = tmodel.init_cache(cfg, 3, 11, device="cpu")
     want = jmodel.init_cache(J_SMOKES["llama3.2-1b"], 3, 11)["global"]["attn"]
+    assert sorted(got) == ["global"]
     for name in ("k", "v"):
-        assert got[name].dtype == torch.float32 and not got[name].any()
-        assert got[name].shape == (np.asarray(want[name]).reshape(-1, *want[name].shape[2:])).shape
+        assert got["global"][name].dtype == torch.float32 and not got["global"][name].any()
+        assert got["global"][name].shape == (
+            np.asarray(want[name]).reshape(-1, *want[name].shape[2:])).shape
 
 
 @pytest.mark.parametrize("change", [
     dict(family="moe", n_experts=4, topk=2),
-    dict(local_global=(1, 1)),
+    dict(family="hybrid", ssm_state=16, ssm_headdim=32, ssm_chunk=32),
     dict(pos="learned"),
-    dict(qk_norm=True),
-    dict(post_norm=True),
-])
+    dict(family="ssm", n_heads=1, n_kv_heads=1, d_ff=0, ssm_state=32, ssm_headdim=32,
+         ssm_chunk=32, pos="none"),
+    "whisper-large-v3",
+], ids=["moe", "hybrid", "learned-positions", "ssm", "encdec-whisper"])
 def test_unported_variants_raise(change):
-    base = dataclasses.asdict(SMOKES["llama3.2-1b"])
-    base.update(change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodel.init_params(TConfig(**base), torch.Generator().manual_seed(0), device="cpu")
+    """The families of ROADMAP.md §1 item 6 (b2)-(b4) and learned positions
+    are refused; the layer options they replaced here (local/global groups,
+    qk-norm, post-norms) are ported and held in
+    ``tests/test_torch_dense_options.py``."""
+    if isinstance(change, str):
+        cfg = TConfig(**dataclasses.asdict(J_SMOKES[change]))
+    else:
+        base = dataclasses.asdict(SMOKES["llama3.2-1b"])
+        base.update(change)
+        cfg = TConfig(**base)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 6"):
+        tmodel.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")

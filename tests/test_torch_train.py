@@ -249,9 +249,17 @@ def test_blockwise_attention_forward_and_vjp_match(layout, dtype):
 
 
 def test_blockwise_attention_refuses_the_window():
-    x = torch.zeros((1, 8, 2, 4))
-    with pytest.raises(NotImplementedError, match=r"item 6 \(b\)"):
-        tcommon.blockwise_attention(x, x[:, :, :1], x[:, :, :1], window=4)
+    """The call that was refused before the sliding window was ported
+    (S = 8, window 4, one tile) now equals the reference's windowed
+    attention; both paths at other shapes are held in
+    ``tests/test_torch_dense_options.py``."""
+    rng = np.random.default_rng(17)
+    x = rng.standard_normal((1, 8, 2, 4)).astype(np.float32)
+    want = jax.jit(lambda q, k, v: jcommon.blockwise_attention(q, k, v, window=4))(
+        x, x[:, :, :1], x[:, :, :1])
+    t = torch.from_numpy(x)
+    got = tcommon.blockwise_attention(t, t[:, :, :1], t[:, :, :1], window=4)
+    assert_scaled_close(got, want, 1e-5, "o")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -332,9 +340,9 @@ def test_loss_fn_refuses_the_other_families():
     tp = tmodel.init_params(tcfg, torch.Generator().manual_seed(0), device="cpu")
     batch = {"tokens": torch.zeros((1, 8), dtype=torch.int32),
              "labels": torch.zeros((1, 8), dtype=torch.int32)}
-    for change in (dict(frontend="vision"), dict(encdec=True)):
-        with pytest.raises(NotImplementedError, match=r"item 6 \(b\)"):
-            tmodel.loss_fn(tp, batch, dataclasses.replace(tcfg, **change))
+    # the vision loss is ported (tests/test_torch_dense_options.py)
+    with pytest.raises(NotImplementedError, match=r"item 6 \(b\)"):
+        tmodel.loss_fn(tp, batch, dataclasses.replace(tcfg, encdec=True))
     with pytest.raises(ValueError, match="no cache"):
         from repro_torch.models import transformer
         transformer.forward(tp, batch, tcfg, train=True, return_cache=True)
