@@ -58,9 +58,12 @@ Phases, each printing its own lines:
    padded past its window (B = 4, K = 8, G = 2, D = 256, S = 2,081, start
    = pos - 1,023) and (f) its wrapped ring of 1,024 slots, (g) qwen3-14b's
    G = 5 at D = 128, (h) starcoder2-15b's G = 12 at D = 128, (i)
-   paligemma-3b's K = 1, G = 8 at D = 256; for (a)-(i) its device time,
-   time per call, bound, plain time and the time of
-   ``scaled_dot_product_attention`` (the kernel must beat it at (b));
+   paligemma-3b's K = 1, G = 8 at D = 256, and phase 14's: (j)
+   granite-moe-3b-a800m's G = 3 (B = 4, H = 24, K = 8, D = 64, bf16,
+   S = 1,057 = prompt + new + 1) and (k) grok-1-314b's SMOKE (K = 2,
+   G = 2, float32, S = 41); for (a)-(k) its device time, time per call,
+   bound, plain time and the time of ``scaled_dot_product_attention``
+   (the kernel must beat it at (b));
 7. the serving path at full width: ``llama3.2-1b`` (bf16, random weights
    from a ``torch.Generator`` seeded 0) behind the MIG admission controller
    (4 A100-80GB GPUs, mfi, 16 requests of the uniform mix, prompts of 128
@@ -140,9 +143,10 @@ Phases, each printing its own lines:
     ``steps.train_step`` steps at train_4k's S = 4,096 with a global batch
     of 8 (cut from 256) as 4 micro-batches of 2, every loss finite, with
     ms per step, tokens/s, peak device memory against its reckoning, model
-    FLOPs and their share of the bf16 dense peak, and a profiled step of
-    one micro-batch split by what launched each kernel (attention, CE,
-    optimizer, other matmuls, the rest); (e) one SMOKE step of gemma3-12b
+    FLOPs (6·N_active·tokens plus attention) and their share of the bf16
+    dense peak, and a profiled step of one micro-batch split by what
+    launched each kernel (attention, CE, optimizer, other matmuls, the
+    rest); (e) one SMOKE step of gemma3-12b
     (post-norms, its window on ``blockwise_attention``'s local path at
     S = 1,024) and of paligemma-3b (the patch prefix) on the card against
     the CPU, weights scaled by 0.1: the loss and every gradient leaf, then
@@ -162,7 +166,30 @@ Phases, each printing its own lines:
     at its window of 4,096); paligemma-3b prefilled at 256 patches + 128
     tokens and decoded 8 steps through ``model``; every logit finite; then
     a ``{"dense_options": ...}`` line;
-14. a ``{"kernels": [...]}`` JSON line (each kernel's launches in total
+14. the mixture-of-experts family (bf16 models from a ``torch.Generator``
+    seeded 0, one at a time, each freed before the next): (a) ``moe_layer``
+    at granite-moe-3b-a800m's SMOKE in float32 on the card and the CPU,
+    an integer-valued router and inputs skewed so that expert 0
+    overflows: the same top-k, ``keep``, ``slot``, ``entry_of_slot`` and
+    ``slot_hit``, outputs within 1e-5 of their scale, and the bisection
+    equal to jnp's scan replayed in numpy on unsorted rows; (b)
+    granite-moe-3b-a800m (32 layers, E = 40, k = 8, 6.6 GB) behind the MIG
+    admission controller through ``ServingEngine.run``, one wave of 4
+    prompts of 1,024 tokens (cap 256) and 32 new tokens,
+    ``decode_attention`` launched 32 times a decode step (counts reset
+    just before and read just after), prefill and decode times, a profiled
+    window of 8 decode steps and the share of prefill entries dropped
+    (over capacity, and missed by the slot search); (c) granite trained at
+    train_4k's S = 4,096, global batch 4 (cut from 256) as 2 micro-batches
+    of 2, 2 steps, every loss finite, with ms per step, tokens/s, peak
+    memory against its reckoning, model FLOPs and a profiled micro-batch
+    split (attention, MoE routing and dispatch, expert products, CE,
+    optimizer, the rest); (d) one grok-1-314b SMOKE step card vs CPU and
+    its SMOKE served, and one MoE block at its published widths (E = 8,
+    k = 2, d = 6,144, f = 32,768; 9.7 GB bf16) on 4 x 128 tokens in bf16
+    and in float32: the dispatch equal, the outputs within a stated bf16
+    tolerance, both times; then a ``{"moe": ...}`` line;
+15. a ``{"kernels": [...]}`` JSON line (each kernel's launches in total
     and by path), then the result line.
 
 Every equality of phases 3-5 and 8-11 is exact: all scores are integers
@@ -360,6 +387,34 @@ SMOKE_TAMED_GRAD_TOL = 2e-5
 SMOKE_STEP_LR = 3e-4
 #: phase 12's SMOKE steps of the dense layer options: (batch, sequence)
 SMOKE_ARCH_STEPS = {"gemma3-12b": (4, 1024), "paligemma-3b": (4, 128)}
+#: phase 14, the mixture-of-experts family: granite-moe-3b-a800m served at
+#: full width on one wave of 4 prompts of 1,024 tokens (cap 256 a row),
+#: 32 new tokens each, and trained at train_4k's S = 4,096 with a global
+#: batch of 4 (cut from 256) as 2 micro-batches of 2, for 2 steps (3 took
+#: phase 14 to 106 s on an H100 at 12.4 s a step; its mark is ~90 s)
+MOE_ARCH = "granite-moe-3b-a800m"
+MOE_PROMPT = 1024
+MOE_NEW = 32
+MOE_WINDOW_STEPS = 8
+MOE_TRAIN_BATCH = 4
+MOE_TRAIN_ACCUM = 2
+MOE_TRAIN_STEPS = 2
+#: (a) moe_layer card vs CPU at granite's SMOKE: (B, S), cap 40 a row
+MOE_SMOKE_LAYER = (2, 64)
+#: (d) grok-1-314b: its SMOKE served on a wave of 4 prompts of 32 tokens,
+#: 8 new tokens, a SMOKE step (B, S), and one MoE block at its published
+#: widths on 4 x 128 tokens, bf16 against float32; the bf16 output within
+#: 2^-6 of the float32 output's rms (its rms error) and 2^-4 of its
+#: largest magnitude (its worst element): one bf16 rounding of each expert
+#: hidden element (2^-9 relative) accumulates over f = 32,768 terms like
+#: the output itself, so the relative rms error stays ~3·2^-9
+GROK_ARCH = "grok-1-314b"
+GROK_SMOKE_PROMPT = 32
+GROK_SMOKE_NEW = 8
+GROK_SMOKE_STEP = (4, 128)
+GROK_LAYER_TOKENS = (4, 128)
+GROK_LAYER_RMS_TOL = 2.0 ** -6
+GROK_LAYER_MAX_TOL = 2.0 ** -4
 #: victims per replica of the migrate search at M = 100 (min(C, M·S))
 C_LIVE = 800
 #: fleet sizes of the mfi_delta kernel check (A100-80GB): the paper's
@@ -1918,9 +1973,16 @@ def decode_attention_phase(device):
                                  256, bf16,
                                  [DENSE_PATCHES + DENSE_PROMPT + DENSE_SHORT_NEW] * SERVE_SLOTS,
                                  None, None),
+        # phase 14's decode shapes at the wave's last step: granite (K = 8,
+        # G = 3, D = 64, bf16) and grok's SMOKE (K = 2, G = 2, float32)
+        "granite-g3": (SERVE_SLOTS, MOE_PROMPT + MOE_NEW + 1, 8, 3, 64, bf16,
+                       [MOE_PROMPT + MOE_NEW - 1] * SERVE_SLOTS, None, None),
+        "grok-smoke": (SERVE_SLOTS, GROK_SMOKE_PROMPT + GROK_SMOKE_NEW + 1, 2, 2, 64, f32,
+                       [GROK_SMOKE_PROMPT + GROK_SMOKE_NEW - 1] * SERVE_SLOTS, None, None),
     }
     timed_cases = ("serving", "long", "middle", "b1-32k", "gemma3-ring", "gemma3-wrapped",
-                   "qwen3-g5-d128", "starcoder2-g12-d128", "paligemma-k1-g8-d256")
+                   "qwen3-g5-d128", "starcoder2-g12-d128", "paligemma-k1-g8-d256", "granite-g3",
+                   "grok-smoke")
     errs, ratios = {}, {}
     row = {}
     for tag, (b, s, kh, g, d, dtype, lengths, scale, st) in cases.items():
@@ -2682,13 +2744,14 @@ def scaled_tree(t, scale):
     return t * scale if t.dim() > 1 else t.clone()
 
 
-def smoke_arch_steps(device):
-    """One SMOKE step of the dense layer options on the card against the
-    CPU, weights scaled by 0.1 (float32, TF32 off): gemma3 (post-norms,
-    its window of 32 on blockwise_attention's local path at S = 1,024) and
-    paligemma (128 tokens behind 16 patches, the patch labels padded): the
-    loss and every gradient leaf of ``loss_and_grads``, then
-    ``steps.train_step`` on the card, whose loss must be that loss."""
+def smoke_arch_steps(device, archs=SMOKE_ARCH_STEPS, tag="train"):
+    """One SMOKE step of each of ``archs`` ({arch: (batch, sequence)}) on
+    the card against the CPU, weights scaled by 0.1 (float32, TF32 off):
+    by default gemma3 (post-norms, its window of 32 on
+    blockwise_attention's local path at S = 1,024) and paligemma (128
+    tokens behind 16 patches, the patch labels padded): the loss and every
+    gradient leaf of ``loss_and_grads``, then ``steps.train_step`` on the
+    card, whose loss must be that loss."""
     import math
     import torch
     from repro_torch.configs import SMOKES
@@ -2699,7 +2762,7 @@ def smoke_arch_steps(device):
 
     cpu = torch.device("cpu")
     out = {}
-    for arch, (batch_size, seq) in SMOKE_ARCH_STEPS.items():
+    for arch, (batch_size, seq) in archs.items():
         cfg = SMOKES[arch]
         tree = model.params_to_tree(model.init_params(cfg, torch.Generator().manual_seed(0), cpu),
                                     cfg)
@@ -2718,15 +2781,15 @@ def smoke_arch_steps(device):
         _, _, metrics = steps.train_step(params, adamw_init(params), b, cfg)
         step_loss = float(metrics["loss"])
         step_s = time.perf_counter() - t0
-        log(f"train: SMOKE {arch} (B {batch_size}, S {seq}{', window ' + str(cfg.window) if cfg.local_global else ''}"
+        log(f"{tag}: SMOKE {arch} (B {batch_size}, S {seq}{', window ' + str(cfg.window) if cfg.local_global else ''}"
             f"{', ' + str(cfg.num_patches) + ' patches' if cfg.frontend else ''}), weights x0.1, "
             f"card vs CPU: loss {cl:.7f} vs {hl:.7f}; worst gradient leaf at {worst:.3f} of its "
             f"limit ({SMOKE_TAMED_GRAD_TOL:g} of the leaf's largest magnitude); train_step on the "
             f"card: loss {step_loss:.7f} in {step_s:.2f} s")
-        check(abs(cl - hl) <= 1e-5 * abs(hl), f"train: SMOKE {arch} loss card {cl} vs cpu {hl}")
-        check(worst <= 1.0, f"train: SMOKE {arch} gradients card vs CPU past their limit")
+        check(abs(cl - hl) <= 1e-5 * abs(hl), f"{tag}: SMOKE {arch} loss card {cl} vs cpu {hl}")
+        check(worst <= 1.0, f"{tag}: SMOKE {arch} gradients card vs CPU past their limit")
         check(math.isfinite(step_loss) and abs(step_loss - cl) <= 1e-5 * abs(cl),
-              f"train: SMOKE {arch} train_step loss {step_loss} vs {cl}")
+              f"{tag}: SMOKE {arch} train_step loss {step_loss} vs {cl}")
         out[arch] = dict(loss_card=cl, loss_cpu=hl, grad_share_of_limit=worst,
                          train_step_loss=step_loss)
     return out
@@ -2771,46 +2834,79 @@ def mark(name):
         pass
 
 
+def backward_marked(fn, name):
+    """``fn(x, ...)`` inside the profiler range ``train:<name>``, its
+    backward delimited by hooks on its output (the gradient arrives: the
+    backward starts) and on ``x`` (the gradient leaves: it ends).  A
+    rematerialised forward registers no hook where grad mode is off."""
+
+    def run(x, *args, **kwargs):
+        out = annotated(fn, f"train:{name}")(x, *args, **kwargs)
+        if out.requires_grad and x.requires_grad:
+            out.register_hook(lambda g: mark(f"train:{name}-backward-start"))
+            x.register_hook(lambda g: mark(f"train:{name}-backward-end"))
+        return out
+
+    return run
+
+
 @contextlib.contextmanager
 def training_annotations():
-    """Profiler ranges around the flash Function's forward and backward, the
-    cross-entropy (its backward delimited by hooks on the loss and on the
-    hidden states it reads) and the optimizer, for :func:`step_split`."""
+    """Profiler ranges around each layer's forward, the flash Function's
+    forward and backward, the cross-entropy, the MoE layer and its expert
+    products (each backward delimited by hooks, :func:`backward_marked`)
+    and the optimizer, for :func:`step_split`."""
     from repro_torch.launch import steps
-    from repro_torch.models import common
+    from repro_torch.models import common, moe, transformer
 
     F = common._FlashQTile
     saved = (F.__dict__["forward"], F.__dict__["backward"], common.chunked_ce_loss,
-             steps.adamw_update)
+             steps.adamw_update, moe.moe_layer, moe._expert_ffn_batched,
+             transformer.layer_forward)
 
     def ce_loss(x, *args, **kwargs):
-        loss = annotated(saved[2], "train:ce")(x, *args, **kwargs)
-        if loss.requires_grad:
-            loss.register_hook(lambda g: mark("train:ce-backward-start"))
-            x.register_hook(lambda g: mark("train:ce-backward-end"))
-        return loss
+        return backward_marked(saved[2], "ce")(x, *args, **kwargs)
+
+    def moe_layer(p, x, cfg):
+        return backward_marked(lambda x: saved[4](p, x, cfg), "moe")(x)
+
+    def experts(p, x, cfg):
+        return backward_marked(lambda x: saved[5](p, x, cfg), "experts")(x)
 
     F.forward = staticmethod(annotated(saved[0].__func__, "train:attention"))
     F.backward = staticmethod(annotated(saved[1].__func__, "train:attention"))
     common.chunked_ce_loss = ce_loss
     steps.adamw_update = annotated(saved[3], "train:optimizer")
+    moe.moe_layer, moe._expert_ffn_batched = moe_layer, experts
+    transformer.layer_forward = annotated(saved[6], "train:layer")
     try:
         yield
     finally:
-        F.forward, F.backward, common.chunked_ce_loss, steps.adamw_update = saved
+        (F.forward, F.backward, common.chunked_ce_loss, steps.adamw_update, moe.moe_layer,
+         moe._expert_ffn_batched, transformer.layer_forward) = saved
 
 
 MATMUL_KERNEL_WORDS = ("gemm", "nvjet", "xmma", "cutlass", "wgmma")
 
 
+#: step_split's categories of ranges; "layer" (a transformer layer's
+#: forward, recomputed inside the next part's backward) falls through to
+#: the kernel-name split
+SPLIT_CATEGORIES = ("attention", "ce", "optimizer", "experts", "moe", "layer")
+
+
 def step_split(prof, wall_s):
     """Device time of a profiled step by what launched each kernel:
     attention (the flash Function, forward and backward), CE (the loss and
-    its backward), optimizer, and the rest split into matmul kernels
-    (projections and MLP) and other kernels.  A kernel belongs to the
-    range that holds the start of the CPU operator that launched it, on
-    that operator's thread.  The ranges' own device-side spans (GPU user
-    annotations) are not kernels and are left out."""
+    its backward), optimizer, the expert products and the rest of the MoE
+    layer (routing, dispatch and the route back, forward and backward), and
+    the rest split into matmul kernels (projections and MLP) and other
+    kernels.  A kernel belongs to the innermost range (the latest-started)
+    that holds the start of the CPU operator that launched it, on that
+    operator's thread: an expert product inside the MoE layer's range, a
+    layer recomputed inside a backward span (rematerialisation) to that
+    layer.  The ranges' own device-side spans (GPU user annotations) are
+    not kernels and are left out."""
     import bisect
     from torch.autograd import DeviceType
 
@@ -2824,16 +2920,17 @@ def step_split(prof, wall_s):
             continue
         name, thread = e.name(), e.start_thread_id()
         ops[e.correlation_id()] = (thread, e.start_ns())
-        if name in ("train:ce-backward-start", "train:ce-backward-end"):
-            marks.append((thread, e.start_ns(), name.endswith("start")))
+        if name.endswith(("-backward-start", "-backward-end")):
+            marks.append((name[6:name.index("-backward")], thread, e.start_ns(),
+                          name.endswith("start")))
         elif name.startswith("train:"):
             spans.setdefault((name[6:], thread), []).append((e.start_ns(), e.end_ns()))
     open_at = {}
-    for thread, ns, start in sorted(marks, key=lambda m: m[1]):
+    for cat, thread, ns, start in sorted(marks, key=lambda m: m[2]):
         if start:
-            open_at.setdefault(thread, ns)
-        elif thread in open_at:
-            spans.setdefault(("ce", thread), []).append((open_at.pop(thread), ns))
+            open_at.setdefault((cat, thread), ns)
+        elif (cat, thread) in open_at:
+            spans.setdefault((cat, thread), []).append((open_at.pop((cat, thread)), ns))
     merged = {}
     for key, ivs in spans.items():
         out = []
@@ -2844,18 +2941,21 @@ def step_split(prof, wall_s):
                 out.append([a, b])
         merged[key] = ([a for a, _ in out], [b for _, b in out])
 
-    def inside(key, ns):
-        if key not in merged:
-            return False
+    def opened(key, ns):
+        """The start of ``key``'s range holding ``ns``, or None."""
+        if key not in merged or ns is None:
+            return None
         starts, ends = merged[key]
         i = bisect.bisect_right(starts, ns) - 1
-        return i >= 0 and ns <= ends[i]
+        return starts[i] if i >= 0 and ns <= ends[i] else None
 
     totals, by_name = {}, {}
     for corr, name, dur in kernels:
         thread, ns = ops.get(corr, (None, None))
-        cat = next((c for c in ("attention", "ce", "optimizer") if inside((c, thread), ns)), None)
-        if cat is None:
+        held = [(at, c) for c in SPLIT_CATEGORIES
+                if (at := opened((c, thread), ns)) is not None]
+        cat = max(held)[1] if held else None
+        if cat in (None, "layer"):
             cat = "matmul" if any(w in name.lower() for w in MATMUL_KERNEL_WORDS) else "other"
         totals[cat] = totals.get(cat, 0) + dur
         t, c = by_name.get(name, (0, 0))
@@ -2866,29 +2966,29 @@ def step_split(prof, wall_s):
         busy_ms=busy / 1e6, wall_ms=wall_s * 1e3, busy_share=busy / 1e9 / wall_s,
         kernels=len(kernels),
         shares={c: totals.get(c, 0) / max(busy, 1)
-                for c in ("attention", "ce", "matmul", "optimizer", "other")},
+                for c in SPLIT_CATEGORIES[:-1] + ("matmul", "other")},
         top=[dict(name=n[:80], ms=t / 1e6, count=c) for n, (t, c) in top])
 
 
-def train_4k_run(device, wrappers):
-    """``steps.train_step`` at train_4k's sequence length: TRAIN_STEPS
-    timed steps of a global batch of TRAIN_BATCH sequences as TRAIN_ACCUM
+def train_run(device, wrappers, cfg, batch_size, accum, steps_n, cut_from, tag="train"):
+    """``steps.train_step`` at train_4k's sequence length: ``steps_n``
+    timed steps of a global batch of ``batch_size`` sequences as ``accum``
     micro-batches, then a step of one micro-batch, unprofiled and under the
-    profiler."""
+    profiler.  Model FLOPs count the active parameters (all of them for a
+    dense model), as the reference's ``launch/dryrun.py`` does."""
     import dataclasses
     import math
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.configs import ARCHS
     from repro_torch.data import make_batch_iterator
     from repro_torch.launch import steps
     from repro_torch.models import model
     from repro_torch.optim import adamw_init
 
-    cfg = dataclasses.replace(ARCHS[TRAIN_ARCH], grad_accum=TRAIN_ACCUM)
+    cfg = dataclasses.replace(cfg, grad_accum=accum)
     t0 = time.perf_counter()
-    data = make_batch_iterator(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
-    batches = [next(data) for _ in range(TRAIN_STEPS + 1)]
+    data = make_batch_iterator(cfg, batch_size, TRAIN_SEQ, seed=0)
+    batches = [next(data) for _ in range(steps_n + 1)]
     sample_s = time.perf_counter() - t0
     params = model.init_params(cfg, torch.Generator(device).manual_seed(0), device=device)
     opt = adamw_init(params, cfg.opt_dtype)
@@ -2903,7 +3003,7 @@ def train_4k_run(device, wrappers):
     for fn in wrappers.values():
         fn.launches = 0
     step_s, losses = [], []
-    for b in batches[:TRAIN_STEPS]:
+    for b in batches[:steps_n]:
         tb = {k: torch.as_tensor(v, device=device) for k, v in b.items()}
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -2911,17 +3011,17 @@ def train_4k_run(device, wrappers):
         loss = float(metrics["loss"])
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t)
-        check(math.isfinite(loss), f"train: train_4k loss {loss} at step {len(losses)}")
+        check(math.isfinite(loss), f"{tag}: train_4k loss {loss} at step {len(losses)}")
         losses.append(loss)
     peak = torch.cuda.max_memory_allocated()
     counts = {k: fn.launches for k, fn in wrappers.items()}
-    check(not any(counts.values()), f"train: the training path launched kernels {counts}")
+    check(not any(counts.values()), f"{tag}: the training path launched kernels {counts}")
 
     # the profiled window: one step of one micro-batch (grad_accum 1), run
-    # once unprofiled for its wall time; a whole step holds ~400k kernels,
-    # which the profiler takes ~40 s to collect and read
+    # once unprofiled for its wall time; a whole step of llama3.2-1b holds
+    # ~400k kernels, which the profiler takes ~40 s to collect and read
     micro = dataclasses.replace(cfg, grad_accum=1)
-    tb = {k: torch.as_tensor(v[:TRAIN_BATCH // TRAIN_ACCUM], device=device)
+    tb = {k: torch.as_tensor(v[:batch_size // accum], device=device)
           for k, v in batches[-1].items()}
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -2937,50 +3037,51 @@ def train_4k_run(device, wrappers):
             loss = float(metrics["loss"])
             torch.cuda.synchronize()
             prof_wall = time.perf_counter() - t
-    check(math.isfinite(loss), f"train: profiled train_4k loss {loss}")
+    check(math.isfinite(loss), f"{tag}: profiled train_4k loss {loss}")
     t = time.perf_counter()
     split = step_split(prof, prof_wall)
     split_s = time.perf_counter() - t
     split["unprofiled_wall_ms"] = micro_wall * 1e3
     split["busy_share_unprofiled"] = split["busy_ms"] / 1e3 / micro_wall
 
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    n = cfg.param_count()
-    attn_flops = 6 * TRAIN_BATCH * cfg.n_layers * TRAIN_SEQ ** 2 * cfg.n_heads * cfg.head_dim
+    tokens = batch_size * TRAIN_SEQ
+    n = cfg.active_param_count()
+    attn_flops = 6 * batch_size * cfg.n_layers * TRAIN_SEQ ** 2 * cfg.n_heads * cfg.head_dim
     flops = 6 * n * tokens + attn_flops
     warm = step_s[1:] if len(step_s) > 1 else step_s
     ms = 1e3 * sum(warm) / len(warm)
     out = dict(
-        seq=TRAIN_SEQ, global_batch=TRAIN_BATCH, micro_batch=TRAIN_BATCH // TRAIN_ACCUM,
-        grad_accum=TRAIN_ACCUM, cut_from_global_batch=TRAIN_CUT_FROM, steps=TRAIN_STEPS,
+        arch=cfg.name, seq=TRAIN_SEQ, global_batch=batch_size, micro_batch=batch_size // accum,
+        grad_accum=accum, cut_from_global_batch=cut_from, steps=steps_n,
         losses=losses, first_step_ms=1e3 * step_s[0], ms_per_step=ms,
         tokens_per_s=tokens / (ms / 1e3), sample_s=sample_s, params=n_alloc,
-        param_count=n, state_gb=(param_bytes + moment_bytes) / 1e9,
+        param_count=cfg.param_count(), active_param_count=n,
+        state_gb=(param_bytes + moment_bytes) / 1e9,
         reckoned_gb=reckoned / 1e9, base_gb=base / 1e9, peak_gb=peak / 1e9,
         model_flops=flops, attention_flops=attn_flops,
         bf16_peak_share=flops / (ms / 1e3) / BF16_DENSE_OPS_PER_S, profile=split,
         profiled_loss=loss, split_s=split_s)
-    log(f"train: train_4k length, {TRAIN_ARCH} bf16 at its published widths ({n_alloc} parameters, "
-        f"f32 moments), global batch {TRAIN_BATCH} (cut from train_4k's {TRAIN_CUT_FROM}) as "
-        f"{TRAIN_ACCUM} micro-batches of {TRAIN_BATCH // TRAIN_ACCUM} x {TRAIN_SEQ} tokens; "
+    log(f"{tag}: train_4k length, {cfg.name} bf16 at its published widths ({n_alloc} parameters, "
+        f"{cfg.opt_dtype} moments), global batch {batch_size} (cut from train_4k's {cut_from}) as "
+        f"{accum} micro-batches of {batch_size // accum} x {TRAIN_SEQ} tokens; "
         f"{len(batches)} batches sampled in {sample_s:.2f} s (not timed)")
-    log(f"train: {TRAIN_STEPS} steps, losses {', '.join(f'{x:.4f}' for x in losses)}; first "
+    log(f"{tag}: {steps_n} steps, losses {', '.join(f'{x:.4f}' for x in losses)}; first "
         f"step {out['first_step_ms']:.1f} ms, then {ms:.1f} ms/step, {out['tokens_per_s']:.1f} "
-        f"tokens/s; model FLOPs {flops:.4e} a step (6·N·tokens with N = {n}, plus attention "
-        f"{attn_flops:.4e}) = {100 * out['bf16_peak_share']:.2f}% of the bf16 dense peak "
-        f"(989 TFLOP/s)")
-    log(f"train: device memory: {base / 1e9:.3f} GB before the steps (parameters "
+        f"tokens/s; model FLOPs {flops:.4e} a step (6·N·tokens with N = {n} active parameters, "
+        f"plus attention {attn_flops:.4e}) = {100 * out['bf16_peak_share']:.2f}% of the bf16 "
+        f"dense peak (989 TFLOP/s)")
+    log(f"{tag}: device memory: {base / 1e9:.3f} GB before the steps (parameters "
         f"{param_bytes / 1e9:.3f} + moments {moment_bytes / 1e9:.3f}), peak {peak / 1e9:.3f} GB "
         f"(reckoned: parameters, accumulated and micro-batch gradients, moments = "
         f"{reckoned / 1e9:.3f} GB, plus activations)")
-    log(f"train: profiled window, one step of one micro-batch ({TRAIN_BATCH // TRAIN_ACCUM} x "
+    log(f"{tag}: profiled window, one step of one micro-batch ({batch_size // accum} x "
         f"{TRAIN_SEQ}, grad_accum 1): device busy {split['busy_ms']:.1f} ms of "
         f"{split['wall_ms']:.1f} ms profiled wall ({100 * split['busy_share']:.1f}%) and of "
         f"{split['unprofiled_wall_ms']:.1f} ms unprofiled ({100 * split['busy_share_unprofiled']:.1f}%), "
         f"{split['kernels']} kernels; by what launched them: "
         + ", ".join(f"{c} {100 * s:.1f}%" for c, s in split["shares"].items())
         + f"; split read in {split_s:.1f} s")
-    log("train: top device ops: " + "; ".join(
+    log(f"{tag}: top device ops: " + "; ".join(
         f"{t['name'][:60]} {t['ms']:.1f} ms x{t['count']}" for t in split["top"]))
     return out
 
@@ -3016,7 +3117,8 @@ def training_phase(device, wrappers):
     gc.collect()
     torch.cuda.empty_cache()
 
-    out["train_4k"] = train_4k_run(device, wrappers)
+    out["train_4k"] = train_run(device, wrappers, cfg, TRAIN_BATCH, TRAIN_ACCUM, TRAIN_STEPS,
+                                TRAIN_CUT_FROM)
     return out
 
 
@@ -3120,25 +3222,26 @@ def dense_serve(cfg, params, prompts, new, device, wrappers, seed=0):
     return dict(waves=waves, launches=counts["decode_attention"], run_s=wall, stats=stats)
 
 
-def gemma3_window(cfg, params, device):
-    """A profiled window of DENSE_WINDOW_STEPS decode steps of one wave
-    prefilled at DENSE_RING_PROMPT tokens, its local caches padded past the
-    window (every step reads keys from start = pos - window + 1), then the
-    same steps unprofiled: device busy, wall, ops per step."""
+def decode_window(cfg, params, device, prompt, max_len, n_steps):
+    """A profiled window of ``n_steps`` decode steps of one wave of
+    SERVE_SLOTS prompts of ``prompt`` tokens, its caches padded to
+    ``max_len`` (gemma3's local caches then past the window: every step
+    reads keys from start = pos - window + 1), then the same steps
+    unprofiled: device busy, wall, ops per step."""
     import torch
     from repro_torch.models import model
 
     gen = torch.Generator(device).manual_seed(3)
-    tokens = torch.randint(0, cfg.vocab, (SERVE_SLOTS, DENSE_RING_PROMPT), generator=gen,
+    tokens = torch.randint(0, cfg.vocab, (SERVE_SLOTS, prompt), generator=gen,
                            device=device, dtype=torch.int32)
     logits, cache = model.prefill(params, {"tokens": tokens}, cfg)
-    cache = model.pad_cache(cache, DENSE_RING_PROMPT, DENSE_LONG_PROMPT + DENSE_NEW + 1)
+    cache = model.pad_cache(cache, prompt, max_len)
     token = torch.argmax(logits, dim=-1).to(torch.int32)
 
     def steps():
         t = token
-        for i in range(DENSE_WINDOW_STEPS):
-            lg, _ = model.decode_step(params, cache, t, DENSE_RING_PROMPT + i, cfg)
+        for i in range(n_steps):
+            lg, _ = model.decode_step(params, cache, t, prompt + i, cfg)
             t = torch.argmax(lg, dim=-1).to(torch.int32)
         return t
 
@@ -3151,7 +3254,7 @@ def gemma3_window(cfg, params, device):
     ops = sum(c for _, c in times.values())
     top = sorted(times.items(), key=lambda kv: -kv[1][0])[:5]
     return dict(window_busy_ms=busy_ms, window_wall_ms=wall_ms, busy_share=busy_ms / wall_ms,
-                device_ops_per_step=ops / DENSE_WINDOW_STEPS,
+                device_ops_per_step=ops / n_steps,
                 top=[(k[:48], t / c, c) for k, (t, c) in top])
 
 
@@ -3176,7 +3279,8 @@ def dense_options_phase(device, wrappers):
     launches += served["launches"]
     check(served["launches"] == cfg.n_layers * sum(w["decode_steps"] for w in served["waves"]),
           "dense: gemma3-12b launches")
-    window = gemma3_window(cfg, params, device)
+    window = decode_window(cfg, params, device, DENSE_RING_PROMPT,
+                           DENSE_LONG_PROMPT + DENSE_NEW + 1, DENSE_WINDOW_STEPS)
     out["gemma3-12b"] = dict(weights_gb=wbytes / 1e9, draw_s=draw_s, warm_run_s=warm["run_s"],
                              **served, **window)
     for w in served["waves"]:
@@ -3280,6 +3384,288 @@ def dense_options_phase(device, wrappers):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the mixture-of-experts family
+# ---------------------------------------------------------------------------
+
+
+def np_scan_searchsorted(a, q):
+    """``jnp.searchsorted``'s default bisection (``method="scan"``, side
+    ``"left"``) replayed in numpy for each row of ``a`` (B, n) and ``q`` (B,
+    Q): ``ceil(log2(n + 1))`` levels from ``low = 0, high = n``, ``mid =
+    (low + high) // 2``, ``high = mid`` where ``q <= a[mid]``, else ``low =
+    mid``; returns ``high``."""
+    import math
+    import numpy as np
+
+    n = a.shape[-1]
+    low = np.zeros(q.shape, np.int64)
+    high = np.full(q.shape, n, np.int64)
+    for _ in range(math.ceil(math.log2(n + 1))):
+        mid = (low + high) // 2
+        left = q <= np.take_along_axis(a, mid, -1)
+        low, high = np.where(left, low, mid), np.where(left, mid, high)
+    return high
+
+
+def unsorted_slot_rows(rng, rows, s, k, e, factor=1.25):
+    """``slot`` rows as the reference's ``moe_layer`` builds them from
+    random top-k choices, most tokens of every other row choosing expert 0
+    first: kept entries ``expert·cap + position``, dropped ones ``E·cap``."""
+    import numpy as np
+
+    keys = rng.random((rows, s, e))
+    skew = rng.random((rows, s)) < 0.6
+    skew[::2] = False
+    keys[skew, 0] = -1.0
+    eid = np.argsort(keys, axis=-1)[..., :k].reshape(rows, s * k)
+    eid_s = np.sort(eid, axis=-1, kind="stable")
+    counts = np.stack([(eid == j).sum(-1) for j in range(e)], -1)
+    start = np.cumsum(counts, -1) - counts
+    pos = np.arange(s * k)[None] - np.take_along_axis(start, eid_s, -1)
+    cap = max(k, -(-int(s * k / e * factor) // 4) * 4)
+    return np.where(pos < cap, eid_s * cap + pos, e * cap), cap
+
+
+def moe_smoke_layer(device):
+    """(a) ``moe_layer`` at granite's SMOKE in float32 (TF32 off) on the
+    card and on the CPU: an integer-valued router and inputs (exact logits,
+    so both choose the same experts) that send every token to expert 0
+    first, so that it overflows; the dispatch equal, the outputs within
+    1e-5 of their largest magnitude; the bisection equal to a numpy replay
+    of jnp's scan on these rows and on random unsorted rows."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import SMOKES
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import Params
+
+    cfg = SMOKES[MOE_ARCH]
+    b, s = MOE_SMOKE_LAYER
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    rng = np.random.default_rng(14)
+    x = rng.integers(-2, 3, (b, s, d)).astype(np.float32)
+    router = rng.integers(-1, 2, (d, e)).astype(np.float32)
+    x[..., 0] = 100.0
+    router[0] = 0.0
+    router[0, 0] = 5.0
+    weights = {"router": router,
+               "w_up": rng.standard_normal((e, d, f)).astype(np.float32) / d ** 0.5,
+               "w_gate": rng.standard_normal((e, d, f)).astype(np.float32) / d ** 0.5,
+               "w_down": rng.standard_normal((e, f, d)).astype(np.float32) / f ** 0.5}
+    runs = {}
+    for dev in (torch.device("cpu"), device):
+        p = Params({k: torch.from_numpy(v).to(dev) for k, v in weights.items()})
+        tx = torch.from_numpy(x).to(dev)
+        runs[dev.type] = (moe.dispatch(p.router, tx, cfg), moe.moe_layer(p, tx, cfg))
+    (hr, hout), (cr, cout) = runs["cpu"], runs[device.type]
+    for name in ("idx", "keep", "slot", "entry_of_slot", "slot_hit", "tok_of_slot"):
+        check(torch.equal(getattr(cr, name).cpu(), getattr(hr, name)),
+              f"moe: SMOKE {name} differs between the card and the CPU")
+    err = float((cout.cpu() - hout).abs().max())
+    scale = float(hout.abs().max())
+    check(err <= 1e-5 * scale, f"moe: SMOKE moe_layer card vs CPU error {err} at scale {scale}")
+    over = int((~cr.keep).sum())
+    missed = int(cr.keep.sum() - cr.slot_hit.sum())
+    check(over > 0, "moe: the skewed SMOKE router overflowed no expert")
+
+    slot = cr.slot.cpu().numpy()
+    q = np.broadcast_to(np.arange(e * cr.cap), (b, e * cr.cap)).copy()
+    rows = [(slot, q)]
+    for shape in ((4, MOE_PROMPT, 8, 40), (64, 64, 2, 4), (64, 33, 3, 5)):
+        srows, cap = unsorted_slot_rows(rng, *shape)
+        rows.append((srows, np.broadcast_to(np.arange(shape[3] * cap),
+                                            (shape[0], shape[3] * cap)).copy()))
+    misses = 0
+    for a, qq in rows:
+        got = moe.scan_searchsorted(torch.as_tensor(a, device=device),
+                                    torch.as_tensor(qq, device=device)).cpu().numpy()
+        want = np_scan_searchsorted(a, qq)
+        check(np.array_equal(got, want), f"moe: the bisection on the card differs from jnp's "
+                                         f"scan replayed in numpy at {a.shape}")
+        kept = (a < qq.shape[1]).sum(-1)
+        hit = (np.take_along_axis(a, np.minimum(want, a.shape[1] - 1), -1) == qq).sum(-1)
+        misses += int((kept > hit).sum())
+    n_rows = sum(a.shape[0] for a, _ in rows)
+    log(f"moe: (a) SMOKE moe_layer ({MOE_ARCH}: B {b}, S {s}, E {e}, k {cfg.topk}, cap {cr.cap}) "
+        f"card vs CPU, f32, integer router and inputs skewed to expert 0: idx, keep, slot, "
+        f"entry_of_slot, slot_hit equal; {over} entries over capacity, {missed} kept entries "
+        f"the slot search misses; output max abs err {err:.3e} (|out| <= {scale:.4g}, limit "
+        f"1e-5 of it); the bisection equals jnp's scan replayed in numpy on {n_rows} unsorted "
+        f"rows ({misses} of them miss a kept slot)")
+    return dict(over_capacity=over, missed=missed, max_abs_err=err, scale=scale,
+                bisection_rows=n_rows, rows_missing_a_slot=misses)
+
+
+def moe_drops(cfg, params, device):
+    """The share of prefill entries dropped on one wave of SERVE_SLOTS
+    prompts of MOE_PROMPT tokens, by cause: over an expert's capacity, and
+    kept but missed by the slot search (their expert output zeroed)."""
+    import torch
+    from repro_torch.models import model, moe
+
+    counts = []
+    saved = moe.dispatch
+
+    def counting(router, x, cfg_):
+        r = saved(router, x, cfg_)
+        counts.append(torch.stack([(~r.keep).sum(), r.keep.sum() - r.slot_hit.sum()]))
+        return r
+
+    gen = torch.Generator(device).manual_seed(6)
+    tokens = torch.randint(0, cfg.vocab, (SERVE_SLOTS, MOE_PROMPT), generator=gen,
+                           device=device, dtype=torch.int32)
+    moe.dispatch = counting
+    try:
+        model.prefill(params, {"tokens": tokens}, cfg)
+    finally:
+        moe.dispatch = saved
+    per_layer = torch.stack(counts).cpu()
+    entries = SERVE_SLOTS * MOE_PROMPT * cfg.topk
+    over, missed = (int(v) for v in per_layer.sum(0))
+    total = entries * len(counts)
+    return dict(entries=total, over_capacity=over, missed=missed,
+                over_share=over / total, missed_share=missed / total,
+                worst_layer_over_share=float(per_layer[:, 0].max()) / entries,
+                worst_layer_missed_share=float(per_layer[:, 1].max()) / entries)
+
+
+def grok_layer(device):
+    """One MoE block at grok-1-314b's published widths (E 8, k 2, d 6,144, f
+    32,768; 9.7 GB of bf16 weights drawn at std 1/sqrt(fan-in), the router
+    float32) on GROK_LAYER_TOKENS tokens, in bf16 and again with the
+    weights and input upcast to float32: the dispatch equal, the bf16
+    output within GROK_LAYER_RMS_TOL / GROK_LAYER_MAX_TOL of the float32
+    one, both timed."""
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import Params
+
+    cfg = ARCHS[GROK_ARCH]
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    gen = torch.Generator(device).manual_seed(0)
+
+    def normal(shape, fan_in, dtype):
+        out = torch.empty(shape, dtype=dtype, device=device)
+        for i in range(shape[0]):  # one expert at a time: a bounded float32 transient
+            out[i] = (torch.randn(shape[1:], generator=gen, device=device)
+                      * fan_in ** -0.5).to(dtype)
+        return out
+
+    bf16 = torch.bfloat16
+    weights = {"router": normal((d, e), d, torch.float32), "w_up": normal((e, d, f), d, bf16),
+               "w_gate": normal((e, d, f), d, bf16), "w_down": normal((e, f, d), f, bf16)}
+    b, s = GROK_LAYER_TOKENS
+    x = torch.randn(b, s, d, generator=gen, device=device).to(bf16)
+
+    def run(p, xx):
+        ms = cuda_ms(lambda: moe.moe_layer(p, xx, cfg), 5, warm=1)
+        return moe.dispatch(p.router, xx, cfg), moe.moe_layer(p, xx, cfg), ms
+
+    r16, y16, ms16 = run(Params(weights), x)
+    p32 = Params({k: v.float() for k, v in weights.items()})
+    wbytes = sum(v.numel() * v.element_size() for v in p32.parameters())
+    r32, y32, ms32 = run(p32, x.float())
+    del p32
+    for name in ("idx", "keep", "slot", "entry_of_slot", "slot_hit", "tok_of_slot"):
+        check(torch.equal(getattr(r16, name), getattr(r32, name)),
+              f"moe: grok layer {name} differs between bf16 and float32")
+    err = y16.float() - y32
+    rms_ratio = float(err.pow(2).mean().sqrt() / y32.pow(2).mean().sqrt())
+    max_ratio = float(err.abs().max() / y32.abs().max())
+    check(rms_ratio <= GROK_LAYER_RMS_TOL and max_ratio <= GROK_LAYER_MAX_TOL,
+          f"moe: grok layer bf16 vs float32: rms {rms_ratio:.3e}, max {max_ratio:.3e}")
+    bf16_bytes = sum(v.numel() * v.element_size() for v in weights.values())
+    over = int((~r16.keep).sum())
+    missed = int(r16.keep.sum() - r16.slot_hit.sum())
+    log(f"moe: (d) grok-1-314b MoE block at its published widths (E {e}, k {cfg.topk}, d {d}, "
+        f"f {f}, cap {r16.cap}; {bf16_bytes / 1e9:.3f} GB bf16 weights, {wbytes / 1e9:.3f} GB as "
+        f"float32) on {b} x {s} tokens: dispatch equal in bf16 and float32 ({over} entries over "
+        f"capacity, {missed} missed by the slot search); bf16 output vs float32: rms error "
+        f"{rms_ratio:.3e} of the output's rms (limit {GROK_LAYER_RMS_TOL:g}), max error "
+        f"{max_ratio:.3e} of its largest magnitude (limit {GROK_LAYER_MAX_TOL:g}); "
+        f"{ms16:.3f} ms bf16, {ms32:.3f} ms float32 (TF32 off) per call")
+    del weights, r16, r32, y16, y32, err
+    return dict(weights_gb=bf16_bytes / 1e9, over_capacity=over,
+                missed=missed, rms_err_share=rms_ratio, max_err_share=max_ratio,
+                bf16_ms=ms16, f32_ms=ms32)
+
+
+def moe_phase(device, wrappers):
+    """The mixture-of-experts family: (a) ``moe_layer`` card vs CPU at
+    granite's SMOKE; (b) granite-moe-3b-a800m served at full width behind
+    MIG admission, a profiled decode window and the prefill's drops; (c)
+    granite trained at full width; (d) grok-1-314b's SMOKE step card vs
+    CPU and served, and one MoE block at its published widths."""
+    import torch
+    from repro_torch.configs import ARCHS, SMOKES
+    from repro_torch.models import model, moe
+
+    out, launches = {"smoke_layer": moe_smoke_layer(device)}, 0
+
+    cfg, params, wbytes, draw_s = draw_model(MOE_ARCH, device)
+    warm = dense_serve(cfg, params, [MOE_PROMPT], 3, device, wrappers, seed=1)
+    served = dense_serve(cfg, params, [MOE_PROMPT], MOE_NEW, device, wrappers)
+    steps = served["waves"][0]["decode_steps"]
+    check(served["launches"] == cfg.n_layers * steps == cfg.n_layers * (MOE_NEW - 1),
+          f"moe: granite decode_attention launches {served['launches']} over {steps} steps")
+    launches += served["launches"]
+    window = decode_window(cfg, params, device, MOE_PROMPT, MOE_PROMPT + MOE_NEW + 1,
+                           MOE_WINDOW_STEPS)
+    drops = moe_drops(cfg, params, device)
+    w = served["waves"][0]
+    out["granite_serving"] = dict(weights_gb=wbytes / 1e9, draw_s=draw_s, warm_run_s=warm["run_s"],
+                                  drops=drops, **served, **window)
+    log(f"moe: (b) {MOE_ARCH} ({cfg.n_layers} layers, d {cfg.d_model}, E {cfg.n_experts}, "
+        f"k {cfg.topk}, {cfg.param_count() / 1e9:.3f}B parameters, {wbytes / 1e9:.3f} GB bf16 "
+        f"drawn in {draw_s:.2f} s) behind admission, one wave of {SERVE_SLOTS} x {MOE_PROMPT}-token "
+        f"prompts (cap {moe.capacity(cfg, MOE_PROMPT)} a row), {MOE_NEW} new "
+        f"tokens, in {served['run_s']:.3f} s: prefill {w['prefill_ms']:.3f} ms, decode "
+        f"{w['decode_ms_per_step']:.3f} ms/step over {steps} steps; decode_attention launches "
+        f"{served['launches']} = {cfg.n_layers} x {steps}; logits finite; stats {served['stats']}")
+    log(f"moe: (b) window ({MOE_WINDOW_STEPS} decode steps from position {MOE_PROMPT}): device "
+        f"busy {window['window_busy_ms']:.3f} ms of {window['window_wall_ms']:.3f} ms wall "
+        f"({100 * window['busy_share']:.1f}% busy), {window['device_ops_per_step']:.1f} device "
+        f"ops/step; top: " + "; ".join(f"{k} {t:.1f} us x{c}" for k, t, c in window["top"]))
+    log(f"moe: (b) prefill entries dropped ({drops['entries']} = {cfg.n_layers} layers x "
+        f"{SERVE_SLOTS} x {MOE_PROMPT} x {cfg.topk}): over capacity {drops['over_capacity']} "
+        f"({100 * drops['over_share']:.3f}%; worst layer {100 * drops['worst_layer_over_share']:.3f}%), "
+        f"kept but missed by the slot search {drops['missed']} "
+        f"({100 * drops['missed_share']:.3f}%; worst layer "
+        f"{100 * drops['worst_layer_missed_share']:.3f}%)")
+    del params
+    release()
+
+    cfg = ARCHS[MOE_ARCH]
+    n = cfg.param_count()
+    log(f"moe: (c) reckoned before the run: {n} parameters, bf16 parameters and accumulated and "
+        f"micro-batch gradients {3 * 2 * n / 1e9:.3f} GB + float32 moments {8 * n / 1e9:.3f} GB = "
+        f"{14 * n / 1e9:.3f} GB, plus activations; {MOE_TRAIN_STEPS} steps of "
+        f"{MOE_TRAIN_BATCH} x {TRAIN_SEQ} tokens")
+    out["granite_train"] = train_run(device, wrappers, cfg, MOE_TRAIN_BATCH, MOE_TRAIN_ACCUM,
+                                     MOE_TRAIN_STEPS, TRAIN_CUT_FROM, tag="moe")
+    release()
+
+    out["grok_smoke_step"] = smoke_arch_steps(device, {GROK_ARCH: GROK_SMOKE_STEP}, tag="moe")
+    cfg = SMOKES[GROK_ARCH]
+    params = model.init_params(cfg, torch.Generator(device).manual_seed(0), device=device)
+    served = dense_serve(cfg, params, [GROK_SMOKE_PROMPT], GROK_SMOKE_NEW, device, wrappers)
+    launches += served["launches"]
+    w = served["waves"][0]
+    out["grok_smoke_serving"] = served
+    log(f"moe: (d) {GROK_ARCH} SMOKE served behind admission, {SERVE_SLOTS} x {GROK_SMOKE_PROMPT} "
+        f"tokens, {GROK_SMOKE_NEW} new: prefill {w['prefill_ms']:.3f} ms, decode "
+        f"{w['decode_ms_per_step']:.3f} ms/step, decode_attention launches {served['launches']}, "
+        f"logits finite")
+    del params
+    release()
+    out["grok_layer"] = grok_layer(device)
+    release()
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3350,9 +3736,11 @@ def main() -> int:
     lap(12)
     dense = dense_options_phase(device, wrappers)
     lap(13)
+    experts = moe_phase(device, wrappers)
+    lap(14)
     # each path's launches, counted from zero just before it ran
     by_path = {name: dict.fromkeys(wrappers, 0) for name in (
-        "steady", "fig5", "serving", "decisions", "protocols", "faults", "dense_options")}
+        "steady", "fig5", "serving", "decisions", "protocols", "faults", "dense_options", "moe")}
     by_path["steady"].update(steady)
     by_path["fig5"].update(fig5_launches)
     by_path["serving"]["decode_attention"] = serving["launches"]
@@ -3360,6 +3748,7 @@ def main() -> int:
     by_path["protocols"].update(protocols["launches"])
     by_path["faults"].update(faults["launches"])
     by_path["dense_options"]["decode_attention"] = dense["launches"]
+    by_path["moe"]["decode_attention"] = experts["launches"]
     totals = {k: sum(p[k] for p in by_path.values()) for k in wrappers}
 
     kernels = []
@@ -3367,6 +3756,7 @@ def main() -> int:
         extra = {k: row[k] for k in ("tolerance", "errors", "bound_ratios", "long", "middle", "b1_32k",
                                      "gemma3_ring", "gemma3_wrapped", "qwen3_g5_d128",
                                      "starcoder2_g12_d128", "paligemma_k1_g8_d256",
+                                     "granite_g3", "grok_smoke",
                                      "library_call_ms", "by_m", "pass0_ms", "pass1_ms")
                  if k in row}
         kernels.append(dict(
@@ -3387,6 +3777,7 @@ def main() -> int:
     log(json.dumps({"faults": faults}))
     log(json.dumps({"train": training}))
     log(json.dumps({"dense_options": dense}))
+    log(json.dumps({"moe": experts}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

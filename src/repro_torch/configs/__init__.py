@@ -1,15 +1,18 @@
 """Architecture registry of the architectures the port runs.
 
-The dense-layer architectures of the JAX package's registry, with the
-same keys and entries: ``llama3.2-1b`` and its sliding-window variant,
-``qwen3-14b`` (qk-norm), ``gemma3-12b`` (post-norms, 5:1 local/global
-groups), ``starcoder2-15b`` (gelu) and ``paligemma-3b`` (the vision
-prefix).  The moe, ssm, hybrid and encoder-decoder architectures are
-listed in ROADMAP.md.
+The dense-layer and mixture-of-experts architectures of the JAX
+package's registry, with the same keys and entries: ``llama3.2-1b`` and
+its sliding-window variant, ``qwen3-14b`` (qk-norm), ``gemma3-12b``
+(post-norms, 5:1 local/global groups), ``starcoder2-15b`` (gelu),
+``paligemma-3b`` (the vision prefix), ``granite-moe-3b-a800m`` and
+``grok-1-314b`` (experts).  The ssm, hybrid and encoder-decoder
+architectures are listed in ROADMAP.md.
 """
 
 from repro_torch.configs import (
     gemma3_12b,
+    granite_moe_3b_a800m,
+    grok_1_314b,
     llama3_2_1b,
     paligemma_3b,
     qwen3_14b,
@@ -23,6 +26,8 @@ ARCHS = {
     "llama3.2-1b-sw": llama3_2_1b.CONFIG_SW,
     "gemma3-12b": gemma3_12b.CONFIG,
     "starcoder2-15b": starcoder2_15b.CONFIG,
+    "granite-moe-3b-a800m": granite_moe_3b_a800m.CONFIG,
+    "grok-1-314b": grok_1_314b.CONFIG,
 }
 
 SMOKES = {
@@ -32,6 +37,8 @@ SMOKES = {
     "llama3.2-1b-sw": llama3_2_1b.SMOKE,
     "gemma3-12b": gemma3_12b.SMOKE,
     "starcoder2-15b": starcoder2_15b.SMOKE,
+    "granite-moe-3b-a800m": granite_moe_3b_a800m.SMOKE,
+    "grok-1-314b": grok_1_314b.SMOKE,
 }
 
 

@@ -1,4 +1,4 @@
-"""Training launcher: real steps of the dense family on one device.
+"""Training launcher: real steps of the dense, vlm and moe families on one device.
 
 Example (on the CUDA card, the reduced config):
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \

@@ -2,7 +2,8 @@
 
 The port's copy of the JAX package's :class:`ModelConfig`, field for
 field, so one configuration describes the same model in both packages.
-The port runs the dense family (``repro_torch.models.transformer``).
+The port runs the dense, vlm and moe families
+(``repro_torch.models.transformer``).
 """
 
 from __future__ import annotations
@@ -145,3 +146,13 @@ class ModelConfig:
         if self.frontend == "vision":
             total += d * d  # projector
         return int(total)
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: topk of n_experts)."""
+        if self.family != "moe":
+            return self.param_count()
+        d, f = self.d_model, self.d_ff
+        gated = self.mlp in ("swiglu", "geglu")
+        expert = d * f * (3 if gated else 2)
+        dense_total = self.param_count()
+        return int(dense_total - self.n_layers * (self.n_experts - self.topk) * expert)

@@ -1,4 +1,4 @@
-"""Model API of the dense and vlm families: training loss and serving.
+"""Model API of the dense, vlm and moe families: training loss and serving.
 
   * ``param_defs(cfg)`` / ``init_params(cfg, generator, device=None)``
   * ``params_from_numpy(tree, cfg, device=None)`` — the JAX package's

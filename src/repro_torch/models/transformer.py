@@ -1,7 +1,7 @@
-"""Decoder-only transformer, dense layer options, for training, prefill and decode.
+"""Decoder-only transformer for training, prefill and decode.
 
 The port's counterpart of the JAX package's ``models/transformer.py`` for
-the dense and vlm families.  The reference stacks its layers into scan
+the dense, vlm and moe families.  The reference stacks its layers into scan
 groups (``n_local`` sliding-window + ``n_global`` full-attention layers,
 leading ``(n_groups, n_layer)`` parameter axes) and runs ``lax.scan`` over
 them; here the parameters are held by :class:`Transformer`, an
@@ -15,8 +15,9 @@ reference) builds the module.
 
 Ported layer options: RoPE, qk-norm, post-norms, swiglu/geglu/gelu MLPs,
 sliding-window (local) layers, and the vision prefix (``frontend ==
-"vision"``: projected patch embeddings in front of the tokens).  The
-moe/ssm/hybrid/encdec families and learned positions raise
+"vision"``: projected patch embeddings in front of the tokens), and the
+mixture-of-experts MLP (``family == "moe"``, :mod:`repro_torch.models.moe`).
+The ssm/hybrid/encdec families and learned positions raise
 ``NotImplementedError`` (ROADMAP.md §1 item 6).
 
 KV cache: ``{"local": {"k", "v"}, "global": {"k", "v"}}`` (``"local"``
@@ -39,14 +40,14 @@ from typing import Dict, List, Optional
 import torch
 from torch import nn
 
-from repro_torch.models import common
+from repro_torch.models import common, moe
 from repro_torch.models.config import ModelConfig
 
 ParamDef = common.ParamDef
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "vlm"):
+    if cfg.family not in ("dense", "vlm", "moe"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP.md §1 item 6)")
     if cfg.pos != "rope":
@@ -84,7 +85,8 @@ def mlp_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
 def layer_defs(cfg: ModelConfig) -> Dict[str, object]:
     d = cfg.d_model
     defs = {"ln1": common.rms_norm_def(d), "attn": attn_defs(cfg),
-            "ln2": common.rms_norm_def(d), "mlp": mlp_defs(cfg)}
+            "ln2": common.rms_norm_def(d),
+            "mlp": moe.moe_defs(cfg) if cfg.family == "moe" else mlp_defs(cfg)}
     if cfg.post_norm:
         defs["post_ln1"] = common.rms_norm_def(d)
         defs["post_ln2"] = common.rms_norm_def(d)
@@ -280,13 +282,24 @@ def mlp_block(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return h @ p.w_down
 
 
+def _ffn(p: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The layer's MLP, or its experts with the moe family, on (B, S, D) or
+    one decode token (B, D); the token is routed as a sequence of one
+    (``moe.capacity``'s decode branch)."""
+    if cfg.family != "moe":
+        return mlp_block(p, h, cfg)
+    if h.dim() == 2:
+        return moe.moe_layer(p, h[:, None, :], cfg)[:, 0]
+    return moe.moe_layer(p, h, cfg)
+
+
 def _residual(p: Params, x: torch.Tensor, attn_out: torch.Tensor, cfg: ModelConfig):
-    """Post-attention half of a layer: (post-norm,) residual, norm, MLP,
-    (post-norm,) residual."""
+    """Post-attention half of a layer: (post-norm,) residual, norm, MLP or
+    experts, (post-norm,) residual."""
     if cfg.post_norm:
         attn_out = common.rms_norm(attn_out, p.post_ln1)
     x = x + attn_out
-    m = mlp_block(p.mlp, common.rms_norm(x, p.ln2), cfg)
+    m = _ffn(p.mlp, common.rms_norm(x, p.ln2), cfg)
     if cfg.post_norm:
         m = common.rms_norm(m, p.post_ln2)
     return x + m

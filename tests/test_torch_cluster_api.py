@@ -16,6 +16,8 @@ import numpy as np
 import pytest
 import torch
 
+import reference_jit
+
 from repro.core import cluster as jcluster
 from repro.core import mig as jmig
 from repro.kernels.fragscore import ops as jops
@@ -26,6 +28,10 @@ from repro_torch.core import schedulers as tschedulers
 from repro_torch.kernels.fragscore import fragscore as tk
 from repro_torch.kernels.fragscore import ops as tops
 
+
+#: the reference's decision, compiled once per shape, metric and lowering
+J_MFI_SELECT = reference_jit.jit(jcluster.mfi_select,
+                                 static_argnames=("metric", "use_kernel", "interpret"))
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
@@ -79,8 +85,8 @@ def test_mfi_select_equals_reference(name, use_kernel, metric):
     for occ in states:
         for pid in range(tmig.NUM_PROFILES):
             # the reference's decision in either lowering
-            wants = [jcluster.mfi_select(jnp.asarray(occ), jnp.int32(pid), metric, jt,
-                                         use_kernel=k) for k in (use_kernel, not use_kernel)]
+            wants = [J_MFI_SELECT(jnp.asarray(occ), jnp.int32(pid), metric, jt, use_kernel=k)
+                     for k in (use_kernel, not use_kernel)]
             for p in (pid, torch.tensor(pid, dtype=torch.int32)):
                 got = tcluster.mfi_select(torch.as_tensor(occ), p, metric, tt,
                                           use_kernel=use_kernel)

@@ -22,6 +22,8 @@ import numpy as np
 import pytest
 import torch
 
+import reference_jit
+
 from repro.kernels.decode_attention.decode_attention import decode_attention as j_kernel
 from repro.kernels.decode_attention.ref import decode_attention_ref as j_ref
 from repro.models import common as jcommon
@@ -171,8 +173,8 @@ def test_linear_cache_decode_is_the_kernel_with_length_pos_plus_one(pos):
 
 #: the reference's oracle and windowed decode attention, each shape compiled
 #: once (op by op, each call would compile every operation anew)
-J_REF = jax.jit(j_ref)
-J_DECODE = jax.jit(jcommon.decode_gqa_attention, static_argnames=("window",))
+J_REF = reference_jit.jit(j_ref)
+J_DECODE = reference_jit.jit(jcommon.decode_gqa_attention, static_argnames=("window",))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -10,6 +10,8 @@ import numpy as np
 import pytest
 import torch
 
+import reference_jit
+
 from repro.core import mig as jmig
 from repro.sim import batched as jb
 
@@ -158,7 +160,7 @@ PID = {name: i for i, name in enumerate(jmig.PROFILE_NAMES)}
 #: the reference's decision compiled as one program per cluster shape and
 #: workload list; called op by op it compiles each primitive anew for every
 #: new shape of the random clusters, which costs twice as long
-reference_select_full = jax.jit(
+reference_select_full = reference_jit.jit(
     jb.policy_select_full,
     static_argnames=("policy", "metric", "spec", "cursor", "workloads"))
 

@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+import reference_jit
+
 from repro.core import mig as jmig
 from repro.core.policy import resolve as jresolve
 from repro.sim import batched as jb
@@ -100,8 +102,8 @@ def test_migrate_refine_equals_pallas(text, metric):
     spec, state, vic = kernel_case(text, metric, seed=len(text) + len(metric))
     pspec = tresolve("mfi-defrag")
     got = port_migrate_refine(spec, state, vic, tb._effective_keys(pspec), metric)
-    migrate_fn = jb.make_migrate_fn(jmig.ClusterSpec.parse(text), jresolve("mfi-defrag"),
-                                    metric=metric, interpret=True)
+    migrate_fn = reference_jit.jit(jb.make_migrate_fn(
+        jmig.ClusterSpec.parse(text), jresolve("mfi-defrag"), metric=metric, interpret=True))
     names = ("g1", "ok1", "a1", "k1", "g2", "ok2", "a2", "k2", "ap", "okp", "kp")
     for r in range(len(FILLS)):
         want = migrate_fn(*(jnp.asarray(a[r]) for a in state + vic))
@@ -147,8 +149,8 @@ def test_migrate_refine_keys_with_free_slices_and_sign():
 
     jspec = JPolicySpec(name="bf-bi-defrag", keys=keys, defrag=True)
     got = port_migrate_refine(spec, state, vic, tb._effective_keys(tspec), "blocked")
-    migrate_fn = jb.make_migrate_fn(jmig.ClusterSpec.parse("a100-80:5,h100-96:3"), jspec,
-                                    interpret=True)
+    migrate_fn = reference_jit.jit(jb.make_migrate_fn(jmig.ClusterSpec.parse("a100-80:5,h100-96:3"),
+                                                      jspec, interpret=True))
     for r in range(len(FILLS)):
         want = migrate_fn(*(jnp.asarray(a[r]) for a in state + vic))
         ok = {3: got[1][r], 7: got[5][r]}  # k1, k2 where the row exists

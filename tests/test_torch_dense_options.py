@@ -39,6 +39,8 @@ import numpy as np
 import pytest
 import torch
 
+import reference_jit
+
 from repro.configs import SMOKES as J_SMOKES
 from repro.launch import mesh as j_mesh
 from repro.launch import shapes as j_shapes
@@ -140,8 +142,8 @@ class Reference:
     def __init__(self, arch, regime):
         self.jcfg, self.tcfg = configs(arch, regime)
         self.params = draw(self.jcfg, 0)
-        self.grad = jax.jit(jax.value_and_grad(lambda p, b: jmodel.loss_fn(p, b, self.jcfg)))
-        self.serve = jax.jit(self._serve)
+        self.grad = reference_jit.jit(jax.value_and_grad(lambda p, b: jmodel.loss_fn(p, b, self.jcfg)))
+        self.serve = reference_jit.jit(self._serve)
 
     def _serve(self, params, batch, forced):
         """(prefill logits, prefill cache, each step's logits, the cache
@@ -303,7 +305,7 @@ def test_train_step_matches_the_reference(arch):
     fn = j_steps.build_step(jcfg, j_shapes.SHAPES["train_4k"], multi_pod=False)[0]
     batch = lm_batch(jcfg, 4, 32, 4)
     with jax.set_mesh(j_mesh.make_host_mesh()):
-        jp1, jo1, jm1 = jax.jit(fn)(jp, jo, {k: jnp.asarray(v) for k, v in batch.items()})
+        jp1, jo1, jm1 = reference_jit.jit(fn)(jp, jo, {k: jnp.asarray(v) for k, v in batch.items()})
     tp = tmodel.params_from_numpy(jp, tcfg, device="cpu")
     to = adamw_init(tp, tcfg.opt_dtype)
     lr = float(cosine_schedule(to["step"], peak_lr=3e-4, warmup=2000, total=100_000))
@@ -338,7 +340,7 @@ def test_windowed_blockwise_attention_forward_and_vjp_match(path, layout, dtype)
     k, v = (rng.standard_normal((b, s, kv, d)).astype(np.float32) for _ in range(2))
     jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
 
-    @jax.jit
+    @reference_jit.jit
     def forward_and_vjp(q, k, v, do):
         o, vjp = jax.vjp(lambda q, k, v: jcommon.blockwise_attention(q, k, v, **lay), q, k, v)
         return o, vjp(do)

@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+import reference_jit
+
 from repro.core import mig as jmig
 from repro.kernels.fragscore import fragscore as jk
 from repro.sim import batched as jb
@@ -24,6 +26,9 @@ from repro_torch.core import mig as tmig
 from repro_torch.kernels.fragscore import ref
 from repro_torch.sim import batched as tb
 
+
+#: the reference's Pallas kernel in interpret mode, compiled once per shape
+J_MFI_DELTA = reference_jit.jit(jk.mfi_delta, static_argnames=("metric", "interpret"))
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
@@ -53,7 +58,7 @@ def test_mfi_delta_plain_equals_pallas_on_every_pattern(name, metric):
         pm = t.profile_masks[pid].to(torch.float32)
         pv = t.profile_valid[pid].to(torch.float32)
         got = ref.mfi_delta_ref(torch.as_tensor(occ), w, v, pm, pv, metric).numpy()
-        want = np.asarray(jk.mfi_delta(
+        want = np.asarray(J_MFI_DELTA(
             jnp.asarray(occ), *(jnp.asarray(x.numpy()) for x in (w, v, pm, pv)),
             metric=metric, interpret=True))
         assert got.dtype == np.float32 and got.shape == want.shape
@@ -94,7 +99,8 @@ def test_delta_from_base_plain_equals_pallas_on_every_pattern(names, metric):
         torch.as_tensor(np.broadcast_to(f, (p,) + f.shape).copy()),
         torch.arange(p, dtype=torch.int32), torch.as_tensor(midx), t.V, t.maskwin,
         t.profile_mem, metric).numpy()
-    delta_fn = jb.make_delta_fn(jmig.ClusterSpec.parse(text), metric, interpret=True)
+    delta_fn = reference_jit.jit(jb.make_delta_fn(jmig.ClusterSpec.parse(text), metric,
+                                                  interpret=True))
     for pid in range(p):
         want = np.asarray(delta_fn(jnp.asarray(base), jnp.asarray(free), jnp.asarray(f), pid))
         assert got[pid].dtype == np.float32 and got[pid].shape == want.shape

@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+import reference_jit
+
 from repro.core import mig as jmig
 from repro.core.policy import resolve as jresolve
 from repro.kernels.fragscore import fragscore as jk
@@ -106,7 +108,7 @@ def test_delta_from_base_equals_pallas(text, metric):
         t.profile_mem[mi, pi], ff,
     ).numpy()
     np.testing.assert_array_equal(got, lowered)
-    delta_fn = jb.make_delta_fn(jspec, metric, interpret=True)
+    delta_fn = reference_jit.jit(jb.make_delta_fn(jspec, metric, interpret=True))
     for r in range(len(pid)):
         want = np.asarray(delta_fn(jnp.asarray(base[r]), jnp.asarray(free[r]),
                                    jnp.asarray(f[r]), int(pid[r])))
@@ -123,7 +125,8 @@ def _select_case(text, metric, policies, seed):
             b, fr, ff, p, midx, t.V, t.maskwin, t.profile_rows, t.profile_valid,
             t.profile_anchors, t.profile_mem, keys=keys, metric=metric,
         )
-        select_fn = jb.make_select_fn(jspec, jresolve(policy), metric=metric, interpret=True)
+        select_fn = reference_jit.jit(
+            jb.make_select_fn(jspec, jresolve(policy), metric=metric, interpret=True))
         for r in range(len(pid)):
             want = select_fn(jnp.asarray(base[r]), jnp.asarray(free[r]),
                              jnp.asarray(f[r]), int(pid[r]))
@@ -185,8 +188,8 @@ def test_multi_tile_fleet():
         b, fr, ff, p, midx, tt.V, tt.maskwin, tt.profile_rows, tt.profile_valid,
         tt.profile_anchors, tt.profile_mem, keys=tb._effective_keys(tresolve("mfi")),
     )
-    delta_fn = jb.make_delta_fn(jspec, interpret=True)
-    select_fn = jb.make_select_fn(jspec, jresolve("mfi"), interpret=True)
+    delta_fn = reference_jit.jit(jb.make_delta_fn(jspec, interpret=True))
+    select_fn = reference_jit.jit(jb.make_select_fn(jspec, jresolve("mfi"), interpret=True))
     for r in range(2):
         args = (jnp.asarray(base[r]), jnp.asarray(free[r]), jnp.asarray(f[r]), int(pid[r]))
         np.testing.assert_array_equal(got_d[r], np.asarray(delta_fn(*args)))

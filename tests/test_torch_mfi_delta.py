@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+import reference_jit
+
 from repro.core import schedulers as jschedulers
 from repro.kernels.fragscore import fragscore as jk
 
@@ -23,6 +25,9 @@ from repro_torch.core import schedulers as tschedulers
 from repro_torch.kernels.fragscore import fragscore as tk
 from repro_torch.kernels.fragscore import ref
 
+
+#: the reference's Pallas kernel in interpret mode, compiled once per shape
+J_MFI_DELTA = reference_jit.jit(jk.mfi_delta, static_argnames=("metric", "interpret"))
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
@@ -42,7 +47,7 @@ def operands(model, pid):
 
 
 def pallas(occ, w, v, pm, pv, metric):
-    return np.asarray(jk.mfi_delta(
+    return np.asarray(J_MFI_DELTA(
         jnp.asarray(occ), *(jnp.asarray(x.numpy()) for x in (w, v, pm, pv)),
         metric=metric, interpret=True))
 

@@ -102,9 +102,9 @@ def flat(tree, prefix=()):
     return {prefix: tree}
 
 
-#: the architectures the port runs: the reference's dense-layer ones
-PORTED = ["gemma3-12b", "llama3.2-1b", "llama3.2-1b-sw", "paligemma-3b", "qwen3-14b",
-          "starcoder2-15b"]
+#: the architectures the port runs: the reference's dense-layer and moe ones
+PORTED = ["gemma3-12b", "granite-moe-3b-a800m", "grok-1-314b", "llama3.2-1b", "llama3.2-1b-sw",
+          "paligemma-3b", "qwen3-14b", "starcoder2-15b"]
 
 
 def test_configs_are_the_references():
@@ -240,18 +240,18 @@ def test_init_cache_matches_reference_layout():
 
 
 @pytest.mark.parametrize("change", [
-    dict(family="moe", n_experts=4, topk=2),
     dict(family="hybrid", ssm_state=16, ssm_headdim=32, ssm_chunk=32),
     dict(pos="learned"),
     dict(family="ssm", n_heads=1, n_kv_heads=1, d_ff=0, ssm_state=32, ssm_headdim=32,
          ssm_chunk=32, pos="none"),
     "whisper-large-v3",
-], ids=["moe", "hybrid", "learned-positions", "ssm", "encdec-whisper"])
+], ids=["hybrid", "learned-positions", "ssm", "encdec-whisper"])
 def test_unported_variants_raise(change):
-    """The families of ROADMAP.md §1 item 6 (b2)-(b4) and learned positions
+    """The families of ROADMAP.md §1 item 6 (b3)-(b4) and learned positions
     are refused; the layer options they replaced here (local/global groups,
     qk-norm, post-norms) are ported and held in
-    ``tests/test_torch_dense_options.py``."""
+    ``tests/test_torch_dense_options.py``, the moe family in
+    ``tests/test_torch_moe.py``."""
     if isinstance(change, str):
         cfg = TConfig(**dataclasses.asdict(J_SMOKES[change]))
     else:

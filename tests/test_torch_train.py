@@ -49,6 +49,8 @@ import numpy as np
 import pytest
 import torch
 
+import reference_jit
+
 from repro import checkpoint as jckpt
 from repro.configs import SMOKES as J_SMOKES
 from repro.data import make_batch_iterator as j_batches
@@ -255,7 +257,7 @@ def test_blockwise_attention_refuses_the_window():
     ``tests/test_torch_dense_options.py``."""
     rng = np.random.default_rng(17)
     x = rng.standard_normal((1, 8, 2, 4)).astype(np.float32)
-    want = jax.jit(lambda q, k, v: jcommon.blockwise_attention(q, k, v, window=4))(
+    want = reference_jit.jit(lambda q, k, v: jcommon.blockwise_attention(q, k, v, window=4))(
         x, x[:, :, :1], x[:, :, :1])
     t = torch.from_numpy(x)
     got = tcommon.blockwise_attention(t, t[:, :, :1], t[:, :, :1], window=4)
@@ -294,7 +296,7 @@ def test_chunked_ce_loss_value_and_grads_match(dtype):
 def carried(request):
     jcfg, tcfg = configs(request.param)
     jp = jmodel.init_params(jcfg, jax.random.PRNGKey(0))
-    grad_fn = jax.jit(jax.value_and_grad(lambda p, b: jmodel.loss_fn(p, b, jcfg)))
+    grad_fn = reference_jit.jit(jax.value_and_grad(lambda p, b: jmodel.loss_fn(p, b, jcfg)))
     return request.param, jcfg, tcfg, jp, grad_fn
 
 
@@ -375,7 +377,7 @@ def test_train_step_matches_the_reference(variant, accum):
     fn = j_steps.build_step(jcfg, j_shapes.SHAPES["train_4k"], multi_pod=False)[0]
     batches = [lm_batch(jcfg, 4, 32, seed) for seed in (4, 5)]
     with jax.set_mesh(j_mesh.make_host_mesh()):
-        step = jax.jit(fn)
+        step = reference_jit.jit(fn)
         jp1, jo1, jm1 = step(jp, jo, {"tokens": jnp.asarray(batches[0][0]),
                                       "labels": jnp.asarray(batches[0][1])})
         jp2, jo2, jm2 = step(jp1, jo1, {"tokens": jnp.asarray(batches[1][0]),
@@ -410,7 +412,7 @@ def test_smoke_loss_curve_matches_the_reference_loop(capsys):
     jp = jax.tree.map(lambda a: a * 0.1 if a.ndim > 1 else a, jp)
     tp = tmodel.params_from_numpy(jax.tree.map(np.asarray, jp), tcfg, device="cpu")
 
-    @jax.jit
+    @reference_jit.jit
     def step(params, opt, b):
         loss, grads = jax.value_and_grad(lambda p: jmodel.loss_fn(p, b, jcfg))(params)
         rate = j_cosine(opt["step"], peak_lr=lr, warmup=10, total=steps)
