@@ -28,10 +28,11 @@ Phases, each printing its own lines:
    included, reproduced with the kernels on;
 5. the paper's experiment at full width (M = 100 A100-80GB, uniform mix,
    offered load 1.0, seed 0, R = 500) for mfi, ff, bf-bi, wf-bi, rr, a
-   delta-only mfi spec and mfi-defrag, once through the kernels (launch
-   counts reset just before and read just after) and once through the
-   plain lowering over the first 500 of the same events: traces equal
-   there, launch counts matching the events; then a profiled 128-event window of the mfi, the
+   delta-only mfi spec and mfi-defrag, once through the kernels (mfi and
+   mfi-defrag over the whole stream, the others over its first 1,000
+   events; launch counts reset just before and read just after) and once
+   through the plain lowering over the first 250 of the same events: traces equal
+   there, launch counts matching the events; then a profiled 64-event window of the mfi, the
    delta-only and the mfi-defrag step, each also run unprofiled, the
    kernel path's event loop under ``torch.cuda.set_sync_debug_mode("error")``
    (no host sync); then the paper's Fig. 5 through the kernels (ff, rr,
@@ -61,7 +62,9 @@ Phases, each printing its own lines:
    paligemma-3b's K = 1, G = 8 at D = 256, and phase 14's: (j)
    granite-moe-3b-a800m's G = 3 (B = 4, H = 24, K = 8, D = 64, bf16,
    S = 1,057 = prompt + new + 1) and (k) grok-1-314b's SMOKE (K = 2,
-   G = 2, float32, S = 41); for (a)-(k) its device time, time per call,
+   G = 2, float32, S = 41), and phase 15's (l) hymba-1.5b's local cache
+   padded past its window (B = 4, K = 5, G = 5, D = 64, bf16, S = 1,042,
+   start = pos - 1,023); for (a)-(l) its device time, time per call,
    bound, plain time and the time of ``scaled_dot_product_attention``
    (the kernel must beat it at (b));
 7. the serving path at full width: ``llama3.2-1b`` (bf16, random weights
@@ -88,7 +91,7 @@ Phases, each printing its own lines:
    before and read just after: ``mfi_delta`` = arrivals), each decision
    held to the dense lowering on the card and the host MFI scheduler, the
    result equal to the host MFI run field for field; a card-resident loop
-   of 10,000 decisions at M = 10,000 (``mfi_select(use_kernel=True)``,
+   of 2,500 decisions at M = 10,000 (``mfi_select(use_kernel=True)``,
    ``mfi_allocate``, seeded ``release``s, no host sync inside) held
    decision for decision to ``mfi_allocate`` and at its end to a host
    ``ClusterState`` replay; decisions/s of both lowerings; then
@@ -100,24 +103,25 @@ Phases, each printing its own lines:
     (``sim/replay.py``) and ``run_batched`` to the host engine's
     ``run_many``; the reference's two pinned queued hashes with the
     kernels on; the queued protocol at M = 100, load 1.1, R = 500 for mfi
-    and mfi-queued, kernel equal to plain over the first 500 events,
+    (its whole stream) and mfi-queued (its first 1,000 events), kernel
+    equal to plain over the first 250 events,
     with its wait percentiles,
     fairness, wait-admits and ``select_from_base`` launches per event (2),
     and on 4 of its replicas the card's trace equal to
     ``queued_host_decisions``;
     every kernel-path loop under ``set_sync_debug_mode("error")``, launch
-    counts reset just before each run; a profiled 128-event window of the
+    counts reset just before each run; a profiled 64-event window of the
     queued mfi loop;
 11. the faulted protocol and the chunked driver: the reference's two
     pinned faulted hashes with the kernels on; the faulted protocol at
     M = 100, load 1.1, MTBF 60, MTTR 10, wait ring 8, patience 16, seed 0,
     R = 500 for mfi (the kernel path over the whole stream) and mfi-queued
-    and ff (its first 500 events), kernel path equal to plain in every
-    field over the first 500 events, launches per event exact (``fragscore`` 3,
+    and ff (its first 250 events), kernel path equal to plain in every
+    field over the first 250 events, launches per event exact (``fragscore`` 3,
     ``delta_from_base`` 2 for the ΔF policies, ``select_from_base`` 0), the
     kernel loop under ``set_sync_debug_mode("error")``, evictions > 0 and
     the fault keys of the run; on 4 of its replicas the card's trace equal
-    to ``replay.faulted_host_decisions``; a profiled 128-event faulted
+    to ``replay.faulted_host_decisions``; a profiled 64-event faulted
     window; the mfi rows of ``experiments/fig_faults_batched_30.csv`` (R =
     30 each, as five blocks of one run) and their queued anchor through
     ``run_batched`` (printed beside the recorded rows, not asserted), and
@@ -139,7 +143,7 @@ Phases, each printing its own lines:
     ``launch/train.py --arch llama3.2-1b --smoke --steps 50 --batch 8
     --seq 128`` as it stands, which must print LEARNING; (d) at full width
     (bf16, random weights seeded 0, float32 moments) ``launch/train.py
-    --arch llama3.2-1b --steps 10 --batch 8 --seq 128`` and five
+    --arch llama3.2-1b --steps 10 --batch 8 --seq 128`` and two
     ``steps.train_step`` steps at train_4k's S = 4,096 with a global batch
     of 8 (cut from 256) as 4 micro-batches of 2, every loss finite, with
     ms per step, tokens/s, peak device memory against its reckoning, model
@@ -180,8 +184,8 @@ Phases, each printing its own lines:
     just before and read just after), prefill and decode times, a profiled
     window of 8 decode steps and the share of prefill entries dropped
     (over capacity, and missed by the slot search); (c) granite trained at
-    train_4k's S = 4,096, global batch 4 (cut from 256) as 2 micro-batches
-    of 2, 2 steps, every loss finite, with ms per step, tokens/s, peak
+    train_4k's S = 4,096, global batch 2 (cut from 256) as 2 micro-batches
+    of 1, 2 steps, every loss finite, with ms per step, tokens/s, peak
     memory against its reckoning, model FLOPs and a profiled micro-batch
     split (attention, MoE routing and dispatch, expert products, CE,
     optimizer, the rest); (d) one grok-1-314b SMOKE step card vs CPU and
@@ -189,7 +193,28 @@ Phases, each printing its own lines:
     k = 2, d = 6,144, f = 32,768; 9.7 GB bf16) on 4 x 128 tokens in bf16
     and in float32: the dispatch equal, the outputs within a stated bf16
     tolerance, both times; then a ``{"moe": ...}`` line;
-15. a ``{"kernels": [...]}`` JSON line (each kernel's launches in total
+15. the state-space and hybrid families (bf16 models from a
+    ``torch.Generator`` seeded 0, one at a time, each freed before the
+    next): (a) each SMOKE (``mamba2-2.7b``, ``hymba-1.5b``) prefilled on 4 x
+    64 tokens and decoded 8 teacher-forced steps on the card and the CPU
+    (float32, TF32 off), logits within the tests' tolerances (1e-3 of their
+    largest magnitude under the reference's initialiser, 2e-5 with the
+    weight matrices scaled by 0.1), and one SMOKE step each (the loss, every
+    gradient leaf, ``train_step``) as phase 12's; (b) mamba2-2.7b (64 SSD
+    layers, d 2,560, H 80, N 128) and hymba-1.5b (32 layers, 25 query and
+    5 KV heads beside an SSD head of H 50, N 16 in every layer, 15:1
+    local/global, window 1,024) behind the MIG admission controller through
+    ``ServingEngine.run``, one wave of 4 prompts of 1,024 tokens and 16
+    decode steps, ``decode_attention`` launched once per layer with
+    attention and step (hymba 32, mamba2 0; counts reset just before and
+    read just after), prefill and decode times and a profiled window of 8
+    decode steps; (c) both trained at train_4k's S = 4,096 at each config's
+    own ``grad_accum``, a global batch (cut from 256) of 4 for mamba2 and 2
+    for hymba, 2 steps, every
+    loss finite, with ms per step, tokens/s, peak memory, model FLOPs and a
+    profiled micro-batch split (attention, the SSD chunk scan, CE,
+    optimizer, the rest); then a ``{"ssm": ...}`` line;
+16. a ``{"kernels": [...]}`` JSON line (each kernel's launches in total
     and by path), then the result line.
 
 Every equality of phases 3-5 and 8-11 is exact: all scores are integers
@@ -304,9 +329,13 @@ RUNS = 500
 #: phase 5 holds the plain path to the kernel path over the paper point's
 #: first this many events (the kernel path runs all of them), which keeps
 #: the whole script well inside its time limit on a slow host
-PLAIN_EVENTS = 500
+PLAIN_EVENTS = 250
 #: events of each profiled engine window (phases 5, 10, 11)
-WINDOW_EVENTS = 128
+WINDOW_EVENTS = 64
+#: the kernel path of phase 5's side policies (ff, bf-bi, wf-bi, rr,
+#: mfi-delta-only) and of phase 10's mfi-queued: their stream's first this
+#: many events (mfi and mfi-defrag take whole streams)
+SIDE_EVENTS = 1000
 #: phase 3's mixed fleet of four device models
 FOUR_MODEL_FLEET = "a100-80:30,a100-40:30,h100-96:20,h100-80:20"
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
@@ -367,7 +396,8 @@ TRAIN_SEQ = 4096
 TRAIN_CUT_FROM = 256
 TRAIN_BATCH = 8
 TRAIN_ACCUM = 4
-TRAIN_STEPS = 5
+#: timed steps (the first is left out of the mean)
+TRAIN_STEPS = 2
 BF16_DENSE_OPS_PER_S = 989e12  # H100 SXM bf16 dense, tensor cores
 #: the flash Function against plain autograd: (B, S, H, KV, D); float32
 #: within decode_attention's 1e-5 scaled by the tensor's largest magnitude
@@ -390,13 +420,13 @@ SMOKE_ARCH_STEPS = {"gemma3-12b": (4, 1024), "paligemma-3b": (4, 128)}
 #: phase 14, the mixture-of-experts family: granite-moe-3b-a800m served at
 #: full width on one wave of 4 prompts of 1,024 tokens (cap 256 a row),
 #: 32 new tokens each, and trained at train_4k's S = 4,096 with a global
-#: batch of 4 (cut from 256) as 2 micro-batches of 2, for 2 steps (3 took
-#: phase 14 to 106 s on an H100 at 12.4 s a step; its mark is ~90 s)
+#: batch of 2 (cut from 256) as 2 micro-batches of 1, for 2 steps (3
+#: steps of a batch of 4 took phase 14 to 106 s on an H100, 12.4 s a step)
 MOE_ARCH = "granite-moe-3b-a800m"
 MOE_PROMPT = 1024
 MOE_NEW = 32
 MOE_WINDOW_STEPS = 8
-MOE_TRAIN_BATCH = 4
+MOE_TRAIN_BATCH = 2
 MOE_TRAIN_ACCUM = 2
 MOE_TRAIN_STEPS = 2
 #: (a) moe_layer card vs CPU at granite's SMOKE: (B, S), cap 40 a row
@@ -415,6 +445,26 @@ GROK_SMOKE_STEP = (4, 128)
 GROK_LAYER_TOKENS = (4, 128)
 GROK_LAYER_RMS_TOL = 2.0 ** -6
 GROK_LAYER_MAX_TOL = 2.0 ** -4
+#: phase 15, the state-space and hybrid families at full width: one wave
+#: of 4 prompts of 1,024 tokens (4 SSD chunks of 256; hymba's local caches
+#: padded past its window of 1,024, so its decode reads from start > 0),
+#: 16 decode steps, a profiled window of 8; trained at train_4k's
+#: S = 4,096 and each config's own grad_accum (mamba2 2, hymba 1), 2
+#: steps, with a global batch cut from 256 to 4 for mamba2 and 2 for hymba
+#: (at 8 each the phase took 149 s on an H100: 13.9 and 12.6 s a step);
+#: the SMOKEs card vs CPU
+SSM_ARCHS = ("mamba2-2.7b", "hymba-1.5b")
+SSM_PROMPT = 1024
+SSM_NEW = 17
+SSM_WINDOW_STEPS = 8
+SSM_TRAIN_BATCH = {"mamba2-2.7b": 4, "hymba-1.5b": 2}
+SSM_TRAIN_STEPS = 2
+#: the SMOKEs' serving check: (B, prompt, decode steps), and the SMOKE step
+SSM_SMOKE_SERVE = (4, 64, 8)
+SSM_SMOKE_STEP = (4, 128)
+#: the tests' logit tolerances (tests/test_torch_ssm.py): under the
+#: reference's initialiser and with the weight matrices scaled by 0.1
+SSM_SMOKE_LOGIT_TOL = {1.0: 1e-3, 0.1: 2e-5}
 #: victims per replica of the migrate search at M = 100 (min(C, M·S))
 C_LIVE = 800
 #: fleet sizes of the mfi_delta kernel check (A100-80GB): the paper's
@@ -425,7 +475,7 @@ MFI_DELTA_FILL = 0.45
 #: the card-resident decision loop: decisions over a fleet of this size,
 #: which starts with every GPU holding work (up to this many requests each)
 DECISION_GPUS = 10_000
-DECISION_STEPS = 10_000
+DECISION_STEPS = 2_500
 DECISION_PREFILL_TRIES = 8
 #: benchmarks/scheduler_scaling.py's fleet sizes, fill and request class
 SCALING_GPUS = (100, 1_000, 10_000)
@@ -1089,9 +1139,14 @@ def full_width_phase(device):
     delta_only = PolicySpec(**DELTA_ONLY)
     warm = batched.EventStream(*[None if a is None else a[:64] for a in events])
     head = batched.EventStream(*[None if a is None else a[:PLAIN_EVENTS] for a in events])
+    side = batched.EventStream(*[None if a is None else a[:SIDE_EVENTS] for a in events])
     rates = {}
     for policy in ("mfi", "ff", "bf-bi", "wf-bi", "rr", delta_only, "mfi-defrag"):
         name = policy if isinstance(policy, str) else policy.name
+        # mfi and mfi-defrag take the whole stream, the other policies its
+        # first SIDE_EVENTS events (Fig. 5 runs them over whole streams)
+        run = events if name in ("mfi", "mfi-defrag") else side
+        n = run.pid.shape[0]
         out = {}
         for use_kernel in (True, False):
             batched._simulate(warm, policy=policy, use_kernel=use_kernel, **common)
@@ -1099,7 +1154,7 @@ def full_width_phase(device):
             for fn in wrappers.values():
                 fn.launches = 0
             t0 = time.perf_counter()
-            _, trace = batched._simulate(events if use_kernel else head, policy=policy,
+            _, trace = batched._simulate(run if use_kernel else head, policy=policy,
                                          use_kernel=use_kernel, **common)
             trace = batched.trace_to_numpy(trace)
             seconds = time.perf_counter() - t0
@@ -1115,24 +1170,27 @@ def full_width_phase(device):
         defrag = name == "mfi-defrag"
         # fragscore: the expire and commit rescores, plus the rescore of a
         # migrated victim's landing GPU for defrag
-        want = {"fragscore": (3 if defrag else 2) * e_max,
-                "select_from_base": e_max if name in ("mfi", "ff", "bf-bi", "wf-bi",
-                                                      "mfi-defrag") else 0,
-                "delta_from_base": e_max if name == "mfi-delta-only" else 0,
-                "migrate_refine": e_max if defrag else 0}
+        want = {"fragscore": (3 if defrag else 2) * n,
+                "select_from_base": n if name in ("mfi", "ff", "bf-bi", "wf-bi",
+                                                  "mfi-defrag") else 0,
+                "delta_from_base": n if name == "mfi-delta-only" else 0,
+                "migrate_refine": n if defrag else 0}
         check(ck == want, f"{name}: launch counts {ck} != expected {want}")
         for k in totals:
             totals[k] += ck[k]
-        agg = batched.aggregate(events, tk, spec, RUNS)
-        rates[name] = (RUNS * e_max / sk, RUNS * PLAIN_EVENTS / sp)
+        rates[name] = (RUNS * n / sk, RUNS * PLAIN_EVENTS / sp)
         if defrag:
             log(f"full width mfi-defrag: {int(tk.mig.sum())} migrations over "
                 f"{RUNS} replicas")
-        log(f"full width {name}: traces equal (kernel vs plain over the first "
-            f"{PLAIN_EVENTS} events); launches {ck}; "
-            f"acceptance {agg['acceptance_rate']:.4f} allocated {agg['allocated_workloads']:.1f} "
-            f"utilization {agg['utilization']:.4f} active {agg['active_gpus']:.1f} "
-            f"frag {agg['frag_severity']:.2f}; replica-events/s kernel {rates[name][0]:.0f} "
+        summary = "no aggregates (a prefix of the stream)"
+        if n == e_max:
+            agg = batched.aggregate(run, tk, spec, RUNS)
+            summary = (f"acceptance {agg['acceptance_rate']:.4f} allocated "
+                       f"{agg['allocated_workloads']:.1f} utilization {agg['utilization']:.4f} "
+                       f"active {agg['active_gpus']:.1f} frag {agg['frag_severity']:.2f}")
+        log(f"full width {name}: kernel path over {n} of {e_max} events; traces equal "
+            f"(kernel vs plain over the first {PLAIN_EVENTS} events); launches {ck}; "
+            f"{summary}; replica-events/s kernel {rates[name][0]:.0f} "
             f"plain {rates[name][1]:.0f} ({sk:.2f} s / {sp:.2f} s)")
         if name == "mfi":
             row = (f"fig4,mfi,1.0,{agg['acceptance_rate']:.4f},{agg['allocated_workloads']:.1f},"
@@ -1408,21 +1466,22 @@ def queued_phase(device, wrappers, totals):
     common = common_of(cfg, rows, cols)
     # the host replay runs on the first replicas of this stream (replicas
     # never interact, so their rows of the R = RUNS trace are their runs)
-    small = batched.EventStream(*[None if a is None else a[:, :HOST_RUNS_QUEUED]
-                                  for a in events])
-    small_meta = batched.EventMeta(*[a[:, :HOST_RUNS_QUEUED] for a in meta])
     e_max = events.pid.shape[0]
     out = {}
     for policy in ("mfi", "mfi-queued"):
+        # mfi takes the whole stream, mfi-queued its first SIDE_EVENTS events
+        n = e_max if policy == "mfi" else min(e_max, SIDE_EVENTS)
+        run = batched.EventStream(*[None if a is None else a[:n] for a in events])
+        small = batched.EventStream(*[None if a is None else a[:n, :HOST_RUNS_QUEUED]
+                                      for a in events])
+        small_meta = batched.EventMeta(*[a[:n, :HOST_RUNS_QUEUED] for a in meta])
         want = dict.fromkeys(wrappers, 0)
-        want.update(fragscore=3 * e_max, select_from_base=2 * e_max)
+        want.update(fragscore=3 * n, select_from_base=2 * n)
         name = f"queued {policy}"
-        tk, tp, rates, ck, _ = paths_equal(name, events, policy, common, wrappers, want,
+        tk, tp, rates, ck, _ = paths_equal(name, run, policy, common, wrappers, want,
                                            plain_events=PLAIN_EVENTS)
         for k in totals:
             totals[k] += ck[k]
-        agg = batched._aggregate_queued(events, tk, spec, RUNS)
-
         t4 = batched.EventTrace(*[None if a is None else a[:, :HOST_RUNS_QUEUED] for a in tk])
         host = replay.queued_host_decisions(
             small, small_meta, policy, cfg.num_gpus, metric=cfg.metric,
@@ -1440,14 +1499,19 @@ def queued_phase(device, wrappers, totals):
               f"{name}: card trace differs from queued_host_decisions at R = "
               f"{HOST_RUNS_QUEUED}")
         keys = ("acceptance_rate", "wait_p50", "wait_p99", "fairness", "queue_admits")
+        # the aggregates of a whole stream only
+        agg = (batched._aggregate_queued(run, tk, spec, RUNS) if n == e_max
+               else dict.fromkeys(keys))
         out[policy] = dict(replica_events_per_s=dict(kernel=rates[0], plain=rates[1]),
-                           launches=ck, e_max=e_max,
-                           select_per_event=ck["select_from_base"] / e_max,
+                           launches=ck, e_max=e_max, events=n,
+                           select_per_event=ck["select_from_base"] / n,
                            **{k: agg[k] for k in keys})
-        log(f"{name} (M=100, load {QUEUED_LOAD}, R={RUNS}, E_max={e_max}): traces equal "
-            f"(kernel vs plain over the first {PLAIN_EVENTS} events); launches {ck} "
-            f"(select_from_base {ck['select_from_base'] / e_max:.2f} per event); "
-            + " ".join(f"{k} {agg[k]:.4f}" for k in keys)
+        summary = (" ".join(f"{k} {agg[k]:.4f}" for k in keys) if n == e_max
+                   else "no aggregates (a prefix of the stream)")
+        log(f"{name} (M=100, load {QUEUED_LOAD}, R={RUNS}, E_max={e_max}; kernel path over "
+            f"{n} events): traces equal (kernel vs plain over the first {PLAIN_EVENTS} "
+            f"events); launches {ck} (select_from_base {ck['select_from_base'] / n:.2f} per "
+            f"event); " + summary
             + f"; {int(tk.parked.sum())} parks, {int((tk.wadm_eidx >= 0).sum())} wait-admits"
             f"; replica-events/s kernel {rates[0]:.0f} plain {rates[1]:.0f}; at R = "
             f"{HOST_RUNS_QUEUED} the card's trace equals queued_host_decisions "
@@ -1979,10 +2043,16 @@ def decode_attention_phase(device):
                        [MOE_PROMPT + MOE_NEW - 1] * SERVE_SLOTS, None, None),
         "grok-smoke": (SERVE_SLOTS, GROK_SMOKE_PROMPT + GROK_SMOKE_NEW + 1, 2, 2, 64, f32,
                        [GROK_SMOKE_PROMPT + GROK_SMOKE_NEW - 1] * SERVE_SLOTS, None, None),
+        # phase 15's hymba-1.5b at the wave's last step: a local cache of
+        # prompt + new + 1 slots padded past its window of 1,024 (K = 5,
+        # G = 5, D = 64, bf16), keys [pos - 1,023, pos]
+        "hymba-g5-d64": (SERVE_SLOTS, SSM_PROMPT + SSM_NEW + 1, 5, 5, 64, bf16,
+                         [SSM_PROMPT + SSM_NEW - 1] * SERVE_SLOTS, None,
+                         [SSM_PROMPT + SSM_NEW - 2 - 1023] * SERVE_SLOTS),
     }
     timed_cases = ("serving", "long", "middle", "b1-32k", "gemma3-ring", "gemma3-wrapped",
                    "qwen3-g5-d128", "starcoder2-g12-d128", "paligemma-k1-g8-d256", "granite-g3",
-                   "grok-smoke")
+                   "grok-smoke", "hymba-g5-d64")
     errs, ratios = {}, {}
     row = {}
     for tag, (b, s, kh, g, d, dtype, lengths, scale, st) in cases.items():
@@ -2836,14 +2906,16 @@ def mark(name):
 
 def backward_marked(fn, name):
     """``fn(x, ...)`` inside the profiler range ``train:<name>``, its
-    backward delimited by hooks on its output (the gradient arrives: the
-    backward starts) and on ``x`` (the gradient leaves: it ends).  A
-    rematerialised forward registers no hook where grad mode is off."""
+    backward delimited by hooks on its output (its first, for a tuple: the
+    gradient arrives, the backward starts) and on ``x`` (the gradient
+    leaves: it ends).  A rematerialised forward registers no hook where
+    grad mode is off."""
 
     def run(x, *args, **kwargs):
         out = annotated(fn, f"train:{name}")(x, *args, **kwargs)
-        if out.requires_grad and x.requires_grad:
-            out.register_hook(lambda g: mark(f"train:{name}-backward-start"))
+        first = out[0] if isinstance(out, tuple) else out
+        if first.requires_grad and x.requires_grad:
+            first.register_hook(lambda g: mark(f"train:{name}-backward-start"))
             x.register_hook(lambda g: mark(f"train:{name}-backward-end"))
         return out
 
@@ -2854,15 +2926,15 @@ def backward_marked(fn, name):
 def training_annotations():
     """Profiler ranges around each layer's forward, the flash Function's
     forward and backward, the cross-entropy, the MoE layer and its expert
-    products (each backward delimited by hooks, :func:`backward_marked`)
-    and the optimizer, for :func:`step_split`."""
+    products, the SSD chunk scan (each backward delimited by hooks,
+    :func:`backward_marked`) and the optimizer, for :func:`step_split`."""
     from repro_torch.launch import steps
-    from repro_torch.models import common, moe, transformer
+    from repro_torch.models import common, moe, ssm, transformer
 
     F = common._FlashQTile
     saved = (F.__dict__["forward"], F.__dict__["backward"], common.chunked_ce_loss,
              steps.adamw_update, moe.moe_layer, moe._expert_ffn_batched,
-             transformer.layer_forward)
+             transformer.layer_forward, ssm.ssd_scan)
 
     def ce_loss(x, *args, **kwargs):
         return backward_marked(saved[2], "ce")(x, *args, **kwargs)
@@ -2879,11 +2951,12 @@ def training_annotations():
     steps.adamw_update = annotated(saved[3], "train:optimizer")
     moe.moe_layer, moe._expert_ffn_batched = moe_layer, experts
     transformer.layer_forward = annotated(saved[6], "train:layer")
+    ssm.ssd_scan = backward_marked(saved[7], "ssd")
     try:
         yield
     finally:
         (F.forward, F.backward, common.chunked_ce_loss, steps.adamw_update, moe.moe_layer,
-         moe._expert_ffn_batched, transformer.layer_forward) = saved
+         moe._expert_ffn_batched, transformer.layer_forward, ssm.ssd_scan) = saved
 
 
 MATMUL_KERNEL_WORDS = ("gemm", "nvjet", "xmma", "cutlass", "wgmma")
@@ -2892,16 +2965,16 @@ MATMUL_KERNEL_WORDS = ("gemm", "nvjet", "xmma", "cutlass", "wgmma")
 #: step_split's categories of ranges; "layer" (a transformer layer's
 #: forward, recomputed inside the next part's backward) falls through to
 #: the kernel-name split
-SPLIT_CATEGORIES = ("attention", "ce", "optimizer", "experts", "moe", "layer")
+SPLIT_CATEGORIES = ("attention", "ce", "optimizer", "experts", "moe", "ssd", "layer")
 
 
 def step_split(prof, wall_s):
     """Device time of a profiled step by what launched each kernel:
     attention (the flash Function, forward and backward), CE (the loss and
     its backward), optimizer, the expert products and the rest of the MoE
-    layer (routing, dispatch and the route back, forward and backward), and
-    the rest split into matmul kernels (projections and MLP) and other
-    kernels.  A kernel belongs to the innermost range (the latest-started)
+    layer (routing, dispatch and the route back, forward and backward), the
+    SSD chunk scan (``ssm.ssd_scan``, forward and backward), and the rest
+    split into matmul kernels (projections and MLP) and other kernels.  A kernel belongs to the innermost range (the latest-started)
     that holds the start of the CPU operator that launched it, on that
     operator's thread: an expert product inside the MoE layer's range, a
     layer recomputed inside a backward span (rematerialisation) to that
@@ -2968,6 +3041,24 @@ def step_split(prof, wall_s):
         shares={c: totals.get(c, 0) / max(busy, 1)
                 for c in SPLIT_CATEGORIES[:-1] + ("matmul", "other")},
         top=[dict(name=n[:80], ms=t / 1e6, count=c) for n, (t, c) in top])
+
+
+def mixer_flops(cfg, tokens):
+    """``(attention, ssd)`` FLOPs of one training step (forward and
+    backward, 6 a multiply-add) beyond 6·N·tokens, at TRAIN_SEQ: each
+    attention layer's logits and values over the keys its queries see (S
+    for a global layer, the window for a local one), and each SSD block's
+    chunk products (C·B over the chunk, the decayed scores against x, the
+    chunk states and the states read back: Q·N + Q·H·P + 2·N·H·P a
+    token)."""
+    n_local, n_global = cfg.group_pattern
+    keys = cfg.n_groups * (n_global * TRAIN_SEQ + n_local * min(cfg.window, TRAIN_SEQ))
+    attn = 0 if cfg.family == "ssm" else 6 * tokens * keys * cfg.n_heads * cfg.head_dim
+    ssd = 0
+    if cfg.family in ("ssm", "hybrid"):
+        q, n, hp = min(cfg.ssm_chunk, TRAIN_SEQ), cfg.ssm_state, cfg.ssm_dinner
+        ssd = 6 * tokens * cfg.n_layers * (q * n + q * hp + 2 * n * hp)
+    return attn, ssd
 
 
 def train_run(device, wrappers, cfg, batch_size, accum, steps_n, cut_from, tag="train"):
@@ -3046,8 +3137,8 @@ def train_run(device, wrappers, cfg, batch_size, accum, steps_n, cut_from, tag="
 
     tokens = batch_size * TRAIN_SEQ
     n = cfg.active_param_count()
-    attn_flops = 6 * batch_size * cfg.n_layers * TRAIN_SEQ ** 2 * cfg.n_heads * cfg.head_dim
-    flops = 6 * n * tokens + attn_flops
+    attn_flops, ssd_flops = mixer_flops(cfg, tokens)
+    flops = 6 * n * tokens + attn_flops + ssd_flops
     warm = step_s[1:] if len(step_s) > 1 else step_s
     ms = 1e3 * sum(warm) / len(warm)
     out = dict(
@@ -3058,7 +3149,7 @@ def train_run(device, wrappers, cfg, batch_size, accum, steps_n, cut_from, tag="
         param_count=cfg.param_count(), active_param_count=n,
         state_gb=(param_bytes + moment_bytes) / 1e9,
         reckoned_gb=reckoned / 1e9, base_gb=base / 1e9, peak_gb=peak / 1e9,
-        model_flops=flops, attention_flops=attn_flops,
+        model_flops=flops, attention_flops=attn_flops, ssd_flops=ssd_flops,
         bf16_peak_share=flops / (ms / 1e3) / BF16_DENSE_OPS_PER_S, profile=split,
         profiled_loss=loss, split_s=split_s)
     log(f"{tag}: train_4k length, {cfg.name} bf16 at its published widths ({n_alloc} parameters, "
@@ -3068,8 +3159,8 @@ def train_run(device, wrappers, cfg, batch_size, accum, steps_n, cut_from, tag="
     log(f"{tag}: {steps_n} steps, losses {', '.join(f'{x:.4f}' for x in losses)}; first "
         f"step {out['first_step_ms']:.1f} ms, then {ms:.1f} ms/step, {out['tokens_per_s']:.1f} "
         f"tokens/s; model FLOPs {flops:.4e} a step (6·N·tokens with N = {n} active parameters, "
-        f"plus attention {attn_flops:.4e}) = {100 * out['bf16_peak_share']:.2f}% of the bf16 "
-        f"dense peak (989 TFLOP/s)")
+        f"plus attention {attn_flops:.4e} and the SSD's chunk products {ssd_flops:.4e}) = "
+        f"{100 * out['bf16_peak_share']:.2f}% of the bf16 dense peak (989 TFLOP/s)")
     log(f"{tag}: device memory: {base / 1e9:.3f} GB before the steps (parameters "
         f"{param_bytes / 1e9:.3f} + moments {moment_bytes / 1e9:.3f}), peak {peak / 1e9:.3f} GB "
         f"(reckoned: parameters, accumulated and micro-batch gradients, moments = "
@@ -3169,12 +3260,19 @@ def dense_requests(cfg, prompts, new, seed):
             for i in range(n)]
 
 
+def attention_layers(cfg) -> int:
+    """Layers with attention: all but an ssm model's (its layers are SSD
+    blocks only)."""
+    return 0 if cfg.family == "ssm" else cfg.n_layers
+
+
 def dense_serve(cfg, params, prompts, new, device, wrappers, seed=0):
     """One wave of SERVE_SLOTS requests per prompt length through
     ``ServingEngine.run`` behind MIG admission (SERVE_GPUS A100-80GB, mfi),
     launch counts reset just before and read just after; every request
     admitted and served, every logit finite, ``decode_attention`` launched
-    once per layer and decode step.  Returns the wave's timings."""
+    once per layer with attention and decode step.  Returns the wave's
+    timings."""
     import torch
     from repro_torch.serving import ServingEngine
 
@@ -3205,7 +3303,7 @@ def dense_serve(cfg, params, prompts, new, device, wrappers, seed=0):
     wall = time.perf_counter() - t0
     counts = {k: fn.launches for k, fn in wrappers.items()}
     want = dict.fromkeys(wrappers, 0)
-    want["decode_attention"] = cfg.n_layers * len(decode_s)
+    want["decode_attention"] = attention_layers(cfg) * len(decode_s)
     check(counts == want, f"dense {cfg.name}: launch counts {counts} != expected {want}")
     check(stats["waves"] == len(prompts) == len(prefill_s) and all(finite),
           f"dense {cfg.name}: {stats['waves']} waves, finite logits {all(finite)}")
@@ -3666,6 +3764,114 @@ def moe_phase(device, wrappers):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the state-space and hybrid families
+# ---------------------------------------------------------------------------
+
+
+def ssm_smoke_serving(device):
+    """Each SMOKE's prefill and teacher-forced decode steps on the card
+    against the same on the CPU (float32, TF32 off), under the reference's
+    initialiser and with the weight matrices scaled by 0.1: every logit
+    within the tests' tolerance of its largest magnitude."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import SMOKES
+    from repro_torch.models import model
+
+    cpu = torch.device("cpu")
+    b, prompt, steps = SSM_SMOKE_SERVE
+    out = {}
+    for arch in SSM_ARCHS:
+        cfg = SMOKES[arch]
+        tree = model.params_to_tree(model.init_params(cfg, torch.Generator().manual_seed(0), cpu),
+                                    cfg)
+        rng = np.random.default_rng(0)
+        tokens = rng.integers(0, cfg.vocab, (b, prompt)).astype(np.int32)
+        forced = rng.integers(0, cfg.vocab, (steps, b)).astype(np.int32)
+        for scale, tol in SSM_SMOKE_LOGIT_TOL.items():
+            runs = {}
+            for dev in (cpu, device):
+                params = model.params_from_numpy(scaled_tree(tree, scale), cfg, dev)
+                logits, cache = model.prefill(params, {"tokens": torch.as_tensor(tokens, device=dev)},
+                                              cfg)
+                cache = model.pad_cache(cache, prompt, prompt + steps)
+                rows = [logits]
+                for i in range(steps):
+                    logits, cache = model.decode_step(
+                        params, cache, torch.as_tensor(forced[i], device=dev), prompt + i, cfg)
+                    rows.append(logits)
+                runs[dev.type] = torch.stack(rows).float().cpu()
+            want, got = runs["cpu"], runs[device.type]
+            share = max(float((got[i] - want[i]).abs().max()) / (tol * float(want[i].abs().max()))
+                        for i in range(steps + 1))
+            log(f"ssm: SMOKE {arch} ({cfg.n_layers} layers, H {cfg.ssm_nheads}, N {cfg.ssm_state}"
+                f"{', window ' + str(cfg.window) if cfg.local_global else ''}), weights x{scale:g}, "
+                f"card vs CPU: prefill of {b} x {prompt} tokens and {steps} decode steps, worst "
+                f"logits at {share:.3f} of their limit ({tol:g} of their largest magnitude)")
+            check(share <= 1.0, f"ssm: SMOKE {arch} x{scale:g} logits card vs CPU past their limit")
+            out[f"{arch}_x{scale:g}"] = dict(share_of_limit=share, tolerance=tol)
+    return out
+
+
+def ssm_phase(device, wrappers):
+    """The state-space and hybrid families: the SMOKEs' serving and one
+    SMOKE step card vs CPU; mamba2-2.7b and hymba-1.5b served at full width
+    behind MIG admission with a profiled decode window, then trained at
+    full width."""
+    from repro_torch.configs import ARCHS
+
+    out = {"smoke_serving": ssm_smoke_serving(device),
+           "smoke_step": smoke_arch_steps(device, dict.fromkeys(SSM_ARCHS, SSM_SMOKE_STEP),
+                                          tag="ssm")}
+    launches = 0
+    for arch in SSM_ARCHS:
+        cfg, params, wbytes, draw_s = draw_model(arch, device)
+        warm = dense_serve(cfg, params, [SSM_PROMPT], 3, device, wrappers, seed=1)
+        served = dense_serve(cfg, params, [SSM_PROMPT], SSM_NEW, device, wrappers)
+        steps = served["waves"][0]["decode_steps"]
+        layers = attention_layers(cfg)
+        check(steps == SSM_NEW - 1 and served["launches"] == layers * steps,
+              f"ssm: {arch} decode_attention launches {served['launches']} over {steps} steps")
+        launches += served["launches"]
+        window = decode_window(cfg, params, device, SSM_PROMPT, SSM_PROMPT + SSM_NEW + 1,
+                               SSM_WINDOW_STEPS)
+        w = served["waves"][0]
+        out[f"{arch}_serving"] = dict(weights_gb=wbytes / 1e9, draw_s=draw_s,
+                                      warm_run_s=warm["run_s"], **served, **window)
+        mixer = (f"SSD H {cfg.ssm_nheads}, N {cfg.ssm_state}, P {cfg.ssm_headdim}"
+                 + (f"; attention {cfg.n_heads}/{cfg.n_kv_heads} heads, {cfg.group_pattern} "
+                    f"local/global, window {cfg.window}" if layers else ""))
+        log(f"ssm: {arch} ({cfg.n_layers} layers, d {cfg.d_model}, {mixer}; "
+            f"{cfg.param_count() / 1e9:.3f}B parameters, {wbytes / 1e9:.3f} GB bf16 drawn in "
+            f"{draw_s:.2f} s) behind admission, one wave of {SERVE_SLOTS} x {SSM_PROMPT}-token "
+            f"prompts, {SSM_NEW} new tokens, in {served['run_s']:.3f} s: prefill "
+            f"{w['prefill_ms']:.3f} ms, decode {w['decode_ms_per_step']:.3f} ms/step over {steps} "
+            f"steps; decode_attention launches {served['launches']} = {layers} x {steps}; logits "
+            f"finite; stats {served['stats']}")
+        log(f"ssm: {arch} window ({SSM_WINDOW_STEPS} decode steps from position {SSM_PROMPT}): "
+            f"device busy {window['window_busy_ms']:.3f} ms of {window['window_wall_ms']:.3f} ms "
+            f"wall ({100 * window['busy_share']:.1f}% busy), {window['device_ops_per_step']:.1f} "
+            f"device ops/step; top: "
+            + "; ".join(f"{k} {t:.1f} us x{c}" for k, t, c in window["top"]))
+        del params
+        release()
+
+    for arch in SSM_ARCHS:
+        cfg = ARCHS[arch]
+        n, batch = cfg.param_count(), SSM_TRAIN_BATCH[arch]
+        log(f"ssm: {arch} reckoned before the run: {n} parameters, bf16 parameters and accumulated "
+            f"and micro-batch gradients {3 * 2 * n / 1e9:.3f} GB + float32 moments "
+            f"{8 * n / 1e9:.3f} GB = {14 * n / 1e9:.3f} GB, plus activations; "
+            f"{SSM_TRAIN_STEPS} steps of {batch} x {TRAIN_SEQ} tokens as {cfg.grad_accum} "
+            f"micro-batch(es)")
+        out[f"{arch}_train"] = train_run(device, wrappers, cfg, batch, cfg.grad_accum,
+                                         SSM_TRAIN_STEPS, TRAIN_CUT_FROM, tag="ssm")
+        release()
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3738,9 +3944,12 @@ def main() -> int:
     lap(13)
     experts = moe_phase(device, wrappers)
     lap(14)
+    ssm_families = ssm_phase(device, wrappers)
+    lap(15)
     # each path's launches, counted from zero just before it ran
     by_path = {name: dict.fromkeys(wrappers, 0) for name in (
-        "steady", "fig5", "serving", "decisions", "protocols", "faults", "dense_options", "moe")}
+        "steady", "fig5", "serving", "decisions", "protocols", "faults", "dense_options", "moe",
+        "ssm")}
     by_path["steady"].update(steady)
     by_path["fig5"].update(fig5_launches)
     by_path["serving"]["decode_attention"] = serving["launches"]
@@ -3749,6 +3958,7 @@ def main() -> int:
     by_path["faults"].update(faults["launches"])
     by_path["dense_options"]["decode_attention"] = dense["launches"]
     by_path["moe"]["decode_attention"] = experts["launches"]
+    by_path["ssm"]["decode_attention"] = ssm_families["launches"]
     totals = {k: sum(p[k] for p in by_path.values()) for k in wrappers}
 
     kernels = []
@@ -3756,7 +3966,7 @@ def main() -> int:
         extra = {k: row[k] for k in ("tolerance", "errors", "bound_ratios", "long", "middle", "b1_32k",
                                      "gemma3_ring", "gemma3_wrapped", "qwen3_g5_d128",
                                      "starcoder2_g12_d128", "paligemma_k1_g8_d256",
-                                     "granite_g3", "grok_smoke",
+                                     "granite_g3", "grok_smoke", "hymba_g5_d64",
                                      "library_call_ms", "by_m", "pass0_ms", "pass1_ms")
                  if k in row}
         kernels.append(dict(
@@ -3778,6 +3988,7 @@ def main() -> int:
     log(json.dumps({"train": training}))
     log(json.dumps({"dense_options": dense}))
     log(json.dumps({"moe": experts}))
+    log(json.dumps({"ssm": ssm_families}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

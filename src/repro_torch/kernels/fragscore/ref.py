@@ -93,6 +93,17 @@ def mfi_delta_ref(
     return torch.where(feasible, f_after - f_before[:, None], MFI_BIG)
 
 
+def class_rows(table: torch.Tensor, k: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """``table[k, p]`` for a ``(K, P, …)`` class table and index tensors
+    ``k`` (model) and ``p`` (class) that broadcast together, as one
+    ``index_select`` of whole rows (the same values as advanced indexing,
+    several times faster on the CPU)."""
+    n_k, n_p = table.shape[:2]
+    idx = k.long() * n_p + p.long()
+    rows = table.reshape((n_k * n_p,) + table.shape[2:]).index_select(0, idx.reshape(-1))
+    return rows.reshape(idx.shape + table.shape[2:])
+
+
 def _delta_dense(base, free, f, v, mw, mem, metric: str) -> torch.Tensor:
     """ΔF of every anchor dry-run on rows ``base (..., N)``: ``(..., A)``.
 
@@ -103,17 +114,18 @@ def _delta_dense(base, free, f, v, mw, mem, metric: str) -> torch.Tensor:
     disjoint from the current occupancy); eligibility compares window sizes
     with the post-allocation free count.  Raw (no feasibility mask).
     """
-    ba = base[..., None, :] + mw                           # (..., A, N)
-    vv = v[..., None, :]
+    ba = torch.add(mw, base[..., None, :])                 # (..., A, N)
     if metric == "blocked":
-        counted = ba > 0
+        counted = torch.gt(ba, 0, out=ba)                  # 1.0 / 0.0, in place
     elif metric == "partial":
-        counted = (ba > 0) & (ba < vv)
+        counted = ((ba > 0) & (ba < v[..., None, :])).to(torch.float32)
     else:
         raise ValueError(f"unknown metric {metric!r}")
     free_after = free.to(torch.float32) - mem              # (...)
-    eligible = vv <= free_after[..., None, None]
-    f_after = torch.where(counted & eligible, vv, 0.0).sum(dim=-1)
+    eligible = torch.where(v <= free_after[..., None], v, 0.0)  # (..., N)
+    # the counted windows' sizes summed as a product: the sizes are whole
+    # (or half) slice counts, so the sum is exact in any order
+    f_after = (counted @ eligible[..., None])[..., 0]
     return f_after - f[..., None]
 
 
@@ -122,7 +134,7 @@ def delta_from_base_ref(
 ) -> torch.Tensor:
     """ΔF of every anchor dry-run of each replica's request: ``(R, M, A)``."""
     mi, pi = midx.long()[None, :], pid.long()[:, None]
-    return _delta_dense(base, free, f, V[midx.long()][None], maskwin[mi, pi],
+    return _delta_dense(base, free, f, V[midx.long()][None], class_rows(maskwin, mi, pi),
                         profile_mem[mi, pi], metric)
 
 
@@ -262,30 +274,27 @@ def migrate_refine_ref(
     """
     r, m, _ = base.shape
     p_count = maskwin.shape[1]
-    mi = midx.long()
-    gid = torch.arange(m, device=base.device)[None, :]
-    top = []
-    for p in range(p_count):
-        pid = torch.full((r,), p, dtype=torch.int32, device=base.device)
-        rows = profile_rows[mi, p].long()[None].expand(r, -1, -1)   # (R, M, A)
-        feas = (torch.gather(base, 2, rows) == 0) & profile_valid[mi, p]
-        vals = _fused_vals(
-            keys,
-            lambda: delta_from_base_ref(base, free, f, pid, midx, V, maskwin,
-                                        profile_mem, metric),
-            free.to(torch.float32) - profile_mem[mi, p], gid, profile_anchors[mi, p][None],
-        )
-        col, ok, kr = refine_rows(feas, vals)                       # (R, M), (R, M, L)
-        g1, ok1, g2, ok2 = lex_top2(kr, ok)
-        for g, okg in ((g1, ok1), (g2, ok2)):
-            a = torch.gather(col, 1, g[:, None])[:, 0]
-            k = torch.gather(kr, 1, g[:, None, None].expand(-1, 1, kr.shape[-1]))[:, 0]
-            top.append((g, okg, torch.where(okg, a, 0),
-                        torch.where(okg[:, None], k, BIG)))
-    pass0 = [
-        torch.stack([top[2 * p + i][j] for p in range(p_count)], dim=1)
-        for i in range(2) for j in range(4)
-    ]
+    mi = midx.long()[None, :]                                       # (1, M)
+    pi = torch.arange(p_count, device=base.device)[:, None]         # (P, 1)
+    # every class at once: (R, P, M, A) tables against the state (R, 1, M, …)
+    rows = profile_rows[mi, pi].long()[None].expand(r, -1, -1, -1)  # (R, P, M, A)
+    feas = ((torch.gather(base[:, None].expand(-1, p_count, -1, -1), 3, rows) == 0)
+            & profile_valid[mi, pi])
+    mem = profile_mem[mi, pi]                                       # (P, M)
+    vals = _fused_vals(
+        keys,
+        lambda: _delta_dense(base[:, None], free[:, None], f[:, None], V[mi], maskwin[mi, pi],
+                             mem, metric),
+        free[:, None].to(torch.float32) - mem, torch.arange(m, device=base.device)[None, None],
+        profile_anchors[mi, pi],
+    )
+    col, ok, kr = refine_rows(feas, vals)                           # (R, P, M), (R, P, M, L)
+    g1, ok1, g2, ok2 = lex_top2(kr, ok)                             # (R, P) each
+    pass0 = []
+    for g, okg in ((g1, ok1), (g2, ok2)):
+        a = torch.gather(col, 2, g[..., None])[..., 0]
+        k = torch.gather(kr, 2, g[..., None, None].expand(-1, -1, 1, kr.shape[-1]))[:, :, 0]
+        pass0 += [g, okg, torch.where(okg, a, 0), torch.where(okg[..., None], k, BIG)]
     g1, ok1, a1, k1, g2, ok2, a2, k2 = pass0
 
     kcl, rpl = kc.long(), rp.long()
@@ -294,7 +303,7 @@ def migrate_refine_ref(
     mem = profile_mem[kcl, rpl]                                     # (R, C)
     vals = _fused_vals(
         keys,
-        lambda: _delta_dense(base2, free2, f2, V[kcl], maskwin[kcl, rpl], mem, metric),
+        lambda: _delta_dense(base2, free2, f2, V[kcl], class_rows(maskwin, kcl, rpl), mem, metric),
         free2.to(torch.float32) - mem, rg, profile_anchors[kcl, rpl],
     )
     ap, okp, kp = refine_rows(feas, vals)

@@ -1,4 +1,4 @@
-"""The training step of the dense, vlm and moe families, without sharding rules.
+"""The training step of the decoder families, without sharding rules.
 
 ``train_step(params, opt_state, batch, cfg)`` is the train branch of the
 reference's ``launch/steps.py::build_step``: loss and gradients (over

@@ -2,7 +2,7 @@
 
 The port's copy of the JAX package's :class:`ModelConfig`, field for
 field, so one configuration describes the same model in both packages.
-The port runs the dense, vlm and moe families
+The port runs the dense, vlm, moe, ssm and hybrid families
 (``repro_torch.models.transformer``).
 """
 

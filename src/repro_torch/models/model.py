@@ -1,4 +1,4 @@
-"""Model API of the dense, vlm and moe families: training loss and serving.
+"""Model API of the dense, vlm, moe, ssm and hybrid families: training loss and serving.
 
   * ``param_defs(cfg)`` / ``init_params(cfg, generator, device=None)``
   * ``params_from_numpy(tree, cfg, device=None)`` — the JAX package's
@@ -131,12 +131,18 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device=None):
 
 
 def pad_cache(cache, prefill_len: int, max_len: int):
-    """Grow every KV cache of ``prefill_len`` slots to ``max_len`` (zeros
-    after the prompt), as the reference does: the global layers' linear
-    caches, and a local layer's ring when the prompt was no longer than its
-    window (its ``min(window, prefill_len)`` slots are then the prompt's,
-    in order).  Caches of another length (rings of a longer prompt) pass
-    through unchanged."""
+    """Grow every cache leaf whose axis -3 has ``prefill_len`` entries to
+    ``max_len`` (zeros after the prompt), the reference's rule on every
+    leaf: the global layers' linear KV caches, and a local layer's ring
+    when the prompt was no longer than its window (its ``min(window,
+    prefill_len)`` slots are then the prompt's, in order).  Leaves of
+    another length (rings of a longer prompt) pass through unchanged.
+
+    The rule reaches the SSD leaves too: axis -3 of ``state`` (…, B, H, N,
+    P) is the head count H and of ``conv`` (…, B, W - 1, C) the batch B, so
+    a prompt of H or B tokens grows them, and the first decode step then
+    raises (``transformer._check_ssd_cache``), where the reference's fails
+    on the shapes."""
     if isinstance(cache, dict):
         return {name: pad_cache(x, prefill_len, max_len) for name, x in cache.items()}
     if cache.shape[-3] != prefill_len:

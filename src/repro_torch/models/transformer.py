@@ -1,35 +1,42 @@
 """Decoder-only transformer for training, prefill and decode.
 
 The port's counterpart of the JAX package's ``models/transformer.py`` for
-the dense, vlm and moe families.  The reference stacks its layers into scan
-groups (``n_local`` sliding-window + ``n_global`` full-attention layers,
-leading ``(n_groups, n_layer)`` parameter axes) and runs ``lax.scan`` over
-them; here the parameters are held by :class:`Transformer`, an
-``nn.Module`` with one :class:`Params` module per layer in an
-``nn.ModuleList`` in depth order (each group's local layers, then its
-global ones), and the stack is a Python loop over it (rematerialised in
-groups when training).  The parameter definitions (:func:`model_defs`)
-keep the reference's stacked tree (``groups/local``, ``groups/global``,
-``vision_proj``), so the same tree (drawn here, or carried over from the
-reference) builds the module.
+the dense, vlm, moe, ssm and hybrid families.  The reference stacks its
+layers into scan groups (``n_local`` sliding-window + ``n_global``
+full-attention layers, leading ``(n_groups, n_layer)`` parameter axes)
+and runs ``lax.scan`` over them; here the parameters are held by
+:class:`Transformer`, an ``nn.Module`` with one :class:`Params` module per
+layer in an ``nn.ModuleList`` in depth order (each group's local layers,
+then its global ones), and the stack is a Python loop over it
+(each layer rematerialised when training).  The parameter definitions
+(:func:`model_defs`) keep the reference's stacked tree (``groups/local``,
+``groups/global``, ``vision_proj``), so the same tree (drawn here, or
+carried over from the reference) builds the module.
 
-Ported layer options: RoPE, qk-norm, post-norms, swiglu/geglu/gelu MLPs,
-sliding-window (local) layers, and the vision prefix (``frontend ==
-"vision"``: projected patch embeddings in front of the tokens), and the
-mixture-of-experts MLP (``family == "moe"``, :mod:`repro_torch.models.moe`).
-The ssm/hybrid/encdec families and learned positions raise
-``NotImplementedError`` (ROADMAP.md §1 item 6).
+Ported layer options: RoPE (or no positions, ``pos == "none"``), qk-norm,
+post-norms, swiglu/geglu/gelu MLPs, sliding-window (local) layers, the
+vision prefix (``frontend == "vision"``: projected patch embeddings in
+front of the tokens), the mixture-of-experts MLP (``family == "moe"``,
+:mod:`repro_torch.models.moe`), the Mamba-2 SSD layer (``family ==
+"ssm"``: ``ln1`` and the SSD block, no attention and no MLP) and the
+hybrid layer (``family == "hybrid"``: attention and SSD heads side by side
+on the same ``ln1`` output, each normed and averaged, then the MLP;
+:mod:`repro_torch.models.ssm`).  The encdec family and learned positions
+raise ``NotImplementedError`` (ROADMAP.md §1 item 6 (b4)).
 
-KV cache: ``{"local": {"k", "v"}, "global": {"k", "v"}}`` (``"local"``
-only where the groups have local layers), each ``(layers of that kind, B,
-C, KV, hd)`` with the element order of the reference's ``(n_groups,
-n_local | n_global, B, C, KV, hd)`` leaves.  A global layer's cache is
-linear (slot = position); a local layer's is a ring of
-``C = min(window, seq_len)`` slots (slot = position % C), or a linear
+Cache: ``{"local": {...}, "global": {...}}`` (``"local"`` only where the
+groups have local layers), each leaf ``(layers of that kind, B, ...)``
+with the element order of the reference's ``(n_groups, n_local |
+n_global, B, ...)`` leaves.  A kind with attention holds ``"k"`` and
+``"v"`` ``(…, B, C, KV, hd)``; with the ssm and hybrid families it holds
+the SSD state ``"state"`` ``(…, B, H, N, P)`` float32 and the conv
+history ``"conv"`` ``(…, B, W - 1, C)`` in the model dtype.  A global
+layer's KV cache is linear (slot = position); a local layer's is a ring
+of ``C = min(window, seq_len)`` slots (slot = position % C), or a linear
 cache grown past the window by ``model.pad_cache`` when the prompt was no
-longer than the window.  :func:`decode` writes the new token's keys and
-values into it in place (the reference returns an updated copy) and
-returns it.
+longer than the window.  :func:`decode` writes the new token's keys,
+values, state and conv history into the cache in place (the reference
+returns an updated copy) and returns it.
 """
 
 from __future__ import annotations
@@ -40,19 +47,22 @@ from typing import Dict, List, Optional
 import torch
 from torch import nn
 
-from repro_torch.models import common, moe
+from repro_torch.models import common, moe, ssm
 from repro_torch.models.config import ModelConfig
 
 ParamDef = common.ParamDef
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "vlm", "moe"):
+    """Refuse what is still to port: the encdec family and learned
+    positions (ROADMAP.md §1 item 6 (b4))."""
+    if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP.md §1 item 6)")
-    if cfg.pos != "rope":
+    if cfg.pos not in ("rope", "none"):
         raise NotImplementedError(
-            f"positions {cfg.pos!r} are not ported yet; only RoPE (ROADMAP.md §1 item 6)")
+            f"positions {cfg.pos!r} are not ported yet; only RoPE or none "
+            "(ROADMAP.md §1 item 6)")
 
 
 # ---------------------------------------------------------------------------
@@ -84,9 +94,15 @@ def mlp_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
 
 def layer_defs(cfg: ModelConfig) -> Dict[str, object]:
     d = cfg.d_model
+    if cfg.family == "ssm":
+        return {"ln1": common.rms_norm_def(d), "ssm": ssm.ssm_defs(cfg)}
     defs = {"ln1": common.rms_norm_def(d), "attn": attn_defs(cfg),
             "ln2": common.rms_norm_def(d),
             "mlp": moe.moe_defs(cfg) if cfg.family == "moe" else mlp_defs(cfg)}
+    if cfg.family == "hybrid":
+        defs["ssm"] = ssm.ssm_defs(cfg)
+        defs["attn_out_norm"] = common.rms_norm_def(d)
+        defs["ssm_out_norm"] = common.rms_norm_def(d)
     if cfg.post_norm:
         defs["post_ln1"] = common.rms_norm_def(d)
         defs["post_ln2"] = common.rms_norm_def(d)
@@ -198,8 +214,9 @@ def _qkv(p: Params, h_in: torch.Tensor, cfg: ModelConfig, positions: torch.Tenso
     if cfg.qk_norm:
         q = common.rms_norm(q, p.q_norm)
         k = common.rms_norm(k, p.k_norm)
-    q = common.rope(q, positions, cfg.rope_theta)
-    k = common.rope(k, positions, cfg.rope_theta)
+    if cfg.pos == "rope":
+        q = common.rope(q, positions, cfg.rope_theta)
+        k = common.rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -305,19 +322,60 @@ def _residual(p: Params, x: torch.Tensor, attn_out: torch.Tensor, cfg: ModelConf
     return x + m
 
 
+def _mix(p: Params, attn_out: torch.Tensor, ssm_out: torch.Tensor) -> torch.Tensor:
+    """The hybrid layer's two heads, each normed, averaged."""
+    return 0.5 * (common.rms_norm(attn_out, p.attn_out_norm)
+                  + common.rms_norm(ssm_out, p.ssm_out_norm))
+
+
 def layer_forward(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
-                  window: Optional[int], positions):
-    """One layer, training or prefill. Returns (x, (k, v))."""
-    attn_out, kv = attention_block(p.attn, common.rms_norm(x, p.ln1), cfg,
-                                   window=window, positions=positions)
-    return _residual(p, x, attn_out, cfg), kv
+                  window: Optional[int], positions, want_cache: bool = False):
+    """One layer, training or prefill. Returns (x, cache entry): with
+    ``want_cache``, the layer's keys and values ``{"k", "v"}`` (B, S, KV,
+    hd) where it has attention and its SSD cache ``{"state", "conv"}``
+    where it has an SSD block; else None."""
+    h_in = common.rms_norm(x, p.ln1)
+    entry: Dict[str, torch.Tensor] = {}
+
+    def ssd(p_ssm):
+        if not want_cache:
+            return ssm.ssm_forward(p_ssm, h_in, cfg)
+        y, cache = ssm.ssm_forward(p_ssm, h_in, cfg, return_cache=True)
+        entry.update(cache)
+        return y
+
+    if cfg.family == "ssm":
+        x = x + ssd(p.ssm)
+    else:
+        attn_out, (entry["k"], entry["v"]) = attention_block(
+            p.attn, h_in, cfg, window=window, positions=positions)
+        if cfg.family == "hybrid":
+            attn_out = _mix(p, attn_out, ssd(p.ssm))
+        x = _residual(p, x, attn_out, cfg)
+    return x, entry if want_cache else None
 
 
-def layer_decode(p: Params, x: torch.Tensor, k_cache, v_cache, cfg: ModelConfig, *,
-                 pos: int, span: DecodeSpan) -> torch.Tensor:
-    """One layer, single-token decode. x: (B, D)."""
-    attn_out = attention_decode(p.attn, common.rms_norm(x, p.ln1), k_cache, v_cache,
-                                cfg, pos=pos, span=span)
+def _ssd_decode(p: Params, h_in: torch.Tensor, cache: Dict[str, torch.Tensor],
+                cfg: ModelConfig) -> torch.Tensor:
+    """The SSD block's decode step; the new state and conv history are
+    written into the layer's cache in place."""
+    y, new = ssm.ssm_decode_step(p, h_in, cache, cfg)
+    cache["state"].copy_(new["state"])
+    cache["conv"].copy_(new["conv"])
+    return y
+
+
+def layer_decode(p: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor],
+                 cfg: ModelConfig, *, pos: int, span: Optional[DecodeSpan]) -> torch.Tensor:
+    """One layer, single-token decode. x: (B, D); ``cache`` holds this
+    layer's leaves (``k``/``v`` (B, C, KV, hd), ``state``/``conv``), which
+    are written in place."""
+    h_in = common.rms_norm(x, p.ln1)
+    if cfg.family == "ssm":
+        return x + _ssd_decode(p.ssm, h_in, cache, cfg)
+    attn_out = attention_decode(p.attn, h_in, cache["k"], cache["v"], cfg, pos=pos, span=span)
+    if cfg.family == "hybrid":
+        attn_out = _mix(p, attn_out, _ssd_decode(p.ssm, h_in, cache, cfg))
     return _residual(p, x, attn_out, cfg)
 
 
@@ -328,18 +386,30 @@ def layer_decode(p: Params, x: torch.Tensor, k_cache, v_cache, cfg: ModelConfig,
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                device: Optional[torch.device] = None) -> Dict[str, Dict[str, torch.Tensor]]:
-    """Zeroed KV caches: ``global`` ``{"k", "v"}: (n_groups·n_global, B,
-    seq_len, KV, hd)`` and, with local layers, ``local`` of
-    ``min(window, seq_len)`` ring slots."""
+    """Zeroed caches: ``global`` of ``n_groups·n_global`` layers and, with
+    local layers, ``local``; where the layers have attention, ``{"k",
+    "v"}: (layers, B, C, KV, hd)`` with ``C = seq_len`` (global) or
+    ``min(window, seq_len)`` ring slots (local); where they have an SSD
+    block, ``state`` (layers, B, H, N, P) float32 and ``conv`` (layers,
+    B, W - 1, C) in the model dtype."""
     _check_supported(cfg)
     n_local, n_global = cfg.group_pattern
     kinds = {"global": (n_global, seq_len)}
     if n_local:
         kinds = {"local": (n_local, min(cfg.window, seq_len)), **kinds}
-    return {kind: {name: torch.zeros((cfg.n_groups * n, batch, c, cfg.n_kv_heads, cfg.head_dim),
-                                     dtype=cfg.torch_dtype, device=device)
-                   for name in ("k", "v")}
-            for kind, (n, c) in kinds.items()}
+    out = {}
+    for kind, (n, c) in kinds.items():
+        layers = cfg.n_groups * n
+        leaves = {}
+        if cfg.family != "ssm":
+            for name in ("k", "v"):
+                leaves[name] = torch.zeros((layers, batch, c, cfg.n_kv_heads, cfg.head_dim),
+                                           dtype=cfg.torch_dtype, device=device)
+        if cfg.family in ("ssm", "hybrid"):
+            for name, t in ssm.ssm_init_cache(cfg, batch, cfg.torch_dtype, device).items():
+                leaves[name] = t.expand((layers,) + t.shape).contiguous()
+        out[kind] = leaves
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -374,36 +444,37 @@ def forward(params: Transformer, batch: Dict[str, torch.Tensor], cfg: ModelConfi
             train: bool = False, return_cache: bool = False):
     """Run the decoder stack. Returns (hidden (B,S,D), cache or None).
 
-    ``train=True`` rematerialises the layer groups (:func:`common.remat_scan`)
-    for the backward pass; it returns no cache.
+    ``train=True`` rematerialises the layers (:func:`common.remat_scan`) for
+    the backward pass, one checkpoint a layer (the reference's are its scan
+    groups: a group of hymba-1.5b's sixteen layers would keep all sixteen
+    layers' SSD tensors at once; the numbers are the same); it returns no
+    cache.
     """
     if train and return_cache:
         raise ValueError("a training forward returns no cache")
     x, positions = embed_inputs(params, batch, cfg)
-    kinds = layer_kinds(cfg)
-    per_group = len(kinds) // cfg.n_groups
-    layers = list(zip(params.layers, kinds))
-    groups = [layers[g * per_group:(g + 1) * per_group] for g in range(cfg.n_groups)]
-    caches: Dict[str, Dict[str, list]] = {}
+    layers = list(zip(params.layers, layer_kinds(cfg)))
+    caches: Dict[str, Dict[str, List[torch.Tensor]]] = {}
 
-    def group_body(x, group):
-        for p, kind in group:
-            window = cfg.window if kind == "local" else None
-            x, (k, v) = layer_forward(p, x, cfg, window=window, positions=positions)
-            if return_cache:
-                if window is not None:
-                    k, v = _ring(k, window), _ring(v, window)
-                kv = caches.setdefault(kind, {"k": [], "v": []})
-                kv["k"].append(k)
-                kv["v"].append(v)
+    def body(x, layer):
+        p, kind = layer
+        window = cfg.window if kind == "local" else None
+        x, entry = layer_forward(p, x, cfg, window=window, positions=positions,
+                                 want_cache=return_cache)
+        if return_cache:
+            if window is not None and "k" in entry:
+                entry["k"], entry["v"] = _ring(entry["k"], window), _ring(entry["v"], window)
+            leaves = caches.setdefault(kind, {})
+            for name, t in entry.items():
+                leaves.setdefault(name, []).append(t)
         return x
 
-    x = common.remat_scan(group_body, x, groups, train=train)
+    x = common.remat_scan(body, x, layers, train=train)
     x = common.rms_norm(x, params.final_norm)
     if not return_cache:
         return x, None
-    return x, {kind: {name: torch.stack(ts) for name, ts in kv.items()}
-               for kind, kv in caches.items()}
+    return x, {kind: {name: torch.stack(ts) for name, ts in leaves.items()}
+               for kind, leaves in caches.items()}
 
 
 def logits_of(params: Transformer, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -413,6 +484,30 @@ def logits_of(params: Transformer, x: torch.Tensor, cfg: ModelConfig) -> torch.T
     return common.mask_padded_logits(logits, cfg.vocab)
 
 
+def _check_ssd_cache(cache: Dict[str, Dict[str, torch.Tensor]], cfg: ModelConfig,
+                     batch: int) -> None:
+    """Refuse SSD leaves that ``model.pad_cache`` grew.
+
+    ``pad_cache`` keeps the reference's rule: it grows every cache leaf
+    whose axis -3 equals the prompt length.  That axis of ``state``
+    (…, B, H, N, P) is the head count H, and of ``conv`` (…, B, W - 1, C)
+    the batch B, so a prompt of H or B tokens pads them, and the
+    reference's first decode step then fails on the shapes.  Decoding such
+    a state here would be wrong, so it raises too.
+    """
+    want = {"state": (batch, cfg.ssm_nheads, cfg.ssm_state, cfg.ssm_headdim),
+            "conv": (batch, cfg.conv_width - 1, cfg.ssm_dinner + 2 * cfg.ssm_state)}
+    for kind, leaves in cache.items():
+        for name, shape in want.items():
+            if name in leaves and tuple(leaves[name].shape[1:]) != shape:
+                raise ValueError(
+                    f"the {kind} layers' SSD {name!r} cache is {tuple(leaves[name].shape[1:])}, "
+                    f"not {shape}: model.pad_cache grew its axis -3 because it equals the "
+                    f"prompt length (the reference's rule, under which the reference's decode "
+                    f"fails here too); a prompt of {cfg.ssm_nheads} (H) or {batch} (B) tokens "
+                    f"cannot be decoded")
+
+
 def decode(params: Transformer, cache: Dict[str, Dict[str, torch.Tensor]], token: torch.Tensor,
            pos: int, cfg: ModelConfig):
     """One decode step. token: (B,) at position ``pos`` (a Python int, one
@@ -420,14 +515,15 @@ def decode(params: Transformer, cache: Dict[str, Dict[str, torch.Tensor]], token
     prefix). Returns (logits (B, V), cache updated in place)."""
     x = params.embed[token.long()].to(cfg.torch_dtype) * (cfg.d_model ** 0.5)
     b = x.shape[0]
-    spans = {kind: DecodeSpan(kv["k"].shape[2], pos, cfg.window if kind == "local" else None,
-                              b, x.device)
-             for kind, kv in cache.items()}
+    _check_ssd_cache(cache, cfg, b)
+    spans = {kind: DecodeSpan(leaves["k"].shape[2], pos,
+                              cfg.window if kind == "local" else None, b, x.device)
+             for kind, leaves in cache.items() if "k" in leaves}
     index = dict.fromkeys(cache, 0)
     for p, kind in zip(params.layers, layer_kinds(cfg)):
         i = index[kind]
         index[kind] = i + 1
-        x = layer_decode(p, x, cache[kind]["k"][i], cache[kind]["v"][i], cfg, pos=pos,
-                         span=spans[kind])
+        x = layer_decode(p, x, {name: t[i] for name, t in cache[kind].items()}, cfg, pos=pos,
+                         span=spans.get(kind))
     x = common.rms_norm(x, params.final_norm)
     return logits_of(params, x, cfg), cache

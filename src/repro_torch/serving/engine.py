@@ -4,9 +4,10 @@ The engine closes the paper's loop end to end: tenant requests arrive with
 a MIG profile demand; :class:`AdmissionController` (MFI or a baseline
 policy) places or rejects them on the simulated A100 fleet; admitted
 requests run real model steps — a shared batched prefill followed by
-token-by-token decode with a common KV cache, whose attention is the
-hand-written ``decode_attention`` CUDA kernel on the card — and completion
-releases the MIG slices.
+token-by-token decode with a common cache (keys and values, whose
+attention is the hand-written ``decode_attention`` CUDA kernel on the
+card, and with the ssm and hybrid families the SSD state and conv
+history) — and completion releases the MIG slices.
 
 Batching model: requests are served in waves of up to ``num_slots`` (one
 shared position counter per wave; prompts within a wave have equal

@@ -82,7 +82,9 @@ from repro_torch.core.policy import (
 )
 from repro_torch.device import resolve_device
 from repro_torch.kernels.fragscore import fragscore as _k
-from repro_torch.kernels.fragscore.ref import BIG, first_true, lex_argmin, lex_top2, refine_rows
+from repro_torch.kernels.fragscore.ref import (
+    BIG, class_rows, first_true, lex_argmin, lex_top2, refine_rows,
+)
 from repro_torch.sim import distributions
 from repro_torch.sim.simulator import (
     SAMPLE_EVERY,
@@ -268,8 +270,9 @@ def _delta_from_base(base, free, metric: str, v, mw, mp, mem_g, f_before):
     ``profile_mem[midx, pid]`` (the migrate search gathers them per victim).
     For the "blocked" metric the counted predicate after a placement
     decomposes as ``(base > 0) | (mw > 0)``, so the table is an occupied sum
-    plus one batched contraction; "partial" needs the dense ``(..., M, A,
-    N)`` form.  Integer-valued, exact.
+    plus one batched contraction over ``mp`` (``mw`` is not read and may be
+    None); "partial" needs the dense ``(..., M, A, N)`` form.
+    Integer-valued, exact.
     """
     free_after = free.to(torch.float32) - mem_g  # (..., M)
     elig = v <= free_after[..., None]            # (..., M, N)
@@ -282,9 +285,15 @@ def _delta_from_base(base, free, metric: str, v, mw, mp, mem_g, f_before):
     else:
         cb = base > 0                            # (..., M, N)
         s_occ = torch.where(cb & elig, v, 0.0).sum(dim=-1)  # (..., M)
-        cross = (torch.where(~cb & elig, v, 0.0)[..., None, :] * mp).sum(dim=-1)
+        cross = (mp @ torch.where(~cb & elig, v, 0.0)[..., None])[..., 0]
         f_after = s_occ[..., None] + cross
     return f_after - f_before[..., None]
+
+
+def _maskwin_rows(tables, metric: str, k, p):
+    """``maskwin[k, p]`` where :func:`_delta_from_base` reads it (the
+    "partial" metric), else None."""
+    return class_rows(tables.maskwin, k, p) if metric == "partial" else None
 
 
 def make_frag_fn(metric: str = "blocked", model: mig.DeviceModel = mig.A100_80GB,
@@ -446,8 +455,8 @@ def _select(spec, base, free, f, metric, tables, midx, vg, pid, cursor,
             delta = delta_fn(base, free, f, pid)
         else:
             delta = _delta_from_base(
-                base, free, metric, vg, tables.maskwin[mi, pi],
-                tables.maskpos[mi, pi], mem_g, f,
+                base, free, metric, vg, _maskwin_rows(tables, metric, mi, pi),
+                class_rows(tables.maskpos, mi, pi), mem_g, f,
             )
     return _lower_select(spec, feasible, free, mem_g, delta, anchors_g, cursor, midx)
 
@@ -596,7 +605,8 @@ def _victims(spec, metric, tables, midx, vg, base, free, rg, rm, rp, ra, pid_c, 
     delta_req = None
     if spec.requires_delta_f:
         delta_req = _delta_from_base(
-            base_v, free_v, metric, vgc, tables.maskwin[kc, pc], tables.maskpos[kc, pc],
+            base_v, free_v, metric, vgc, _maskwin_rows(tables, metric, kc, pc),
+            class_rows(tables.maskpos, kc, pc),
             mem_req, f_v,
         )
     aidx_req, ok_req = _refine_rows(
@@ -691,8 +701,8 @@ def _delta_patch(tables, metric, v, rp):
     """ΔF of each victim's class on its patched row, ``(R, C, A)``."""
     kc, rpl = v["kc"], rp.long()
     return _delta_from_base(
-        v["base2"], v["free2"], metric, v["vgc"], tables.maskwin[kc, rpl],
-        tables.maskpos[kc, rpl], tables.profile_mem[kc, rpl], v["f2"],
+        v["base2"], v["free2"], metric, v["vgc"], _maskwin_rows(tables, metric, kc, rpl),
+        class_rows(tables.maskpos, kc, rpl), tables.profile_mem[kc, rpl], v["f2"],
     )
 
 

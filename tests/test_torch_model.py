@@ -102,9 +102,10 @@ def flat(tree, prefix=()):
     return {prefix: tree}
 
 
-#: the architectures the port runs: the reference's dense-layer and moe ones
-PORTED = ["gemma3-12b", "granite-moe-3b-a800m", "grok-1-314b", "llama3.2-1b", "llama3.2-1b-sw",
-          "paligemma-3b", "qwen3-14b", "starcoder2-15b"]
+#: the architectures the port runs: the reference's dense-layer, moe, ssm
+#: and hybrid ones
+PORTED = ["gemma3-12b", "granite-moe-3b-a800m", "grok-1-314b", "hymba-1.5b", "llama3.2-1b",
+          "llama3.2-1b-sw", "mamba2-2.7b", "paligemma-3b", "qwen3-14b", "starcoder2-15b"]
 
 
 def test_configs_are_the_references():
@@ -122,7 +123,7 @@ def test_configs_are_the_references():
     # the reference gives the sliding-window variant the windowless SMOKE
     assert SMOKES["llama3.2-1b-sw"] is SMOKES["llama3.2-1b"]
     with pytest.raises(ValueError, match="unknown arch"):
-        get_config("mamba2-2.7b")
+        get_config("whisper-large-v3")
 
 
 @pytest.mark.parametrize("arch", PORTED)
@@ -240,18 +241,16 @@ def test_init_cache_matches_reference_layout():
 
 
 @pytest.mark.parametrize("change", [
-    dict(family="hybrid", ssm_state=16, ssm_headdim=32, ssm_chunk=32),
     dict(pos="learned"),
-    dict(family="ssm", n_heads=1, n_kv_heads=1, d_ff=0, ssm_state=32, ssm_headdim=32,
-         ssm_chunk=32, pos="none"),
     "whisper-large-v3",
-], ids=["hybrid", "learned-positions", "ssm", "encdec-whisper"])
+], ids=["learned-positions", "encdec-whisper"])
 def test_unported_variants_raise(change):
-    """The families of ROADMAP.md §1 item 6 (b3)-(b4) and learned positions
+    """The encdec family of ROADMAP.md §1 item 6 (b4) and learned positions
     are refused; the layer options they replaced here (local/global groups,
     qk-norm, post-norms) are ported and held in
     ``tests/test_torch_dense_options.py``, the moe family in
-    ``tests/test_torch_moe.py``."""
+    ``tests/test_torch_moe.py``, the ssm and hybrid families in
+    ``tests/test_torch_ssm.py``."""
     if isinstance(change, str):
         cfg = TConfig(**dataclasses.asdict(J_SMOKES[change]))
     else:
