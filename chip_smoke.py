@@ -29,10 +29,10 @@ Phases, each printing its own lines:
 5. the paper's experiment at full width (M = 100 A100-80GB, uniform mix,
    offered load 1.0, seed 0, R = 500) for mfi, ff, bf-bi, wf-bi, rr, a
    delta-only mfi spec and mfi-defrag, once through the kernels (mfi and
-   mfi-defrag over the whole stream, the others over its first 1,000
+   mfi-defrag over the whole stream, the others over its first 500
    events; launch counts reset just before and read just after) and once
-   through the plain lowering over the first 250 of the same events: traces equal
-   there, launch counts matching the events; then a profiled 64-event window of the mfi, the
+   through the plain lowering over the first 128 of the same events: traces equal
+   there, launch counts matching the events; then a profiled 32-event window of the mfi, the
    delta-only and the mfi-defrag step, each also run unprofiled, the
    kernel path's event loop under ``torch.cuda.set_sync_debug_mode("error")``
    (no host sync); then the paper's Fig. 5 through the kernels (ff, rr,
@@ -64,9 +64,11 @@ Phases, each printing its own lines:
    S = 1,057 = prompt + new + 1) and (k) grok-1-314b's SMOKE (K = 2,
    G = 2, float32, S = 41), and phase 15's (l) hymba-1.5b's local cache
    padded past its window (B = 4, K = 5, G = 5, D = 64, bf16, S = 1,042,
-   start = pos - 1,023); for (a)-(l) its device time, time per call,
-   bound, plain time and the time of ``scaled_dot_product_attention``
-   (the kernel must beat it at (b));
+   start = pos - 1,023), and phase 16's (m) whisper-large-v3's self cache
+   (B = 4, K = 20, G = 1, D = 64, bf16, S = 144 read whole) and (n) its
+   cross cache (S = 1,536 frames read whole); for (a)-(n) its device time,
+   time per call, bound, plain time and the time of
+   ``scaled_dot_product_attention`` (the kernel must beat it at (b));
 7. the serving path at full width: ``llama3.2-1b`` (bf16, random weights
    from a ``torch.Generator`` seeded 0) behind the MIG admission controller
    (4 A100-80GB GPUs, mfi, 16 requests of the uniform mix, prompts of 128
@@ -103,25 +105,25 @@ Phases, each printing its own lines:
     (``sim/replay.py``) and ``run_batched`` to the host engine's
     ``run_many``; the reference's two pinned queued hashes with the
     kernels on; the queued protocol at M = 100, load 1.1, R = 500 for mfi
-    (its whole stream) and mfi-queued (its first 1,000 events), kernel
-    equal to plain over the first 250 events,
+    (its whole stream) and mfi-queued (its first 500 events), kernel
+    equal to plain over the first 128 events,
     with its wait percentiles,
     fairness, wait-admits and ``select_from_base`` launches per event (2),
     and on 4 of its replicas the card's trace equal to
     ``queued_host_decisions``;
     every kernel-path loop under ``set_sync_debug_mode("error")``, launch
-    counts reset just before each run; a profiled 64-event window of the
+    counts reset just before each run; a profiled 32-event window of the
     queued mfi loop;
 11. the faulted protocol and the chunked driver: the reference's two
     pinned faulted hashes with the kernels on; the faulted protocol at
     M = 100, load 1.1, MTBF 60, MTTR 10, wait ring 8, patience 16, seed 0,
     R = 500 for mfi (the kernel path over the whole stream) and mfi-queued
-    and ff (its first 250 events), kernel path equal to plain in every
-    field over the first 250 events, launches per event exact (``fragscore`` 3,
+    and ff (its first 128 events), kernel path equal to plain in every
+    field over the first 128 events, launches per event exact (``fragscore`` 3,
     ``delta_from_base`` 2 for the ΔF policies, ``select_from_base`` 0), the
     kernel loop under ``set_sync_debug_mode("error")``, evictions > 0 and
     the fault keys of the run; on 4 of its replicas the card's trace equal
-    to ``replay.faulted_host_decisions``; a profiled 64-event faulted
+    to ``replay.faulted_host_decisions``; a profiled 32-event faulted
     window; the mfi rows of ``experiments/fig_faults_batched_30.csv`` (R =
     30 each, as five blocks of one run) and their queued anchor through
     ``run_batched`` (printed beside the recorded rows, not asserted), and
@@ -143,7 +145,7 @@ Phases, each printing its own lines:
     ``launch/train.py --arch llama3.2-1b --smoke --steps 50 --batch 8
     --seq 128`` as it stands, which must print LEARNING; (d) at full width
     (bf16, random weights seeded 0, float32 moments) ``launch/train.py
-    --arch llama3.2-1b --steps 10 --batch 8 --seq 128`` and two
+    --arch llama3.2-1b --steps 5 --batch 8 --seq 128`` and two
     ``steps.train_step`` steps at train_4k's S = 4,096 with a global batch
     of 8 (cut from 256) as 4 micro-batches of 2, every loss finite, with
     ms per step, tokens/s, peak device memory against its reckoning, model
@@ -214,7 +216,30 @@ Phases, each printing its own lines:
     loss finite, with ms per step, tokens/s, peak memory, model FLOPs and a
     profiled micro-batch split (attention, the SSD chunk scan, CE,
     optimizer, the rest); then a ``{"ssm": ...}`` line;
-16. a ``{"kernels": [...]}`` JSON line (each kernel's launches in total
+16. the encoder-decoder family (whisper-large-v3, bf16 from a
+    ``torch.Generator`` seeded 0): (a) its SMOKE prefilled on 4 x (64
+    frames + 64 tokens), so that ``pad_cache`` grows the cross cache as
+    the reference's does, and decoded 8 teacher-forced steps on the card
+    and the CPU (float32, TF32 off), logits and every cache leaf within
+    the tests' tolerances with the weight matrices scaled by 0.1 and
+    within twice the CPU's own one-ulp spread at this shape under the
+    reference's initialiser, and one SMOKE step (the loss, every
+    gradient leaf, ``train_step``) as phase 12's; (b) whisper-large-v3
+    (32 + 32 layers, d 1,280, 20 heads over 20 KV heads, 3.15 GB)
+    prefilled through ``model`` on 4 x (1,536 frames + 128 tokens), the
+    caches padded to 144 slots (the cross cache of 1,536 frames is not
+    grown), 16 decode steps, ``decode_attention`` launched twice per
+    decoder layer and step (self and cross: 64; counts reset just before
+    the prefill and read just after the last step), every logit finite,
+    prefill and decode times and a profiled window of 8 decode steps; (c)
+    whisper trained at train_4k's S = 4,096 as 2,048 frames + 2,048
+    tokens, a global batch of 4 (cut from 256) as 2 micro-batches of 2, 2
+    steps, every loss finite, with ms per step, tokens/s, peak memory,
+    model FLOPs (6·(N_enc·frames + N_dec·tokens) plus the attention
+    products) and a profiled micro-batch split (encoder attention,
+    decoder self-attention, cross-attention, CE, optimizer, matmuls, the
+    rest); then an ``{"encdec": ...}`` line;
+17. a ``{"kernels": [...]}`` JSON line (each kernel's launches in total
     and by path), then the result line.
 
 Every equality of phases 3-5 and 8-11 is exact: all scores are integers
@@ -329,13 +354,13 @@ RUNS = 500
 #: phase 5 holds the plain path to the kernel path over the paper point's
 #: first this many events (the kernel path runs all of them), which keeps
 #: the whole script well inside its time limit on a slow host
-PLAIN_EVENTS = 250
+PLAIN_EVENTS = 128
 #: events of each profiled engine window (phases 5, 10, 11)
-WINDOW_EVENTS = 64
+WINDOW_EVENTS = 32
 #: the kernel path of phase 5's side policies (ff, bf-bi, wf-bi, rr,
 #: mfi-delta-only) and of phase 10's mfi-queued: their stream's first this
 #: many events (mfi and mfi-defrag take whole streams)
-SIDE_EVENTS = 1000
+SIDE_EVENTS = 500
 #: phase 3's mixed fleet of four device models
 FOUR_MODEL_FLEET = "a100-80:30,a100-40:30,h100-96:20,h100-80:20"
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
@@ -465,6 +490,37 @@ SSM_SMOKE_STEP = (4, 128)
 #: the tests' logit tolerances (tests/test_torch_ssm.py): under the
 #: reference's initialiser and with the weight matrices scaled by 0.1
 SSM_SMOKE_LOGIT_TOL = {1.0: 1e-3, 0.1: 2e-5}
+#: phase 16, the encoder-decoder family: whisper-large-v3 at full width
+#: (bf16, 32 + 32 layers, 20 heads over 20 KV heads: G = 1) prefilled on
+#: one wave of 4 x (1,536 frames + 128 tokens) and decoded 16 steps through
+#: model (the serving engine's prefill passes tokens only, as the
+#: reference's), a profiled window of 8 steps; 1,536 frames, not the
+#: published 1,500, because blockwise_attention's tiles of 512 must divide
+#: the frames in both packages; trained at train_4k's S = 4,096 split into
+#: 2,048 frames + 2,048 tokens (src/repro/launch/shapes.py:43-47), a
+#: global batch of 4 (cut from 256) as 2 micro-batches of 2, 2 steps
+ENCDEC_ARCH = "whisper-large-v3"
+ENCDEC_FRAMES = 1536
+ENCDEC_PROMPT = 128
+ENCDEC_NEW = 16
+ENCDEC_WINDOW_STEPS = 8
+ENCDEC_TRAIN_BATCH = 4
+ENCDEC_TRAIN_ACCUM = 2
+ENCDEC_TRAIN_STEPS = 2
+#: the SMOKE card vs CPU: (B, frames = prompt, decode steps), so pad_cache
+#: grows the cross cache as in the reference; the SMOKE step (B, S of
+#: frames and of tokens); the tolerances of the logits and of every cache
+#: leaf, relative to their largest magnitude.  With the weight matrices
+#: scaled by 0.1, the tests' (tests/test_torch_encdec.py).  Under the
+#: reference's initialiser the SMOKE is chaotic and its spread grows with
+#: the prompt and the steps: at this shape a one-ulp nudge of the weights
+#: moves the port's own CPU logits by 1.0e-2 and its caches by 1.5e-3
+#: (measured on the CPU; the tests' 5e-3 and 2e-3 were measured at B 2,
+#: 16 or 32 frames, 4 steps, where that spread is 4.4e-4 and 8.0e-5), so
+#: the card is held there at 2e-2 and 3e-3
+ENCDEC_SMOKE_SERVE = (4, 64, 8)
+ENCDEC_SMOKE_STEP = (4, 64)
+ENCDEC_SMOKE_TOL = {1.0: (2e-2, 3e-3), 0.1: (2e-5, 2e-5)}
 #: victims per replica of the migrate search at M = 100 (min(C, M·S))
 C_LIVE = 800
 #: fleet sizes of the mfi_delta kernel check (A100-80GB): the paper's
@@ -2049,10 +2105,17 @@ def decode_attention_phase(device):
         "hymba-g5-d64": (SERVE_SLOTS, SSM_PROMPT + SSM_NEW + 1, 5, 5, 64, bf16,
                          [SSM_PROMPT + SSM_NEW - 1] * SERVE_SLOTS, None,
                          [SSM_PROMPT + SSM_NEW - 2 - 1023] * SERVE_SLOTS),
+        # phase 16's whisper-large-v3 at the wave's last step (K = 20, G = 1,
+        # D = 64, bf16): the self cache of prompt + new slots read whole,
+        # and the cross cache of the encoder's 1,536 frames read whole
+        "whisper-self-g1": (SERVE_SLOTS, ENCDEC_PROMPT + ENCDEC_NEW, 20, 1, 64, bf16,
+                            [ENCDEC_PROMPT + ENCDEC_NEW] * SERVE_SLOTS, None, None),
+        "whisper-cross-g1": (SERVE_SLOTS, ENCDEC_FRAMES, 20, 1, 64, bf16,
+                             [ENCDEC_FRAMES] * SERVE_SLOTS, None, None),
     }
     timed_cases = ("serving", "long", "middle", "b1-32k", "gemma3-ring", "gemma3-wrapped",
                    "qwen3-g5-d128", "starcoder2-g12-d128", "paligemma-k1-g8-d256", "granite-g3",
-                   "grok-smoke", "hymba-g5-d64")
+                   "grok-smoke", "hymba-g5-d64", "whisper-self-g1", "whisper-cross-g1")
     errs, ratios = {}, {}
     row = {}
     for tag, (b, s, kh, g, d, dtype, lengths, scale, st) in cases.items():
@@ -2852,7 +2915,8 @@ def smoke_arch_steps(device, archs=SMOKE_ARCH_STEPS, tag="train"):
         step_loss = float(metrics["loss"])
         step_s = time.perf_counter() - t0
         log(f"{tag}: SMOKE {arch} (B {batch_size}, S {seq}{', window ' + str(cfg.window) if cfg.local_global else ''}"
-            f"{', ' + str(cfg.num_patches) + ' patches' if cfg.frontend else ''}), weights x0.1, "
+            f"{', ' + str(cfg.num_patches) + ' patches' if cfg.frontend == 'vision' else ''}"
+            f"{', ' + str(seq) + ' frames' if cfg.encdec else ''}), weights x0.1, "
             f"card vs CPU: loss {cl:.7f} vs {hl:.7f}; worst gradient leaf at {worst:.3f} of its "
             f"limit ({SMOKE_TAMED_GRAD_TOL:g} of the leaf's largest magnitude); train_step on the "
             f"card: loss {step_loss:.7f} in {step_s:.2f} s")
@@ -2922,19 +2986,46 @@ def backward_marked(fn, name):
     return run
 
 
+#: the attention whose flash tiles run now, pushed by the encoder-decoder's
+#: layers under :func:`training_annotations`: the tiles' ranges take its name
+ATTENTION_KIND: list = []
+
+
+def attention_kind(fn, kind, nested=False):
+    """``fn`` run with ``kind`` on top of ATTENTION_KIND (only inside
+    another kind's span when ``nested``: the decoder-only stack's
+    attention keeps the plain name)."""
+
+    def run(*args, **kwargs):
+        if nested and not ATTENTION_KIND:
+            return fn(*args, **kwargs)
+        ATTENTION_KIND.append(kind)
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            ATTENTION_KIND.pop()
+
+    return run
+
+
 @contextlib.contextmanager
 def training_annotations():
     """Profiler ranges around each layer's forward, the flash Function's
-    forward and backward, the cross-entropy, the MoE layer and its expert
-    products, the SSD chunk scan (each backward delimited by hooks,
-    :func:`backward_marked`) and the optimizer, for :func:`step_split`."""
+    forward and backward (named by the attention that runs it: the
+    encoder's, the decoder's self- or cross-attention, or plain
+    ``attention`` in a decoder-only stack), the cross-entropy, the MoE
+    layer and its expert products, the SSD chunk scan (each backward
+    delimited by hooks, :func:`backward_marked`) and the optimizer, for
+    :func:`step_split`."""
+    from torch.profiler import record_function
     from repro_torch.launch import steps
-    from repro_torch.models import common, moe, ssm, transformer
+    from repro_torch.models import common, encdec, moe, ssm, transformer
 
     F = common._FlashQTile
     saved = (F.__dict__["forward"], F.__dict__["backward"], common.chunked_ce_loss,
              steps.adamw_update, moe.moe_layer, moe._expert_ffn_batched,
-             transformer.layer_forward, ssm.ssd_scan)
+             transformer.layer_forward, ssm.ssd_scan, encdec._enc_layer, encdec._dec_layer,
+             transformer.attention_block)
 
     def ce_loss(x, *args, **kwargs):
         return backward_marked(saved[2], "ce")(x, *args, **kwargs)
@@ -2945,18 +3036,31 @@ def training_annotations():
     def experts(p, x, cfg):
         return backward_marked(lambda x: saved[5](p, x, cfg), "experts")(x)
 
-    F.forward = staticmethod(annotated(saved[0].__func__, "train:attention"))
-    F.backward = staticmethod(annotated(saved[1].__func__, "train:attention"))
+    def tile_forward(ctx, *args):
+        ctx.kind = ATTENTION_KIND[-1] if ATTENTION_KIND else "attention"
+        with record_function(f"train:{ctx.kind}"):
+            return saved[0].__func__(ctx, *args)
+
+    def tile_backward(ctx, *args):
+        with record_function(f"train:{ctx.kind}"):
+            return saved[1].__func__(ctx, *args)
+
+    F.forward = staticmethod(tile_forward)
+    F.backward = staticmethod(tile_backward)
     common.chunked_ce_loss = ce_loss
     steps.adamw_update = annotated(saved[3], "train:optimizer")
     moe.moe_layer, moe._expert_ffn_batched = moe_layer, experts
     transformer.layer_forward = annotated(saved[6], "train:layer")
     ssm.ssd_scan = backward_marked(saved[7], "ssd")
+    encdec._enc_layer = attention_kind(saved[8], "encoder-attention")
+    encdec._dec_layer = attention_kind(saved[9], "cross-attention")
+    transformer.attention_block = attention_kind(saved[10], "self-attention", nested=True)
     try:
         yield
     finally:
         (F.forward, F.backward, common.chunked_ce_loss, steps.adamw_update, moe.moe_layer,
-         moe._expert_ffn_batched, transformer.layer_forward, ssm.ssd_scan) = saved
+         moe._expert_ffn_batched, transformer.layer_forward, ssm.ssd_scan, encdec._enc_layer,
+         encdec._dec_layer, transformer.attention_block) = saved
 
 
 MATMUL_KERNEL_WORDS = ("gemm", "nvjet", "xmma", "cutlass", "wgmma")
@@ -2965,17 +3069,21 @@ MATMUL_KERNEL_WORDS = ("gemm", "nvjet", "xmma", "cutlass", "wgmma")
 #: step_split's categories of ranges; "layer" (a transformer layer's
 #: forward, recomputed inside the next part's backward) falls through to
 #: the kernel-name split
-SPLIT_CATEGORIES = ("attention", "ce", "optimizer", "experts", "moe", "ssd", "layer")
+SPLIT_CATEGORIES = ("attention", "encoder-attention", "self-attention", "cross-attention", "ce",
+                    "optimizer", "experts", "moe", "ssd", "layer")
 
 
 def step_split(prof, wall_s):
     """Device time of a profiled step by what launched each kernel:
-    attention (the flash Function, forward and backward), CE (the loss and
-    its backward), optimizer, the expert products and the rest of the MoE
-    layer (routing, dispatch and the route back, forward and backward), the
-    SSD chunk scan (``ssm.ssd_scan``, forward and backward), and the rest
-    split into matmul kernels (projections and MLP) and other kernels.  A kernel belongs to the innermost range (the latest-started)
-    that holds the start of the CPU operator that launched it, on that
+    attention (the flash Function, forward and backward; the
+    encoder-decoder's split into its encoder's, its decoder's self- and its
+    cross-attention), CE (the loss and its backward), optimizer, the expert
+    products and the rest of the MoE layer (routing, dispatch and the route
+    back, forward and backward), the SSD chunk scan (``ssm.ssd_scan``,
+    forward and backward), and the rest split into matmul kernels
+    (projections and MLP) and other kernels.  Categories that hold no time
+    are left out.  A kernel belongs to the innermost range (the
+    latest-started) that holds the start of the CPU operator that launched it, on that
     operator's thread: an expert product inside the MoE layer's range, a
     layer recomputed inside a backward span (rematerialisation) to that
     layer.  The ranges' own device-side spans (GPU user annotations) are
@@ -3039,8 +3147,27 @@ def step_split(prof, wall_s):
         busy_ms=busy / 1e6, wall_ms=wall_s * 1e3, busy_share=busy / 1e9 / wall_s,
         kernels=len(kernels),
         shares={c: totals.get(c, 0) / max(busy, 1)
-                for c in SPLIT_CATEGORIES[:-1] + ("matmul", "other")},
+                for c in SPLIT_CATEGORIES[:-1] + ("matmul", "other")
+                if totals.get(c) or c in ("matmul", "other")},
         top=[dict(name=n[:80], ms=t / 1e6, count=c) for n, (t, c) in top])
+
+
+def encdec_flops(cfg, batch_size):
+    """``(6·N·tokens, attention)`` FLOPs of one encoder-decoder training
+    step at TRAIN_SEQ = S_enc + S_dec (forward and backward, 6 a
+    multiply-add, as :func:`mixer_flops`): the encoder's parameters over
+    the frames and the decoder's (the rest of ``param_count``) over the
+    tokens; the attention products over the keys each query sees: the
+    encoder's full S_enc², the decoder's causal S_dec²/2 and the
+    cross-attention's S_dec·S_enc, each layer's over H·hd."""
+    half = TRAIN_SEQ // 2
+    d, f, hd, h, kv = cfg.d_model, cfg.d_ff, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    enc_layer = d * hd * (h + 2 * kv) + h * hd * d + d * f * 2 + 2 * d
+    n_enc = cfg.n_enc_layers * enc_layer + d  # + enc_norm
+    n_dec = cfg.param_count() - n_enc
+    dense = 6 * batch_size * half * (n_enc + n_dec)
+    pairs = half * half * (2 * cfg.n_enc_layers + cfg.n_layers + 2 * cfg.n_layers)
+    return dense, 6 * batch_size * pairs * h * hd
 
 
 def mixer_flops(cfg, tokens):
@@ -3078,7 +3205,9 @@ def train_run(device, wrappers, cfg, batch_size, accum, steps_n, cut_from, tag="
 
     cfg = dataclasses.replace(cfg, grad_accum=accum)
     t0 = time.perf_counter()
-    data = make_batch_iterator(cfg, batch_size, TRAIN_SEQ, seed=0)
+    # the encoder-decoder splits train_4k's S into S_enc frames + S_dec tokens
+    seq = TRAIN_SEQ // 2 if cfg.encdec else TRAIN_SEQ
+    data = make_batch_iterator(cfg, batch_size, seq, seed=0)
     batches = [next(data) for _ in range(steps_n + 1)]
     sample_s = time.perf_counter() - t0
     params = model.init_params(cfg, torch.Generator(device).manual_seed(0), device=device)
@@ -3135,10 +3264,14 @@ def train_run(device, wrappers, cfg, batch_size, accum, steps_n, cut_from, tag="
     split["unprofiled_wall_ms"] = micro_wall * 1e3
     split["busy_share_unprofiled"] = split["busy_ms"] / 1e3 / micro_wall
 
-    tokens = batch_size * TRAIN_SEQ
+    tokens = batch_size * TRAIN_SEQ  # the encoder-decoder's frames and tokens
     n = cfg.active_param_count()
-    attn_flops, ssd_flops = mixer_flops(cfg, tokens)
-    flops = 6 * n * tokens + attn_flops + ssd_flops
+    if cfg.encdec:
+        (dense_flops, attn_flops), ssd_flops = encdec_flops(cfg, batch_size), 0
+    else:
+        attn_flops, ssd_flops = mixer_flops(cfg, tokens)
+        dense_flops = 6 * n * tokens
+    flops = dense_flops + attn_flops + ssd_flops
     warm = step_s[1:] if len(step_s) > 1 else step_s
     ms = 1e3 * sum(warm) / len(warm)
     out = dict(
@@ -3154,12 +3287,16 @@ def train_run(device, wrappers, cfg, batch_size, accum, steps_n, cut_from, tag="
         profiled_loss=loss, split_s=split_s)
     log(f"{tag}: train_4k length, {cfg.name} bf16 at its published widths ({n_alloc} parameters, "
         f"{cfg.opt_dtype} moments), global batch {batch_size} (cut from train_4k's {cut_from}) as "
-        f"{accum} micro-batches of {batch_size // accum} x {TRAIN_SEQ} tokens; "
+        f"{accum} micro-batches of {batch_size // accum} x "
+        f"{f'({seq} frames + {seq} tokens)' if cfg.encdec else f'{TRAIN_SEQ} tokens'}; "
         f"{len(batches)} batches sampled in {sample_s:.2f} s (not timed)")
     log(f"{tag}: {steps_n} steps, losses {', '.join(f'{x:.4f}' for x in losses)}; first "
         f"step {out['first_step_ms']:.1f} ms, then {ms:.1f} ms/step, {out['tokens_per_s']:.1f} "
-        f"tokens/s; model FLOPs {flops:.4e} a step (6·N·tokens with N = {n} active parameters, "
-        f"plus attention {attn_flops:.4e} and the SSD's chunk products {ssd_flops:.4e}) = "
+        f"tokens/s; model FLOPs {flops:.4e} a step ("
+        + ("6·(N_enc·frames + N_dec·tokens)" if cfg.encdec else
+           f"6·N·tokens with N = {n} active parameters")
+        + f" {dense_flops:.4e}, plus attention {attn_flops:.4e} and the SSD's chunk products "
+        f"{ssd_flops:.4e}) = "
         f"{100 * out['bf16_peak_share']:.2f}% of the bf16 dense peak (989 TFLOP/s)")
     log(f"{tag}: device memory: {base / 1e9:.3f} GB before the steps (parameters "
         f"{param_bytes / 1e9:.3f} + moments {moment_bytes / 1e9:.3f}), peak {peak / 1e9:.3f} GB "
@@ -3197,13 +3334,13 @@ def training_phase(device, wrappers):
     log(f"train: launch/train.py --smoke --steps 50 --batch 8 --seq 128 in {seconds:.2f} s: LEARNING")
 
     learned, lines, seconds = launcher_run(
-        ["--arch", TRAIN_ARCH, "--steps", "10", "--batch", "8", "--seq", "128"])
+        ["--arch", TRAIN_ARCH, "--steps", "5", "--batch", "8", "--seq", "128"])
     numbers = [float(x) for line in lines for x in re.findall(r"loss (\S+)", line)]
     numbers += [float(x) for x in re.findall(r"-> (\S+)", lines[-1])]
     check(len(numbers) >= 4 and all(math.isfinite(x) for x in numbers),
           f"train: full-width launcher losses {numbers}")
     out["full_width_launcher"] = dict(seconds=seconds, last=lines[-1], losses=numbers)
-    log(f"train: launch/train.py --arch {TRAIN_ARCH} --steps 10 --batch 8 --seq 128 (full width) "
+    log(f"train: launch/train.py --arch {TRAIN_ARCH} --steps 5 --batch 8 --seq 128 (full width) "
         f"in {seconds:.2f} s, every loss finite")
     gc.collect()
     torch.cuda.empty_cache()
@@ -3320,9 +3457,10 @@ def dense_serve(cfg, params, prompts, new, device, wrappers, seed=0):
     return dict(waves=waves, launches=counts["decode_attention"], run_s=wall, stats=stats)
 
 
-def decode_window(cfg, params, device, prompt, max_len, n_steps):
+def decode_window(cfg, params, device, prompt, max_len, n_steps, extra=None):
     """A profiled window of ``n_steps`` decode steps of one wave of
-    SERVE_SLOTS prompts of ``prompt`` tokens, its caches padded to
+    SERVE_SLOTS prompts of ``prompt`` tokens (and the batch entries of
+    ``extra``, an encoder-decoder's frames), its caches padded to
     ``max_len`` (gemma3's local caches then past the window: every step
     reads keys from start = pos - window + 1), then the same steps
     unprofiled: device busy, wall, ops per step."""
@@ -3332,7 +3470,7 @@ def decode_window(cfg, params, device, prompt, max_len, n_steps):
     gen = torch.Generator(device).manual_seed(3)
     tokens = torch.randint(0, cfg.vocab, (SERVE_SLOTS, prompt), generator=gen,
                            device=device, dtype=torch.int32)
-    logits, cache = model.prefill(params, {"tokens": tokens}, cfg)
+    logits, cache = model.prefill(params, {"tokens": tokens, **(extra or {})}, cfg)
     cache = model.pad_cache(cache, prompt, max_len)
     token = torch.argmax(logits, dim=-1).to(torch.int32)
 
@@ -3872,6 +4010,164 @@ def ssm_phase(device, wrappers):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the encoder-decoder family
+# ---------------------------------------------------------------------------
+
+
+def encdec_smoke_serving(device):
+    """whisper's SMOKE prefilled on frames = prompt (``pad_cache`` then
+    grows the cross cache, as the reference's does) and decoded
+    teacher-forced on the card against the same on the CPU (float32, TF32
+    off), under the reference's initialiser and with the weight matrices
+    scaled by 0.1: every logit and every cache leaf within
+    ENCDEC_SMOKE_TOL of its largest magnitude."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import SMOKES
+    from repro_torch.models import model
+
+    cpu = torch.device("cpu")
+    b, prompt, steps = ENCDEC_SMOKE_SERVE
+    cfg = SMOKES[ENCDEC_ARCH]
+    tree = model.params_to_tree(model.init_params(cfg, torch.Generator().manual_seed(0), cpu), cfg)
+    rng = np.random.default_rng(0)
+    frames = rng.standard_normal((b, prompt, cfg.d_model)).astype(np.float32)
+    tokens = rng.integers(0, cfg.vocab, (b, prompt)).astype(np.int32)
+    forced = rng.integers(0, cfg.vocab, (steps, b)).astype(np.int32)
+    out = {}
+    for scale, (logit_tol, cache_tol) in ENCDEC_SMOKE_TOL.items():
+        runs = {}
+        for dev in (cpu, device):
+            params = model.params_from_numpy(scaled_tree(tree, scale), cfg, dev)
+            batch = {"frames": torch.as_tensor(frames, device=dev),
+                     "tokens": torch.as_tensor(tokens, device=dev)}
+            logits, cache = model.prefill(params, batch, cfg)
+            leaves = {f"prefill {k}/{n}": t.float().cpu() for k, v in cache.items()
+                      for n, t in v.items()}
+            cache = model.pad_cache(cache, prompt, prompt + steps)
+            rows = [logits]
+            for i in range(steps):
+                logits, cache = model.decode_step(
+                    params, cache, torch.as_tensor(forced[i], device=dev), prompt + i, cfg)
+                rows.append(logits)
+            leaves.update({f"decode {k}/{n}": t.float().cpu() for k, v in cache.items()
+                           for n, t in v.items()})
+            runs[dev.type] = (torch.stack(rows).float().cpu(), leaves)
+        (want, want_leaves), (got, got_leaves) = runs["cpu"], runs[device.type]
+        check(got_leaves["decode cross/k"].shape[2] == prompt + steps,
+              "encdec: SMOKE cross cache not grown by pad_cache")
+        share = max(float((got[i] - want[i]).abs().max()) / (logit_tol * float(want[i].abs().max()))
+                    for i in range(steps + 1))
+        cache_share = max(float((got_leaves[k] - w).abs().max())
+                          / (cache_tol * float(w.abs().max()))
+                          for k, w in want_leaves.items())
+        log(f"encdec: SMOKE {ENCDEC_ARCH} ({cfg.n_enc_layers} + {cfg.n_layers} layers, "
+            f"{cfg.n_heads}/{cfg.n_kv_heads} heads), weights x{scale:g}, card vs CPU: prefill of "
+            f"{b} x ({prompt} frames + {prompt} tokens), {steps} decode steps over the cross "
+            f"cache grown by pad_cache; worst logits at {share:.3f} of their limit ({logit_tol:g}"
+            f" of their largest magnitude), worst cache leaf at {cache_share:.3f} of its "
+            f"({cache_tol:g})")
+        check(share <= 1.0 and cache_share <= 1.0,
+              f"encdec: SMOKE x{scale:g} card vs CPU past its limits")
+        out[f"x{scale:g}"] = dict(logit_share_of_limit=share, cache_share_of_limit=cache_share,
+                                  tolerances=(logit_tol, cache_tol))
+    return out
+
+
+def encdec_phase(device, wrappers):
+    """The encoder-decoder family: whisper's SMOKE served and one SMOKE step
+    card vs CPU; whisper-large-v3 prefilled and decoded at full width
+    through ``model`` with a profiled decode window, then trained at full
+    width."""
+    import math
+    import torch
+    from repro_torch.models import model
+
+    out = {"smoke_serving": encdec_smoke_serving(device),
+           "smoke_step": smoke_arch_steps(device, {ENCDEC_ARCH: ENCDEC_SMOKE_STEP}, tag="encdec")}
+    cfg, params, wbytes, draw_s = draw_model(ENCDEC_ARCH, device)
+    n_alloc = sum(p.numel() for p in params.parameters())
+    gen = torch.Generator(device).manual_seed(6)
+    frames = torch.randn(SERVE_SLOTS, ENCDEC_FRAMES, cfg.d_model, generator=gen,
+                         device=device).to(cfg.torch_dtype)
+    tokens = torch.randint(0, cfg.vocab, (SERVE_SLOTS, ENCDEC_PROMPT), generator=gen,
+                           device=device, dtype=torch.int32)
+    max_len = ENCDEC_PROMPT + ENCDEC_NEW
+    per_step = 2 * cfg.n_layers  # self- and cross-attention in every decoder layer
+
+    def serve():
+        """Prefill, pad_cache and ENCDEC_NEW decode steps: (prefill ms,
+        decode ms per step, launches, every logit finite, cache shapes)."""
+        for fn in wrappers.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, {"frames": frames, "tokens": tokens}, cfg)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        cache = model.pad_cache(cache, ENCDEC_PROMPT, max_len)
+        finite = [bool(torch.isfinite(logits).all())]
+        token = torch.argmax(logits, dim=-1).to(torch.int32)
+        t0 = time.perf_counter()
+        for i in range(ENCDEC_NEW):
+            logits, _ = model.decode_step(params, cache, token, ENCDEC_PROMPT + i, cfg)
+            finite.append(bool(torch.isfinite(logits).all()))
+            token = torch.argmax(logits, dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / ENCDEC_NEW
+        counts = {k: fn.launches for k, fn in wrappers.items()}
+        shapes = {k: tuple(v["k"].shape) for k, v in cache.items()}
+        return prefill_ms, decode_ms, counts, all(finite), shapes
+
+    warm = serve()
+    prefill_ms, decode_ms, counts, finite, shapes = serve()
+    want = dict.fromkeys(wrappers, 0)
+    want["decode_attention"] = per_step * ENCDEC_NEW
+    check(counts == want and finite,
+          f"encdec: {ENCDEC_ARCH} launch counts {counts} != {want} or logits not finite")
+    check(shapes == {"self": (cfg.n_layers, SERVE_SLOTS, max_len, cfg.n_kv_heads, cfg.head_dim),
+                     "cross": (cfg.n_layers, SERVE_SLOTS, ENCDEC_FRAMES, cfg.n_kv_heads,
+                               cfg.head_dim)},
+          f"encdec: cache shapes {shapes}")
+    window = decode_window(cfg, params, device, ENCDEC_PROMPT, max_len, ENCDEC_WINDOW_STEPS,
+                           extra={"frames": frames})
+    out["serving"] = dict(weights_gb=wbytes / 1e9, draw_s=draw_s, params=n_alloc,
+                          frames=ENCDEC_FRAMES, prompt=ENCDEC_PROMPT, decode_steps=ENCDEC_NEW,
+                          prefill_ms=prefill_ms, decode_ms_per_step=decode_ms,
+                          warm_prefill_ms=warm[0], warm_decode_ms_per_step=warm[1],
+                          launches=counts["decode_attention"], launches_per_step=per_step,
+                          **window)
+    log(f"encdec: {ENCDEC_ARCH} ({cfg.n_enc_layers} + {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads; {n_alloc} parameter elements, "
+        f"{wbytes / 1e9:.3f} GB bf16 drawn in {draw_s:.2f} s) through model: prefill of "
+        f"{SERVE_SLOTS} x ({ENCDEC_FRAMES} frames + {ENCDEC_PROMPT} tokens) {prefill_ms:.3f} ms "
+        f"(warm-up {warm[0]:.3f}), decode {decode_ms:.3f} ms/step over {ENCDEC_NEW} steps "
+        f"(warm-up {warm[1]:.3f}); decode_attention launches {counts['decode_attention']} = "
+        f"{per_step} x {ENCDEC_NEW} (self and cross); logits finite; caches {shapes}")
+    log(f"encdec: {ENCDEC_ARCH} window ({ENCDEC_WINDOW_STEPS} decode steps from position "
+        f"{ENCDEC_PROMPT}): device busy {window['window_busy_ms']:.3f} ms of "
+        f"{window['window_wall_ms']:.3f} ms wall ({100 * window['busy_share']:.1f}% busy), "
+        f"{window['device_ops_per_step']:.1f} device ops/step; top: "
+        + "; ".join(f"{k} {t:.1f} us x{c}" for k, t, c in window["top"]))
+    del params, frames
+    release()
+
+    n = cfg.param_count()
+    log(f"encdec: {ENCDEC_ARCH} reckoned before the run: {n_alloc} parameter elements "
+        f"({n} by param_count), bf16 parameters and accumulated and micro-batch gradients "
+        f"{3 * 2 * n_alloc / 1e9:.3f} GB + float32 moments {8 * n_alloc / 1e9:.3f} GB = "
+        f"{14 * n_alloc / 1e9:.3f} GB, plus activations; {ENCDEC_TRAIN_STEPS} steps of "
+        f"{ENCDEC_TRAIN_BATCH} x ({TRAIN_SEQ // 2} frames + {TRAIN_SEQ // 2} tokens) as "
+        f"{ENCDEC_TRAIN_ACCUM} micro-batches")
+    out["train"] = train_run(device, wrappers, cfg, ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_ACCUM,
+                             ENCDEC_TRAIN_STEPS, TRAIN_CUT_FROM, tag="encdec")
+    check(all(math.isfinite(x) for x in out["train"]["losses"]), "encdec: train losses")
+    release()
+    out["launches"] = counts["decode_attention"]
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3946,10 +4242,12 @@ def main() -> int:
     lap(14)
     ssm_families = ssm_phase(device, wrappers)
     lap(15)
+    encdec = encdec_phase(device, wrappers)
+    lap(16)
     # each path's launches, counted from zero just before it ran
     by_path = {name: dict.fromkeys(wrappers, 0) for name in (
         "steady", "fig5", "serving", "decisions", "protocols", "faults", "dense_options", "moe",
-        "ssm")}
+        "ssm", "encdec")}
     by_path["steady"].update(steady)
     by_path["fig5"].update(fig5_launches)
     by_path["serving"]["decode_attention"] = serving["launches"]
@@ -3959,6 +4257,7 @@ def main() -> int:
     by_path["dense_options"]["decode_attention"] = dense["launches"]
     by_path["moe"]["decode_attention"] = experts["launches"]
     by_path["ssm"]["decode_attention"] = ssm_families["launches"]
+    by_path["encdec"]["decode_attention"] = encdec["launches"]
     totals = {k: sum(p[k] for p in by_path.values()) for k in wrappers}
 
     kernels = []
@@ -3967,6 +4266,7 @@ def main() -> int:
                                      "gemma3_ring", "gemma3_wrapped", "qwen3_g5_d128",
                                      "starcoder2_g12_d128", "paligemma_k1_g8_d256",
                                      "granite_g3", "grok_smoke", "hymba_g5_d64",
+                                     "whisper_self_g1", "whisper_cross_g1",
                                      "library_call_ms", "by_m", "pass0_ms", "pass1_ms")
                  if k in row}
         kernels.append(dict(
@@ -3989,6 +4289,7 @@ def main() -> int:
     log(json.dumps({"dense_options": dense}))
     log(json.dumps({"moe": experts}))
     log(json.dumps({"ssm": ssm_families}))
+    log(json.dumps({"encdec": encdec}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

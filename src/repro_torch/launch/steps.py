@@ -1,4 +1,4 @@
-"""The training step of the decoder families, without sharding rules.
+"""The training step of every model family, without sharding rules.
 
 ``train_step(params, opt_state, batch, cfg)`` is the train branch of the
 reference's ``launch/steps.py::build_step``: loss and gradients (over
@@ -15,11 +15,10 @@ import torch
 
 from repro_torch.models import model
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import Transformer
 from repro_torch.optim import adamw_update, cosine_schedule
 
 
-def loss_and_grads(params: Transformer, batch: Dict[str, torch.Tensor], cfg: ModelConfig
+def loss_and_grads(params: model.Model, batch: Dict[str, torch.Tensor], cfg: ModelConfig
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The loss (detached) and its gradient by parameter name."""
     with params.trainable():
@@ -29,7 +28,7 @@ def loss_and_grads(params: Transformer, batch: Dict[str, torch.Tensor], cfg: Mod
     return loss.detach(), dict(zip(named, grads))
 
 
-def train_step(params: Transformer, opt_state, batch: Dict[str, torch.Tensor],
+def train_step(params: model.Model, opt_state, batch: Dict[str, torch.Tensor],
                cfg: ModelConfig):
     """One optimizer step; ``params`` and the moments are updated in place.
     Returns ``(params, opt_state, {"loss": float32 tensor})``.

@@ -1,4 +1,5 @@
-"""Shared layer library: parameter definitions, norms, RoPE, attention, loss.
+"""Shared layer library: parameter definitions, norms, positions (RoPE and
+the sinusoidal table), attention, loss.
 
 The port's counterpart of the JAX package's ``models/common.py`` for the
 serving and training paths:
@@ -27,6 +28,7 @@ import dataclasses
 import math
 from typing import Callable, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -115,6 +117,16 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     sin, cos = torch.sin(angles), torch.cos(angles)
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def sincos_positions(s: int, d: int) -> np.ndarray:
+    """Whisper-style sinusoidal position table (S, D) float32: computed in
+    numpy float64 and cast, byte for byte the reference's table."""
+    half = d // 2
+    pos = np.arange(s)[:, None]
+    freqs = np.exp(-np.log(10000.0) * np.arange(half) / max(half - 1, 1))
+    t = pos * freqs[None, :]
+    return np.concatenate([np.sin(t), np.cos(t)], axis=1).astype(np.float32)
 
 
 # ---------------------------------------------------------------------------

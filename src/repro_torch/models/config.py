@@ -2,8 +2,9 @@
 
 The port's copy of the JAX package's :class:`ModelConfig`, field for
 field, so one configuration describes the same model in both packages.
-The port runs the dense, vlm, moe, ssm and hybrid families
-(``repro_torch.models.transformer``).
+The port runs every family: dense, vlm, moe, ssm and hybrid
+(``repro_torch.models.transformer``) and encdec
+(``repro_torch.models.encdec``).
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Model API of the dense, vlm, moe, ssm and hybrid families: training loss and serving.
+"""Model API of every family (dense, vlm, moe, ssm, hybrid and encdec).
 
   * ``param_defs(cfg)`` / ``init_params(cfg, generator, device=None)``
   * ``params_from_numpy(tree, cfg, device=None)`` — the JAX package's
@@ -17,31 +17,39 @@ there is none.  Pass ``device="cpu"`` to run on the CPU.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Union
+from typing import Dict, List, Mapping, Optional, Union
 
 import numpy as np
 import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
-from repro_torch.models import common, transformer
+from repro_torch.models import common, encdec, transformer
 from repro_torch.models.common import materialize
 from repro_torch.models.config import ModelConfig
 
+#: the module of a model: the decoder stack, or the encoder-decoder
+Model = Union[transformer.Transformer, encdec.EncDec]
+
 
 def param_defs(cfg: ModelConfig):
+    if cfg.encdec:
+        return encdec.model_defs(cfg)
     return transformer.model_defs(cfg)
 
 
-def init_params(cfg: ModelConfig, generator: Optional[torch.Generator], device=None
-                ) -> transformer.Transformer:
+def _module(cfg: ModelConfig, tree) -> Model:
+    return (encdec.EncDec if cfg.encdec else transformer.Transformer)(cfg, tree)
+
+
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator], device=None) -> Model:
     """Random parameters with the reference's initialiser scheme, drawn
     from ``generator`` (on the generator's own device) and placed on
     ``device``.  ``device="meta"`` gives shapes and dtypes only and needs
     no generator."""
     dev = resolve_device(device)
     tree = materialize(param_defs(cfg), cfg.torch_dtype, generator, dev)
-    return transformer.Transformer(cfg, tree)
+    return _module(cfg, tree)
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
@@ -53,11 +61,12 @@ def _tensor(a, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def params_from_numpy(tree, cfg: ModelConfig, device=None) -> transformer.Transformer:
+def params_from_numpy(tree, cfg: ModelConfig, device=None) -> Model:
     """The reference's ``init_params`` tree (leaves as numpy arrays, bf16
     leaves as ``ml_dtypes.bfloat16``, or as tensors) as the port's module;
-    the stacked ``(n_groups, n_local | n_global, …)`` layer leaves become
-    one module per layer."""
+    the stacked layer leaves (leading ``(n_groups, n_local | n_global)``
+    axes, or the encdec family's one layer axis) become one module per
+    layer."""
     dev = resolve_device(device)
 
     def walk(t):
@@ -65,32 +74,46 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None) -> transformer.Transf
             return {k: walk(v) for k, v in t.items()}
         return _tensor(t, dev)
 
-    return transformer.Transformer(cfg, walk(tree))
+    return _module(cfg, walk(tree))
+
+
+def _restack(named: Dict[str, torch.Tensor], prefixes: List[str], lead) -> Dict[str, object]:
+    """The leaves under each of ``prefixes`` (one layer's names each),
+    stacked in that order and reshaped to ``lead + shape``, as a tree."""
+    stacked: Dict[str, object] = {}
+    for path in (k[len(prefixes[0]):] for k in named if k.startswith(prefixes[0])):
+        t = torch.stack([named[p + path].detach() for p in prefixes])
+        node = stacked
+        *parents, leaf = path.split(".")
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[leaf] = t.reshape(tuple(lead) + t.shape[1:])
+    return stacked
 
 
 def params_to_tree(params: Union[nn.Module, Mapping[str, torch.Tensor]], cfg: ModelConfig):
-    """The inverse of :func:`params_from_numpy`: the reference's tree
-    (``embed``, ``final_norm``, ``groups/local/...`` and
+    """The inverse of :func:`params_from_numpy`: the reference's tree of
+    detached tensors (``embed``, ``final_norm``, ``groups/local/...`` and
     ``groups/global/...`` with leading ``(n_groups, n_local | n_global)``
-    axes, ``vision_proj``) of detached tensors.  ``params`` is the module
-    or a ``{name: tensor}`` mapping keyed as its ``named_parameters()`` (an
-    AdamW moment)."""
+    axes, ``pos_embed``, ``vision_proj``; the encdec family's
+    ``enc_layers/...`` and ``dec_layers/...`` with one leading layer axis,
+    ``enc_norm``).  ``params`` is the module or a ``{name: tensor}``
+    mapping keyed as its ``named_parameters()`` (an AdamW moment)."""
     named = dict(params.named_parameters()) if isinstance(params, nn.Module) else dict(params)
+    if cfg.encdec:
+        stacks = {"enc_layers": cfg.n_enc_layers, "dec_layers": cfg.n_layers}
+        tree = {name: t.detach() for name, t in named.items()
+                if name.split(".")[0] not in stacks}
+        for stack, n in stacks.items():
+            tree[stack] = _restack(named, [f"{stack}.{i}." for i in range(n)], (n,))
+        return tree
     kinds = transformer.layer_kinds(cfg)
-    groups: Dict[str, Dict[str, object]] = {}
+    groups = {}
     for kind in dict.fromkeys(kinds):
         index = [i for i, k in enumerate(kinds) if k == kind]
-        lead = (cfg.n_groups, len(index) // cfg.n_groups)
-        prefix = f"layers.{index[0]}."
-        stacked = groups[kind] = {}
-        for path in (k[len(prefix):] for k in named if k.startswith(prefix)):
-            t = torch.stack([named[f"layers.{i}.{path}"].detach() for i in index])
-            node = stacked
-            *parents, leaf = path.split(".")
-            for key in parents:
-                node = node.setdefault(key, {})
-            node[leaf] = t.reshape(lead + t.shape[1:])
-    tree = {name: named[name].detach() for name in named if not name.startswith("layers.")}
+        groups[kind] = _restack(named, [f"layers.{i}." for i in index],
+                                (cfg.n_groups, len(index) // cfg.n_groups))
+    tree = {name: t.detach() for name, t in named.items() if not name.startswith("layers.")}
     return {**tree, "groups": groups}
 
 
@@ -108,15 +131,16 @@ def opt_state_from_numpy(state, cfg: ModelConfig, device=None) -> Dict[str, obje
             "step": torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32, device=dev)}
 
 
-def loss_fn(params: transformer.Transformer, batch: Dict[str, torch.Tensor],
-            cfg: ModelConfig) -> torch.Tensor:
+def loss_fn(params: Model, batch: Dict[str, torch.Tensor], cfg: ModelConfig) -> torch.Tensor:
     """Mean next-token cross-entropy (float32): ``tokens`` (B, S) and
     ``labels`` (B, S), -1 = ignore; with the vision frontend also
     ``patches`` (B, P, D), whose positions the loss ignores (labels cover
-    the text only)."""
+    the text only); with the encdec family also ``frames`` (B, S_enc, D),
+    which the encoder reads (labels cover the decoder's tokens)."""
     if cfg.encdec:
-        raise NotImplementedError(
-            "the encdec loss is not ported yet (ROADMAP.md §1 item 6 (b))")
+        enc = encdec.encode(params, batch["frames"], cfg, train=True)
+        x, _ = encdec.dec_forward(params, batch["tokens"], enc, cfg, train=True)
+        return common.chunked_ce_loss(x, params.embed, batch["labels"], valid_vocab=cfg.vocab)
     x, _ = transformer.forward(params, batch, cfg, train=True)
     labels = batch["labels"]
     if cfg.frontend == "vision":
@@ -127,7 +151,14 @@ def loss_fn(params: transformer.Transformer, batch: Dict[str, torch.Tensor],
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, device=None):
-    return transformer.init_cache(cfg, batch, seq_len, resolve_device(device))
+    """Zeroed decode caches: the decoder stack's (``transformer.init_cache``),
+    or the encdec family's ``self`` and ``cross`` caches of ``seq_len // 2``
+    slots each (the reference's split of S into S_dec = S_enc = S // 2)."""
+    dev = resolve_device(device)
+    if cfg.encdec:
+        half = seq_len // 2
+        return encdec.init_cache(cfg, batch, dec_len=half, enc_len=half, device=dev)
+    return transformer.init_cache(cfg, batch, seq_len, dev)
 
 
 def pad_cache(cache, prefill_len: int, max_len: int):
@@ -137,6 +168,11 @@ def pad_cache(cache, prefill_len: int, max_len: int):
     when the prompt was no longer than its window (its ``min(window,
     prefill_len)`` slots are then the prompt's, in order).  Leaves of
     another length (rings of a longer prompt) pass through unchanged.
+
+    The rule reaches the encdec family's cross cache too: when the frame
+    count equals the prompt length it grows by zero keys and values, and
+    the decode's cross-attention, which reads every slot of that cache as
+    the reference's does, gives each zero key a logit of 0.
 
     The rule reaches the SSD leaves too: axis -3 of ``state`` (…, B, H, N,
     P) is the head count H and of ``conv`` (…, B, W - 1, C) the batch B, so
@@ -153,16 +189,23 @@ def pad_cache(cache, prefill_len: int, max_len: int):
     return y
 
 
-def prefill(params: transformer.Transformer, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
-    """Process the full prompt (``tokens``, and ``patches`` with the vision
-    frontend); returns (last-token logits (B, V) float32, cache)."""
-    x, cache = transformer.forward(params, batch, cfg, return_cache=True)
+def prefill(params: Model, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
+    """Process the full prompt (``tokens``; ``patches`` with the vision
+    frontend; ``frames`` with the encdec family, which the encoder reads
+    first); returns (last-token logits (B, V) float32, cache)."""
+    if cfg.encdec:
+        enc = encdec.encode(params, batch["frames"], cfg)
+        x, cache = encdec.dec_forward(params, batch["tokens"], enc, cfg, return_cache=True)
+    else:
+        x, cache = transformer.forward(params, batch, cfg, return_cache=True)
     return transformer.logits_of(params, x[:, -1], cfg), cache
 
 
-def decode_step(params: transformer.Transformer, cache, token: torch.Tensor, pos: int,
-                cfg: ModelConfig):
+def decode_step(params: Model, cache, token: torch.Tensor, pos: int, cfg: ModelConfig):
     """One new token (B,) at position ``pos`` -> (logits (B, V), cache);
     the cache is updated in place.  With the vision frontend, positions
-    count the ``num_patches`` patch slots of the prefill."""
+    count the ``num_patches`` patch slots of the prefill; with the encdec
+    family they count the decoder's tokens only."""
+    if cfg.encdec:
+        return encdec.decode(params, cache, token, pos, cfg)
     return transformer.decode(params, cache, token, pos, cfg)

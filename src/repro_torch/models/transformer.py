@@ -1,19 +1,22 @@
 """Decoder-only transformer for training, prefill and decode.
 
 The port's counterpart of the JAX package's ``models/transformer.py`` for
-the dense, vlm, moe, ssm and hybrid families.  The reference stacks its
-layers into scan groups (``n_local`` sliding-window + ``n_global``
-full-attention layers, leading ``(n_groups, n_layer)`` parameter axes)
-and runs ``lax.scan`` over them; here the parameters are held by
-:class:`Transformer`, an ``nn.Module`` with one :class:`Params` module per
-layer in an ``nn.ModuleList`` in depth order (each group's local layers,
-then its global ones), and the stack is a Python loop over it
-(each layer rematerialised when training).  The parameter definitions
-(:func:`model_defs`) keep the reference's stacked tree (``groups/local``,
-``groups/global``, ``vision_proj``), so the same tree (drawn here, or
-carried over from the reference) builds the module.
+the dense, vlm, moe, ssm and hybrid families (the encdec family,
+:mod:`repro_torch.models.encdec`, reuses its attention and MLP blocks).
+The reference stacks its layers into scan groups (``n_local``
+sliding-window + ``n_global`` full-attention layers, leading ``(n_groups,
+n_layer)`` parameter axes) and runs ``lax.scan`` over them; here the
+parameters are held by :class:`Transformer`, an ``nn.Module`` with one
+:class:`Params` module per layer in an ``nn.ModuleList`` in depth order
+(each group's local layers, then its global ones), and the stack is a
+Python loop over it (each layer rematerialised when training).  The
+parameter definitions (:func:`model_defs`) keep the reference's stacked
+tree (``groups/local``, ``groups/global``, ``pos_embed``,
+``vision_proj``), so the same tree (drawn here, or carried over from the
+reference) builds the module.
 
-Ported layer options: RoPE (or no positions, ``pos == "none"``), qk-norm,
+Layer options: RoPE, learned positions (``pos == "learned"``: a
+``pos_embed`` (32,768, D) table added to the embeddings) or none, qk-norm,
 post-norms, swiglu/geglu/gelu MLPs, sliding-window (local) layers, the
 vision prefix (``frontend == "vision"``: projected patch embeddings in
 front of the tokens), the mixture-of-experts MLP (``family == "moe"``,
@@ -21,8 +24,7 @@ front of the tokens), the mixture-of-experts MLP (``family == "moe"``,
 "ssm"``: ``ln1`` and the SSD block, no attention and no MLP) and the
 hybrid layer (``family == "hybrid"``: attention and SSD heads side by side
 on the same ``ln1`` output, each normed and averaged, then the MLP;
-:mod:`repro_torch.models.ssm`).  The encdec family and learned positions
-raise ``NotImplementedError`` (ROADMAP.md §1 item 6 (b4)).
+:mod:`repro_torch.models.ssm`).
 
 Cache: ``{"local": {...}, "global": {...}}`` (``"local"`` only where the
 groups have local layers), each leaf ``(layers of that kind, B, ...)``
@@ -51,18 +53,6 @@ from repro_torch.models import common, moe, ssm
 from repro_torch.models.config import ModelConfig
 
 ParamDef = common.ParamDef
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    """Refuse what is still to port: the encdec family and learned
-    positions (ROADMAP.md §1 item 6 (b4))."""
-    if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP.md §1 item 6)")
-    if cfg.pos not in ("rope", "none"):
-        raise NotImplementedError(
-            f"positions {cfg.pos!r} are not ported yet; only RoPE or none "
-            "(ROADMAP.md §1 item 6)")
 
 
 # ---------------------------------------------------------------------------
@@ -119,9 +109,9 @@ def model_defs(cfg: ModelConfig) -> Dict[str, object]:
     """The reference's parameter tree: ``groups/local`` and
     ``groups/global`` leaves carry the leading ``(n_groups, n_local)`` and
     ``(n_groups, n_global)`` axes (so the fan-in of a stacked "normal" leaf
-    is ``n_groups``, as in the reference's initialiser); ``vision_proj``
-    (D, D) with the vision frontend."""
-    _check_supported(cfg)
+    is ``n_groups``, as in the reference's initialiser); ``pos_embed``
+    (32,768, D) with learned positions; ``vision_proj`` (D, D) with the
+    vision frontend."""
     n_local, n_global = cfg.group_pattern
     group = {"local": _stack(layer_defs(cfg), n_local)} if n_local else {}
     group["global"] = _stack(layer_defs(cfg), n_global)
@@ -130,6 +120,8 @@ def model_defs(cfg: ModelConfig) -> Dict[str, object]:
         "groups": _stack(group, cfg.n_groups),
         "final_norm": common.rms_norm_def(cfg.d_model),
     }
+    if cfg.pos == "learned":
+        defs["pos_embed"] = ParamDef((32768, cfg.d_model), scale=1.0)
     if cfg.frontend == "vision":
         defs["vision_proj"] = ParamDef((cfg.d_model, cfg.d_model))
     return defs
@@ -160,22 +152,34 @@ class Params(nn.Module):
                 self.register_parameter(name, nn.Parameter(value, requires_grad=False))
 
 
-class Transformer(nn.Module):
-    """The model's parameters: ``embed``, ``layers`` (one :class:`Params`
-    per layer, in depth order, :func:`layer_kinds`), ``final_norm`` and,
-    with the vision frontend, ``vision_proj``.
+class FrozenModel(nn.Module):
+    """A model whose parameters are frozen (``requires_grad=False``), so
+    serving records no autograd graph; training differentiates inside
+    :meth:`trainable`."""
 
-    They are frozen (``requires_grad=False``), so serving records no
-    autograd graph; training differentiates inside :meth:`trainable`.
+    @contextlib.contextmanager
+    def trainable(self):
+        """Parameters require gradients inside the block and are frozen
+        again when it ends."""
+        self.requires_grad_(True)
+        try:
+            yield self
+        finally:
+            self.requires_grad_(False)
+
+
+class Transformer(FrozenModel):
+    """The model's parameters: ``embed``, ``layers`` (one :class:`Params`
+    per layer, in depth order, :func:`layer_kinds`), ``final_norm``, with
+    learned positions ``pos_embed`` and with the vision frontend
+    ``vision_proj``; frozen (:class:`FrozenModel`).
     """
 
     def __init__(self, cfg: ModelConfig, tree: Dict[str, object]):
         super().__init__()
-        _check_supported(cfg)
-        self.embed = nn.Parameter(tree["embed"], requires_grad=False)
-        self.final_norm = nn.Parameter(tree["final_norm"], requires_grad=False)
-        if cfg.frontend == "vision":
-            self.vision_proj = nn.Parameter(tree["vision_proj"], requires_grad=False)
+        for name in ("embed", "final_norm", "pos_embed", "vision_proj"):
+            if name in tree:
+                self.register_parameter(name, nn.Parameter(tree[name], requires_grad=False))
         n_local, n_global = cfg.group_pattern
 
         def layer(g: int, j: int, t):
@@ -188,16 +192,6 @@ class Transformer(nn.Module):
             Params(layer(g, j, groups[kind]))
             for g in range(cfg.n_groups)
             for kind, n in (("local", n_local), ("global", n_global)) for j in range(n))
-
-    @contextlib.contextmanager
-    def trainable(self):
-        """Parameters require gradients inside the block and are frozen
-        again when it ends."""
-        self.requires_grad_(True)
-        try:
-            yield self
-        finally:
-            self.requires_grad_(False)
 
 
 # ---------------------------------------------------------------------------
@@ -392,7 +386,6 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
     ``min(window, seq_len)`` ring slots (local); where they have an SSD
     block, ``state`` (layers, B, H, N, P) float32 and ``conv`` (layers,
     B, W - 1, C) in the model dtype."""
-    _check_supported(cfg)
     n_local, n_global = cfg.group_pattern
     kinds = {"global": (n_global, seq_len)}
     if n_local:
@@ -419,7 +412,8 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
 
 def embed_inputs(params: Transformer, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
     """Token embedding, behind the projected patch embeddings with the
-    vision frontend. Returns (x, positions)."""
+    vision frontend, plus ``pos_embed[:s]`` with learned positions.
+    Returns (x, positions)."""
     tokens = batch["tokens"]
     x = params.embed[tokens.long()].to(cfg.torch_dtype) * (cfg.d_model ** 0.5)
     if cfg.frontend == "vision":
@@ -427,6 +421,8 @@ def embed_inputs(params: Transformer, batch: Dict[str, torch.Tensor], cfg: Model
         x = torch.cat([px, x], dim=1)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    if cfg.pos == "learned":
+        x = x + params.pos_embed[:s][None].to(x.dtype)
     return x, positions
 
 
@@ -514,6 +510,8 @@ def decode(params: Transformer, cache: Dict[str, Dict[str, torch.Tensor]], token
     for the whole batch; with the vision frontend positions count the patch
     prefix). Returns (logits (B, V), cache updated in place)."""
     x = params.embed[token.long()].to(cfg.torch_dtype) * (cfg.d_model ** 0.5)
+    if cfg.pos == "learned":
+        x = x + params.pos_embed[pos][None].to(x.dtype)
     b = x.shape[0]
     _check_ssd_cache(cache, cfg, b)
     spans = {kind: DecodeSpan(leaves["k"].shape[2], pos,

@@ -102,10 +102,10 @@ def flat(tree, prefix=()):
     return {prefix: tree}
 
 
-#: the architectures the port runs: the reference's dense-layer, moe, ssm
-#: and hybrid ones
+#: the architectures the port runs: every one of the reference's registry
 PORTED = ["gemma3-12b", "granite-moe-3b-a800m", "grok-1-314b", "hymba-1.5b", "llama3.2-1b",
-          "llama3.2-1b-sw", "mamba2-2.7b", "paligemma-3b", "qwen3-14b", "starcoder2-15b"]
+          "llama3.2-1b-sw", "mamba2-2.7b", "paligemma-3b", "qwen3-14b", "starcoder2-15b",
+          "whisper-large-v3"]
 
 
 def test_configs_are_the_references():
@@ -122,8 +122,9 @@ def test_configs_are_the_references():
             J_ARCHS[arch].group_pattern, J_ARCHS[arch].n_groups)
     # the reference gives the sliding-window variant the windowless SMOKE
     assert SMOKES["llama3.2-1b-sw"] is SMOKES["llama3.2-1b"]
+    assert sorted(J_ARCHS) == PORTED and get_config("whisper-large-v3").encdec
     with pytest.raises(ValueError, match="unknown arch"):
-        get_config("whisper-large-v3")
+        get_config("whisper-tiny")
 
 
 @pytest.mark.parametrize("arch", PORTED)
@@ -245,17 +246,38 @@ def test_init_cache_matches_reference_layout():
     "whisper-large-v3",
 ], ids=["learned-positions", "encdec-whisper"])
 def test_unported_variants_raise(change):
-    """The encdec family of ROADMAP.md §1 item 6 (b4) and learned positions
-    are refused; the layer options they replaced here (local/global groups,
-    qk-norm, post-norms) are ported and held in
-    ``tests/test_torch_dense_options.py``, the moe family in
-    ``tests/test_torch_moe.py``, the ssm and hybrid families in
-    ``tests/test_torch_ssm.py``."""
+    """The two variants this test once saw refused, learned positions and
+    the encdec family, are ported (ROADMAP.md §1 (b4); held against the
+    reference in ``tests/test_torch_encdec.py``): their parameter trees
+    equal the reference's leaf for leaf.  What raises now is what the
+    reference refuses as well: a prompt past the 32,768 learned positions,
+    and the encdec model fed no ``frames`` (the serving engine's prefill
+    passes only tokens, in both packages)."""
     if isinstance(change, str):
-        cfg = TConfig(**dataclasses.asdict(J_SMOKES[change]))
+        jcfg = J_SMOKES[change]
     else:
-        base = dataclasses.asdict(SMOKES["llama3.2-1b"])
+        base = dataclasses.asdict(J_SMOKES["llama3.2-1b"])
         base.update(change)
-        cfg = TConfig(**base)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 6"):
-        tmodel.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+        jcfg = JConfig(**base)
+    cfg = TConfig(**dataclasses.asdict(jcfg))
+    jp = jax.tree.map(np.asarray, jmodel.init_params(jcfg, jax.random.PRNGKey(0)))
+    params = tmodel.params_from_numpy(jp, cfg, device="cpu")
+    got, want = flat(tmodel.params_to_tree(params, cfg)), flat(jp)
+    assert sorted(got) == sorted(want) and ("pos_embed",) in want
+    for path, w in want.items():
+        assert np.array_equal(got[path].numpy(), w), path
+    if cfg.encdec:
+        tokens = np.zeros((1, 4), np.int32)
+        with pytest.raises(KeyError, match="frames"):
+            jmodel.prefill(jp, {"tokens": jnp.asarray(tokens)}, jcfg)
+        with pytest.raises(KeyError, match="frames"):
+            tmodel.prefill(params, {"tokens": torch.as_tensor(tokens)}, cfg)
+    else:
+        from repro.models import transformer as jtransformer
+        from repro_torch.models import transformer as ttransformer
+
+        tokens = np.zeros((1, 32769), np.int32)
+        with pytest.raises(ValueError, match="broadcast"):
+            jtransformer.embed_inputs(jp, {"tokens": jnp.asarray(tokens)}, jcfg)
+        with pytest.raises(RuntimeError, match="size of tensor"):
+            ttransformer.embed_inputs(params, {"tokens": torch.as_tensor(tokens)}, cfg)

@@ -338,16 +338,38 @@ def test_param_count_is_the_references(change):
 
 
 def test_loss_fn_refuses_the_other_families():
+    """Every family's loss is ported now (the vision loss in
+    ``tests/test_torch_dense_options.py``, the encdec loss held against the
+    reference here and in ``tests/test_torch_encdec.py``); what stays
+    refused is a training forward asked for a cache, in both stacks."""
+    from repro_torch.models import encdec, transformer
+
     _, tcfg = configs()
     tp = tmodel.init_params(tcfg, torch.Generator().manual_seed(0), device="cpu")
     batch = {"tokens": torch.zeros((1, 8), dtype=torch.int32),
              "labels": torch.zeros((1, 8), dtype=torch.int32)}
-    # the vision loss is ported (tests/test_torch_dense_options.py)
-    with pytest.raises(NotImplementedError, match=r"item 6 \(b\)"):
-        tmodel.loss_fn(tp, batch, dataclasses.replace(tcfg, encdec=True))
     with pytest.raises(ValueError, match="no cache"):
-        from repro_torch.models import transformer
         transformer.forward(tp, batch, tcfg, train=True, return_cache=True)
+
+    jcfg = J_SMOKES["whisper-large-v3"]
+    wcfg = TConfig(**dataclasses.asdict(jcfg))
+    jp = jmodel.init_params(jcfg, jax.random.PRNGKey(1))
+    wp = tmodel.params_from_numpy(jax.tree.map(np.asarray, jp), wcfg, device="cpu")
+    rng = np.random.default_rng(2)
+    wb = {"frames": rng.standard_normal((2, 16, jcfg.d_model)).astype(np.float32),
+          "tokens": rng.integers(0, jcfg.vocab, (2, 8)).astype(np.int32),
+          "labels": rng.integers(0, jcfg.vocab, (2, 8)).astype(np.int32)}
+    want = reference_jit.jit(lambda p, b: jmodel.loss_fn(p, b, jcfg))(
+        jp, {k: jnp.asarray(v) for k, v in wb.items()})
+    got = tmodel.loss_fn(wp, {k: torch.from_numpy(v) for k, v in wb.items()}, wcfg)
+    assert got.dtype == torch.float32
+    # the reference's initialiser: the loss within the rtol 1e-5 measured
+    # in tests/test_torch_encdec.py (its own spread 1.0e-6)
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+    enc = encdec.encode(wp, torch.from_numpy(wb["frames"]), wcfg)
+    with pytest.raises(ValueError, match="no cache"):
+        encdec.dec_forward(wp, torch.from_numpy(wb["tokens"]), enc, wcfg, train=True,
+                           return_cache=True)
 
 
 def test_params_to_tree_inverts_params_from_numpy(carried):
