@@ -29,7 +29,7 @@ Phases, each printing its own lines:
 5. the paper's experiment at full width (M = 100 A100-80GB, uniform mix,
    offered load 1.0, seed 0, R = 500) for mfi, ff, bf-bi, wf-bi, rr, a
    delta-only mfi spec and mfi-defrag, once through the kernels (mfi and
-   mfi-defrag over the whole stream, the others over its first 500
+   mfi-defrag over the whole stream, the others over its first 250
    events; launch counts reset just before and read just after) and once
    through the plain lowering over the first 128 of the same events: traces equal
    there, launch counts matching the events; then a profiled 32-event window of the mfi, the
@@ -66,8 +66,11 @@ Phases, each printing its own lines:
    padded past its window (B = 4, K = 5, G = 5, D = 64, bf16, S = 1,042,
    start = pos - 1,023), and phase 16's (m) whisper-large-v3's self cache
    (B = 4, K = 20, G = 1, D = 64, bf16, S = 144 read whole) and (n) its
-   cross cache (S = 1,536 frames read whole); for (a)-(n) its device time,
-   time per call, bound, plain time and the time of
+   cross cache (S = 1,536 frames read whole), and phase 17's hymba-1.5b
+   global layer at its assigned sizes (K = 5, G = 5, D = 64, bf16, every
+   key read): (o) decode_32k's B = 128, S = 32,768 (5.37 GB of cache) and
+   (p) long_500k's B = 1, S = 524,288; for (a)-(p) its device time, time
+   per call, bound, plain time and the time of
    ``scaled_dot_product_attention`` (the kernel must beat it at (b));
 7. the serving path at full width: ``llama3.2-1b`` (bf16, random weights
    from a ``torch.Generator`` seeded 0) behind the MIG admission controller
@@ -105,7 +108,7 @@ Phases, each printing its own lines:
     (``sim/replay.py``) and ``run_batched`` to the host engine's
     ``run_many``; the reference's two pinned queued hashes with the
     kernels on; the queued protocol at M = 100, load 1.1, R = 500 for mfi
-    (its whole stream) and mfi-queued (its first 500 events), kernel
+    (its whole stream) and mfi-queued (its first 250 events), kernel
     equal to plain over the first 128 events,
     with its wait percentiles,
     fairness, wait-admits and ``select_from_base`` launches per event (2),
@@ -129,7 +132,7 @@ Phases, each printing its own lines:
     ``run_batched`` (printed beside the recorded rows, not asserted), and
     ``run_batched`` at MTBF 60
     equal to its block; ``simulate_chunked`` at the Fig. 4 point (steady
-    mfi, R = 500) at chunk sizes 256 and 1,000 and at the faulted point at
+    mfi, R = 500) at chunk size 256 and at the faulted point at
     chunk 512, each equal to its monolithic trace, a resume from the
     checkpoint it wrote after chunk 2 equal for one more chunk, with the
     copies' overlap share, wall time and peak device memory of both
@@ -239,7 +242,31 @@ Phases, each printing its own lines:
     products) and a profiled micro-batch split (encoder attention,
     decoder self-attention, cross-attention, CE, optimizer, matmuls, the
     rest); then an ``{"encdec": ...}`` line;
-17. a ``{"kernels": [...]}`` JSON line (each kernel's launches in total
+17. the replica split and the launch tooling: (a) ``_visible_devices``
+    made to show the one card 2 and 4 times (the hook the CPU tests patch),
+    mfi over the Fig. 4 point's first 250 events (R = 500) through the
+    kernels unsplit and split 2 and 4 ways, one event loop stepping every
+    block in turn under ``set_sync_debug_mode("error")``: traces
+    byte-equal, aggregates equal, launches D times the unsplit run's
+    (counts reset just before each run), replica-events/s of each (on one
+    card a split only adds launches); mfi-defrag and faulted mfi over a
+    32-event engine window split 2 ways; ``simulate_chunked`` split 2 ways
+    at 64 events a chunk, checkpointed every 3 chunks, its last
+    checkpoint resumed unsplit; with the one card visible
+    ``run_batched(shard=True)`` raises the reference's ``ValueError`` and
+    ``shard=None`` equals the unsplit run (M = 20, R = 8), and a 2-way
+    ``run_batched(shard=True)`` equals it too; (b) hymba-1.5b (bf16, random
+    weights seeded 0) through ``launch/steps.py::build_step``'s decode
+    branch at its assigned decode_32k (128 x 32,768) and long_500k
+    (1 x 524,288) shapes: the cache allocated from the meta specs, drawn at
+    the standard deviation each leaf has after a 4 x 256-token prefill
+    (printed), full (4 steps from pos = S - 4: every key read), with ms a
+    step, a profiled window's busy share, peak memory, ``decode_attention``
+    launches a step (32) and finite logits; (c) the prefill branch at
+    prefill_32k's S = 32,768 with the batch cut from 32 to 1, and the train
+    branch's SMOKE step (hymba-1.5b, float32, weights x 0.1) card vs CPU
+    with and without the ``bf16_grad`` rule; then the phase's JSON line;
+18. a ``{"kernels": [...]}`` JSON line (each kernel's launches in total
     and by path), then the result line.
 
 Every equality of phases 3-5 and 8-11 is exact: all scores are integers
@@ -347,7 +374,7 @@ FAULT_SWEEP_CSV = "experiments/fig_faults_batched_30.csv"
 FAULT_SWEEP_RUNS = 30
 FAULT_SWEEP_MTBFS = (30.0, 60.0, 120.0, 240.0, 480.0)
 #: chunk sizes of the chunked driver at the Fig. 4 and the faulted point
-STEADY_CHUNKS = (256, 1000)
+STEADY_CHUNKS = (256,)
 FAULTED_CHUNK = 512
 
 RUNS = 500
@@ -360,7 +387,7 @@ WINDOW_EVENTS = 32
 #: the kernel path of phase 5's side policies (ff, bf-bi, wf-bi, rr,
 #: mfi-delta-only) and of phase 10's mfi-queued: their stream's first this
 #: many events (mfi and mfi-defrag take whole streams)
-SIDE_EVENTS = 500
+SIDE_EVENTS = 250
 #: phase 3's mixed fleet of four device models
 FOUR_MODEL_FLEET = "a100-80:30,a100-40:30,h100-96:20,h100-80:20"
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
@@ -521,6 +548,26 @@ ENCDEC_TRAIN_STEPS = 2
 ENCDEC_SMOKE_SERVE = (4, 64, 8)
 ENCDEC_SMOKE_STEP = (4, 64)
 ENCDEC_SMOKE_TOL = {1.0: (2e-2, 3e-3), 0.1: (2e-5, 2e-5)}
+
+#: phase 17, the replica split: D-way splits of the Fig. 4 point's first
+#: SIDE_EVENTS events onto the one card; the chunked split's chunk and
+#: checkpoint period; the fleet and replicas of the run_batched checks
+SPLIT_WAYS = (2, 4)
+SPLIT_CHUNK = 64
+SPLIT_CKPT_EVERY = 3
+SPLIT_API_GPUS = 20
+SPLIT_API_RUNS = 8
+STEADY_HASH_FIELDS = ("ok", "gpu", "aidx", "free_sum", "active", "frag")
+#: phase 17, the launch tooling: hymba-1.5b's decode through build_step at
+#: its assigned decode_32k (128 x 32,768) and long_500k (1 x 524,288)
+#: shapes, ASSIGNED_STEPS steps from pos = S - ASSIGNED_STEPS over a cache
+#: drawn at the scale of a SCALE_PROMPT prefill's; prefill_32k's batch cut
+#: from 32 to PREFILL_BATCH
+ASSIGNED_ARCH = "hymba-1.5b"
+ASSIGNED_DECODE = ("decode_32k", "long_500k")
+ASSIGNED_STEPS = 4
+SCALE_PROMPT = (4, 256)
+PREFILL_BATCH = 1
 #: victims per replica of the migrate search at M = 100 (min(C, M·S))
 C_LIVE = 800
 #: fleet sizes of the mfi_delta kernel check (A100-80GB): the paper's
@@ -2112,10 +2159,16 @@ def decode_attention_phase(device):
                             [ENCDEC_PROMPT + ENCDEC_NEW] * SERVE_SLOTS, None, None),
         "whisper-cross-g1": (SERVE_SLOTS, ENCDEC_FRAMES, 20, 1, 64, bf16,
                              [ENCDEC_FRAMES] * SERVE_SLOTS, None, None),
+        # phase 17's hymba-1.5b global layer at its assigned sizes (K = 5,
+        # G = 5, D = 64, bf16), every key read: decode_32k's 128 x 32,768
+        # and long_500k's 1 x 524,288
+        "hymba-decode-32k": (128, 32768, 5, 5, 64, bf16, [32768] * 128, None, None),
+        "hymba-long-500k": (1, 524288, 5, 5, 64, bf16, [524288], None, None),
     }
     timed_cases = ("serving", "long", "middle", "b1-32k", "gemma3-ring", "gemma3-wrapped",
                    "qwen3-g5-d128", "starcoder2-g12-d128", "paligemma-k1-g8-d256", "granite-g3",
-                   "grok-smoke", "hymba-g5-d64", "whisper-self-g1", "whisper-cross-g1")
+                   "grok-smoke", "hymba-g5-d64", "whisper-self-g1", "whisper-cross-g1",
+                   "hymba-decode-32k", "hymba-long-500k")
     errs, ratios = {}, {}
     row = {}
     for tag, (b, s, kh, g, d, dtype, lengths, scale, st) in cases.items():
@@ -2130,7 +2183,10 @@ def decode_attention_phase(device):
         if tag not in timed_cases:
             continue
         ms, call_ms, src = timed(lambda: D.decode_attention(q, k, v, ln, start=sv), 200, "decode_")
-        plain_ms, plain_call_ms, _ = timed(lambda: decode_attention_ref(q, k, v, ln, start=sv), 50)
+        # the plain version takes 20-30 ms at phase 17's assigned sizes: 5 calls there
+        plain_iters = 50 if k.numel() < 2 ** 28 else 5
+        plain_ms, plain_call_ms, _ = timed(lambda: decode_attention_ref(q, k, v, ln, start=sv),
+                                           plain_iters)
         lib = sdpa_call(q, k, v, ln, sv)
         lib_ms, lib_call_ms, _ = timed(lib, 200)
         if all(hi > lo for hi, lo in zip(lengths, st or [0] * b)):
@@ -2139,8 +2195,9 @@ def decode_attention_phase(device):
             lib_err = None
         (b_ms, b_by), nb = attention_bound(q, k, ln, got, sv)
         split_len, n_splits = split.plan_splits(b, kh, s, sms)
+        shown = (f"[{lengths[0]}] x {b}" if b > 8 and len(set(lengths)) == 1 else str(lengths))
         shape = (f"q ({b}, {kh * g}, {d}), k/v ({b}, {s}, {kh}, {d}) {str(dtype)[6:]}, "
-                 f"lengths {lengths}, starts {st}, {n_splits} splits of {split_len}")
+                 f"lengths {shown}, starts {st}, {n_splits} splits of {split_len}")
         log(f"kernel decode_attention [{tag}]: {shape}: max abs err {errs[tag]:.3e} "
             f"against the f32 plain version; device {ms:.5f} ms ({src}), per call "
             f"{call_ms:.4f} ms; plain device {plain_ms:.5f} ms, per call {plain_call_ms:.4f} ms; "
@@ -4168,6 +4225,421 @@ def encdec_phase(device, wrappers):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the replica split and the launch tooling
+# ---------------------------------------------------------------------------
+
+
+def split_blocks(events, policy, common, ways):
+    """The kernel path of ``policy`` over ``events`` split ``ways`` ways onto
+    the card (``_visible_devices`` shows it ``ways`` times, the hook the CPU
+    tests patch too): one event loop steps every block in turn, under
+    ``set_sync_debug_mode("error")``.  Returns ``(joined host trace,
+    seconds of the loop and the trace's fetch)``."""
+    import torch
+    from repro_torch.sim import batched
+
+    card = torch.device("cuda", torch.cuda.current_device())
+    placed = batched.shard_events(events, events.pid.shape[1], True, card)
+    check(isinstance(placed, batched.ShardedStream) and len(placed.shards) == ways,
+          f"split: {ways}-way split not made")
+    check(batched.shard_events(placed, events.pid.shape[1], True) is placed,
+          "split: a split stream was placed again")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blocks = [batched._setup_run(ev, policy=policy, use_kernel=True,
+                                 **batched._statics_on(common, d))
+              for ev, d in zip(placed.shards, placed.devices)]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        batched._split_event_loop(blocks)
+    except RuntimeError as e:
+        check(False, f"split {ways} ways: a host sync inside the event loop: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    trace = batched._join_traces([batched.trace_to_numpy(b[3]) for b in blocks], card)
+    return trace, time.perf_counter() - t0
+
+
+def unsplit_run(events, policy, common):
+    """The unsplit kernel path over ``events``, the loop under
+    ``set_sync_debug_mode("error")``: ``(host trace, seconds)``."""
+    import torch
+    from repro_torch.sim import batched
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loop = batched._setup_run(events, policy=policy, use_kernel=True, **common)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        batched._event_loop(*loop)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    trace = batched.trace_to_numpy(loop[3])
+    return trace, time.perf_counter() - t0
+
+
+def traces_equal(a, b) -> bool:
+    import numpy as np
+    from repro_torch.sim import batched
+
+    return all((getattr(a, f) is None) == (getattr(b, f) is None)
+               and (getattr(a, f) is None or np.array_equal(getattr(a, f), getattr(b, f)))
+               for f in batched.EventTrace._fields)
+
+
+def replica_split(device, wrappers):
+    """(a) The replica split on the one card: the Fig. 4 point's first
+    SIDE_EVENTS events through the kernels unsplit and split 2 and 4 ways
+    (traces byte-equal, aggregates equal, launches D times the unsplit
+    run's); mfi-defrag and faulted mfi split 2 ways over an engine window;
+    a chunked run split 2 ways, checkpointed at a chunk boundary and
+    resumed unsplit; ``run_batched(shard=...)`` on a small fleet: True
+    raises the reference's error with one card visible, None equals the
+    unsplit run, and True over a 2-way split equals it too."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.core import mig
+    from repro_torch.sim import batched
+    from repro_torch.sim.simulator import SimConfig
+
+    cfg, spec, events, common = paper_stream(device)
+    side = batched.EventStream(*[None if a is None else a[:SIDE_EVENTS] for a in events])
+    n = SIDE_EVENTS
+    visible = batched._visible_devices
+    card = torch.device("cuda", torch.cuda.current_device())
+    totals = dict.fromkeys(wrappers, 0)
+    out = {}
+
+    def counted(fn):
+        for w in wrappers.values():
+            w.launches = 0
+        res = fn()
+        counts = {k: w.launches for k, w in wrappers.items()}
+        for k in totals:
+            totals[k] += counts[k]
+        return res, counts
+
+    # the one-card rules: shard=True raises, shard=None is no split
+    try:
+        batched.shard_events(side, RUNS, True, device)
+        check(False, "split: shard=True with one card visible did not raise")
+    except ValueError as e:
+        check(str(e) == "replica sharding requested but only one device is visible",
+              f"split: shard=True raised {e!r}")
+    check(batched.shard_events(side, RUNS, None, device) is side, "split: shard=None split")
+    small = SimConfig(num_gpus=SPLIT_API_GPUS, offered_load=1.0, seed=0)
+    try:
+        batched.run_batched("mfi", small, runs=SPLIT_API_RUNS, shard=True)
+        check(False, "split: run_batched(shard=True) with one card visible did not raise")
+    except ValueError as e:
+        check("only one device is visible" in str(e), f"split: run_batched raised {e!r}")
+    want_api = batched.run_batched("mfi", small, runs=SPLIT_API_RUNS, shard=False)
+    got_auto = batched.run_batched("mfi", small, runs=SPLIT_API_RUNS)
+    check(dicts_equal(got_auto, want_api), "split: run_batched(shard=None) != unsplit")
+
+    unsplit_run(batched.EventStream(*[None if a is None else a[:32] for a in side]), "mfi", common)
+    (want, secs), want_counts = counted(lambda: unsplit_run(side, "mfi", common))
+    want_agg = batched.aggregate(side, want, spec, RUNS)
+    rates = {"unsplit": RUNS * n / secs}
+    try:
+        for ways in SPLIT_WAYS:
+            batched._visible_devices = lambda dev, ways=ways: [card] * ways
+            if ways == SPLIT_WAYS[0]:
+                got = batched.run_batched("mfi", small, runs=SPLIT_API_RUNS, shard=True)
+                check(dicts_equal(got, want_api), "split: run_batched(shard=True) 2 ways")
+            (trace, secs), counts = counted(lambda: split_blocks(side, "mfi", common, ways))
+            check(traces_equal(trace, want), f"split mfi {ways} ways: trace differs")
+            check(trace_hash(tuple(getattr(trace, f) for f in STEADY_HASH_FIELDS))
+                  == trace_hash(tuple(getattr(want, f) for f in STEADY_HASH_FIELDS)),
+                  f"split mfi {ways} ways: hash differs")
+            agg = batched.aggregate(side, trace, spec, RUNS)
+            check(dicts_equal(agg, want_agg), f"split mfi {ways} ways: aggregates differ")
+            placed = int((side.pid >= 0).sum())
+            check(counts == {k: ways * v for k, v in want_counts.items()},
+                  f"split mfi {ways} ways: launches {counts} != {ways} x {want_counts}")
+            rates[f"{ways}-way"] = RUNS * n / secs
+            log(f"split: mfi over the Fig. 4 point's first {n} events, R = {RUNS} as {ways} "
+                f"blocks of {RUNS // ways} on {card}: trace byte-equal to the unsplit run "
+                f"({int(trace.ok.sum())} of {placed} arrivals placed), aggregates equal (these "
+                f"events precede the measured window), launches {counts} "
+                f"({ways} x the unsplit run's), no host sync in the loop; "
+                f"{RUNS * n / secs:.0f} replica-events/s ({secs:.2f} s) against unsplit "
+                f"{rates['unsplit']:.0f}")
+
+        batched._visible_devices = lambda dev: [card] * 2
+        window = batched.EventStream(*[None if a is None else a[:WINDOW_EVENTS] for a in events])
+        fm = mig.FaultModel(mtbf=FAULT_MTBF, mttr=FAULT_MTTR)
+        fcfg = SimConfig(num_gpus=100, offered_load=QUEUED_LOAD, seed=0,
+                         protocol="steady-faulted", fault_model=fm)
+        fev, _, frows, fcols = batched.presample_arrivals(fcfg, RUNS, queued=True,
+                                                          fault_model=fm)
+        fwin = batched.EventStream(*[None if a is None else a[:WINDOW_EVENTS] for a in fev])
+        for name, ev, policy, kw in (("mfi-defrag", window, "mfi-defrag", common),
+                                     ("faulted mfi", fwin, "mfi",
+                                      faulted_common(fcfg, frows, fcols, fm, device))):
+            (w_trace, w_s), w_counts = counted(lambda: unsplit_run(ev, policy, kw))
+            (s_trace, s_s), s_counts = counted(lambda: split_blocks(ev, policy, kw, 2))
+            check(traces_equal(s_trace, w_trace), f"split {name}: window trace differs")
+            check(s_counts == {k: 2 * v for k, v in w_counts.items()},
+                  f"split {name}: launches {s_counts} != 2 x {w_counts}")
+            out[name.replace(" ", "_") + "_window"] = dict(
+                events=WINDOW_EVENTS, unsplit_s=w_s, split_s=s_s, launches=s_counts)
+            log(f"split: {name} engine window ({WINDOW_EVENTS} events, R = {RUNS}) split 2 "
+                f"ways: trace equal to the unsplit run, launches {s_counts} (2 x {w_counts}), "
+                f"no host sync in the loop; {w_s:.2f} s unsplit, {s_s:.2f} s split")
+
+        # simulate_chunked split 2 ways: each block its own feed and drain
+        tmp = Path(tempfile.mkdtemp(prefix="split_ckpt_"))
+        path = tmp / "carry"
+        stats = {}
+        done = SPLIT_CKPT_EVERY * SPLIT_CHUNK
+        (c_state, c_trace), c_counts = counted(lambda: batched.simulate_chunked(
+            side, chunk_size=SPLIT_CHUNK, policy="mfi", use_kernel=True, shard=True,
+            checkpoint_path=path, checkpoint_every=SPLIT_CKPT_EVERY, stats=stats, **common))
+        check(traces_equal(c_trace, want), "split chunked: trace differs from the unsplit run")
+        statics = {k: v for k, v in common.items() if k not in ("ring_rows", "ring_cols")}
+        template = batched.init_carry(RUNS, policy="mfi", use_kernel=True,
+                                      ring_rows=common["ring_rows"],
+                                      ring_cols=common["ring_cols"], **statics)
+        state, step = batched.load_stream_checkpoint(path, template)
+        check(step == done, f"split chunked: last checkpoint at {step}, not {done}")
+        (_, tail), t_counts = counted(lambda: batched.simulate_chunked(
+            side, chunk_size=SPLIT_CHUNK, policy="mfi", use_kernel=True, shard=False,
+            carry=state, start=step, **common))
+        check(all(getattr(tail, f) is None or np.array_equal(getattr(tail, f),
+                                                             getattr(want, f)[step:])
+                  for f in batched.EventTrace._fields),
+              "split chunked: the unsplit resume differs from the unsplit run")
+        for f in tmp.iterdir():
+            f.unlink()
+        tmp.rmdir()
+        out["chunked"] = dict(chunk=SPLIT_CHUNK, chunks=stats["chunks"],
+                              h2d_overlap_frac=stats["h2d_overlap_frac"],
+                              resumed_from=step, launches=c_counts)
+        log(f"split: mfi chunked at {SPLIT_CHUNK} over {n} events split 2 ways (a feed and a "
+            f"drain per block, side streams), checkpointed every {SPLIT_CKPT_EVERY} chunks: trace "
+            f"equal to the "
+            f"unsplit run; the last checkpoint (event {step}, the gathered carry) resumed "
+            f"unsplit, events {step}-{n} equal; {stats['chunks']} chunks, h2d_overlap_frac "
+            f"{stats['h2d_overlap_frac']:.4f}, launches {c_counts} then {t_counts}")
+    finally:
+        batched._visible_devices = visible
+    out.update(replica_events_per_s=rates, launches=totals, events=n, runs=RUNS)
+    return out
+
+
+def cache_scale(cfg, params, device):
+    """The standard deviation of each cache leaf (k, v, the SSD state and
+    conv history, by kind) after a short prefill of SCALE_PROMPT random
+    tokens: the scale at which the assigned-size caches are drawn."""
+    import torch
+    from repro_torch.models import model
+
+    b, s = SCALE_PROMPT
+    gen = torch.Generator(device).manual_seed(4)
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=device, dtype=torch.int32)
+    _, cache = model.prefill(params, {"tokens": tokens}, cfg)
+    return {kind: {name: float(t.float().std()) for name, t in leaves.items()}
+            for kind, leaves in cache.items()}
+
+
+def assigned_decode(device, wrappers, cfg, params, scale, shape_name):
+    """``build_step``'s decode branch for ``cfg`` at its assigned
+    ``shape_name``: real tensors of the example args' shapes and dtypes,
+    the cache drawn at ``scale`` from a Generator seeded 0, full (the
+    decode starts at pos = S - ASSIGNED_STEPS, so every key is read),
+    ASSIGNED_STEPS steps through ``serve_step``: ms a step, a profiled
+    window's busy share, peak memory, ``decode_attention`` launches a step,
+    finite logits."""
+    import torch
+    from repro_torch.launch import shapes, steps
+
+    shape = shapes.SHAPES[shape_name]
+    fn, args, ins, outs = steps.build_step(cfg, shape, multi_pod=False)
+    meta = args[1]
+    reckoned = sum(t.numel() * t.element_size() for leaves in meta.values()
+                   for t in leaves.values())
+    gen = torch.Generator(device).manual_seed(0)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cache = {}
+    for kind, leaves in meta.items():
+        cache[kind] = {}
+        for name, t in leaves.items():
+            real = torch.empty(t.shape, dtype=t.dtype, device=device)
+            real.normal_(0.0, scale[kind][name], generator=gen)
+            cache[kind][name] = real
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    held = torch.cuda.memory_allocated() - base
+    b, s = shape.global_batch, shape.seq_len
+    token = torch.randint(0, cfg.vocab, (b,), generator=gen, device=device, dtype=torch.int32)
+    check(tuple(token.shape) == tuple(args[2].shape) and token.dtype == args[2].dtype,
+          f"launch: {shape_name} token spec")
+    first = s - ASSIGNED_STEPS
+
+    def run(n_steps, start):
+        t = token
+        lg = None
+        for i in range(n_steps):
+            lg, _ = fn(params, cache, t, start + i)
+            t = torch.argmax(lg, dim=-1).to(torch.int32)
+        return lg
+
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = run(ASSIGNED_STEPS, first)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / ASSIGNED_STEPS
+    counts = {k: w.launches for k, w in wrappers.items()}
+    finite = bool(torch.isfinite(logits).all())
+    peak = torch.cuda.max_memory_allocated() - base
+    per_step = counts["decode_attention"] / ASSIGNED_STEPS
+    want = dict.fromkeys(wrappers, 0)
+    want["decode_attention"] = attention_layers(cfg) * ASSIGNED_STEPS
+    check(counts == want and finite,
+          f"launch: {shape_name} launches {counts} != {want} or logits not finite")
+    check(tuple(logits.shape) == (b, cfg.padded_vocab), f"launch: logits {tuple(logits.shape)}")
+    # the same steps again (the ring and linear slots rewritten), profiled
+    times = device_times(lambda: run(ASSIGNED_STEPS, first), 1)
+    busy_ms = sum(t for t, _ in times.values()) / 1e3
+    t0 = time.perf_counter()
+    run(ASSIGNED_STEPS, first)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    attn_us = sum(t for k, (t, _) in times.items() if "decode_" in k)
+    ops = sum(c for _, c in times.values()) / ASSIGNED_STEPS
+    top = sorted(times.items(), key=lambda kv: -kv[1][0])[:4]
+    res = dict(shape=shape_name, batch=b, seq_len=s, cache_gb=held / 1e9,
+               reckoned_cache_gb=reckoned / 1e9, draw_s=draw_s, ms_per_step=ms,
+               launches_per_step=per_step, peak_gb=(peak + base) / 1e9,
+               window_busy_ms=busy_ms, window_wall_ms=wall_ms,
+               busy_share=busy_ms / wall_ms, device_ops_per_step=ops,
+               decode_attention_ms_per_step=attn_us / 1e3 / ASSIGNED_STEPS,
+               launches=counts["decode_attention"])
+    log(f"launch: {cfg.name} {shape_name} through build_step's decode branch: B {b}, S {s}; "
+        f"cache {held / 1e9:.3f} GB on the card (build_step's meta specs reckon "
+        f"{reckoned / 1e9:.3f} GB) drawn in {draw_s:.2f} s; {ASSIGNED_STEPS} steps from pos "
+        f"{first}: {ms:.3f} ms/step, decode_attention {per_step:.0f} launches/step "
+        f"({attn_us / 1e3 / ASSIGNED_STEPS:.3f} ms of device time a step), logits finite; "
+        f"profiled window {busy_ms:.3f} ms busy of {wall_ms:.3f} ms wall "
+        f"({100 * busy_ms / wall_ms:.1f}% busy), {ops:.0f} device ops/step; peak memory "
+        f"{(peak + base) / 1e9:.3f} GB; top: "
+        + "; ".join(f"{k[:48]} {t / c:.1f} us x{c}" for k, (t, c) in top))
+    del cache
+    release()
+    return res
+
+
+def launch_train_smoke(device):
+    """``build_step``'s train branch on the SMOKE config, card vs CPU
+    (float32, TF32 off, weights scaled by 0.1), with and without the
+    ``bf16_grad`` rule: the loss and both AdamW moments."""
+    import torch
+    from repro_torch.configs import SMOKES
+    from repro_torch.data import make_batch_iterator
+    from repro_torch.launch import shapes, steps
+    from repro_torch.models import model
+    from repro_torch.optim import adamw_init
+
+    cfg = SMOKES[ASSIGNED_ARCH]
+    cpu = torch.device("cpu")
+    tree = scaled_tree(model.params_to_tree(
+        model.init_params(cfg, torch.Generator().manual_seed(0), cpu), cfg), 0.1)
+    batch = next(make_batch_iterator(cfg, *SSM_SMOKE_STEP, seed=0))
+    out = {}
+    for over in (None, {"bf16_grad": True}):
+        fn = steps.build_step(cfg, shapes.SHAPES["train_4k"], multi_pod=False,
+                              rule_overrides=over)[0]
+        runs = {}
+        for dev in (cpu, device):
+            params = model.params_from_numpy(tree, cfg, dev)
+            b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+            _, opt, metrics = fn(params, adamw_init(params), b)
+            runs[dev.type] = (float(metrics["loss"]), opt)
+        (hl, ho), (cl, co) = runs["cpu"], runs[device.type]
+        worst = max(float((co[m][n].cpu() - ho[m][n]).abs().max())
+                    / ((1 if m == "m" else 2) * SMOKE_TAMED_GRAD_TOL
+                       * float(ho[m][n].abs().max()) + 1e-30)
+                    for m in ("m", "v") for n in ho[m])
+        tag = "bf16_grad" if over else "plain"
+        log(f"launch: build_step train branch, SMOKE {ASSIGNED_ARCH} {tag}, weights x0.1, card "
+            f"vs CPU: loss {cl:.7f} vs {hl:.7f}; worst moment leaf at {worst:.3f} of its limit "
+            f"({SMOKE_TAMED_GRAD_TOL:g} of the leaf's largest magnitude for m, twice it for v)")
+        check(abs(cl - hl) <= 1e-5 * abs(hl) and worst <= 1.0,
+              f"launch: SMOKE train step {tag} card vs CPU past its limits")
+        out[tag] = dict(loss_card=cl, loss_cpu=hl, moment_share_of_limit=worst)
+    return out
+
+
+def launch_tooling(device, wrappers):
+    """(b) hymba-1.5b's decode at its assigned decode_32k and long_500k
+    sizes through ``build_step``; (c) the prefill branch at prefill_32k's
+    S with the batch cut to PREFILL_BATCH, and the train branch's SMOKE
+    step card vs CPU with and without ``bf16_grad``."""
+    import dataclasses
+    import torch
+    from repro_torch.launch import shapes, steps
+
+    out = {"train_smoke": launch_train_smoke(device)}
+    cfg, params, wbytes, draw_s = draw_model(ASSIGNED_ARCH, device)
+    scale = cache_scale(cfg, params, device)
+    log(f"launch: {ASSIGNED_ARCH} ({wbytes / 1e9:.3f} GB bf16 drawn in {draw_s:.2f} s); cache "
+        f"leaves' std after a prefill of {SCALE_PROMPT[0]} x {SCALE_PROMPT[1]} tokens: {scale}")
+    out["cache_std"] = scale
+    launches = 0
+    for name in ASSIGNED_DECODE:
+        res = assigned_decode(device, wrappers, cfg, params, scale, name)
+        out[name] = res
+        launches += res["launches"]
+
+    shape = dataclasses.replace(shapes.SHAPES["prefill_32k"], global_batch=PREFILL_BATCH)
+    fn, args, _, _ = steps.build_step(cfg, shape, multi_pod=False)
+    gen = torch.Generator(device).manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab, tuple(args[1]["tokens"].shape), generator=gen,
+                           device=device, dtype=torch.int32)
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, cache = fn(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() - base
+    counts = {k: w.launches for k, w in wrappers.items()}
+    check(sum(counts.values()) == 0 and bool(torch.isfinite(logits).all())
+          and tuple(cache["global"]["k"].shape)[2] == shape.seq_len,
+          f"launch: prefill_32k launches {counts}, logits finite {bool(torch.isfinite(logits).all())}")
+    out["prefill_32k"] = dict(batch=PREFILL_BATCH, cut_from=shapes.SHAPES["prefill_32k"].global_batch,
+                              seq_len=shape.seq_len, prefill_ms=prefill_ms,
+                              tokens_per_s=PREFILL_BATCH * shape.seq_len / prefill_ms * 1e3,
+                              peak_gb=(peak + base) / 1e9)
+    log(f"launch: {ASSIGNED_ARCH} prefill_32k through build_step's prefill branch, batch "
+        f"{PREFILL_BATCH} (cut from {shapes.SHAPES['prefill_32k'].global_batch}) x "
+        f"{shape.seq_len} tokens: {prefill_ms:.1f} ms "
+        f"({PREFILL_BATCH * shape.seq_len / prefill_ms * 1e3:.0f} tokens/s), logits finite, no "
+        f"kernel launched (the reference prefills outside its Pallas kernels); peak memory "
+        f"{(peak + base) / 1e9:.3f} GB")
+    del params, cache, logits
+    release()
+    out["launches"] = launches
+    return out
+
+
+def split_launch_phase(device, wrappers):
+    out = {"split": replica_split(device, wrappers), "launch": launch_tooling(device, wrappers)}
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4244,10 +4716,12 @@ def main() -> int:
     lap(15)
     encdec = encdec_phase(device, wrappers)
     lap(16)
+    split_launch = split_launch_phase(device, wrappers)
+    lap(17)
     # each path's launches, counted from zero just before it ran
     by_path = {name: dict.fromkeys(wrappers, 0) for name in (
         "steady", "fig5", "serving", "decisions", "protocols", "faults", "dense_options", "moe",
-        "ssm", "encdec")}
+        "ssm", "encdec", "split", "launch")}
     by_path["steady"].update(steady)
     by_path["fig5"].update(fig5_launches)
     by_path["serving"]["decode_attention"] = serving["launches"]
@@ -4258,6 +4732,8 @@ def main() -> int:
     by_path["moe"]["decode_attention"] = experts["launches"]
     by_path["ssm"]["decode_attention"] = ssm_families["launches"]
     by_path["encdec"]["decode_attention"] = encdec["launches"]
+    by_path["split"].update(split_launch["split"]["launches"])
+    by_path["launch"]["decode_attention"] = split_launch["launch"]["launches"]
     totals = {k: sum(p[k] for p in by_path.values()) for k in wrappers}
 
     kernels = []
@@ -4267,6 +4743,7 @@ def main() -> int:
                                      "starcoder2_g12_d128", "paligemma_k1_g8_d256",
                                      "granite_g3", "grok_smoke", "hymba_g5_d64",
                                      "whisper_self_g1", "whisper_cross_g1",
+                                     "hymba_decode_32k", "hymba_long_500k",
                                      "library_call_ms", "by_m", "pass0_ms", "pass1_ms")
                  if k in row}
         kernels.append(dict(
@@ -4290,6 +4767,7 @@ def main() -> int:
     log(json.dumps({"moe": experts}))
     log(json.dumps({"ssm": ssm_families}))
     log(json.dumps({"encdec": encdec}))
+    log(json.dumps(split_launch))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -73,7 +73,10 @@ def simulate(
         protocol (``steady`` | ``cumulative`` | ``steady-queued`` |
         ``steady-faulted``, taken from ``cfg.protocol``; the faulted one
         needs ``cfg.fault_model``).
-      runs: replicas to average (the paper uses 500).
+      runs: replicas to average (the paper uses 500).  The batched engine
+        splits the replicas across the visible cards when more than one is
+        visible and ``runs`` divides evenly (see
+        :func:`repro_torch.sim.batched.shard_events`).
       use_kernel: batched engine only — route the stages through the CUDA
         kernels (default: on a CUDA device, unless the spec opts out).
       chunk_size: batched engine only — run the events through the chunked

@@ -1,10 +1,19 @@
-"""The training step of every model family, without sharding rules.
+"""Step functions (train / prefill / decode) with their sharding specs.
 
-``train_step(params, opt_state, batch, cfg)`` is the train branch of the
-reference's ``launch/steps.py::build_step``: loss and gradients (over
-``cfg.grad_accum`` micro-batches), the cosine schedule at the optimizer's
-step, and AdamW.  ``build_step``, ``rules_for`` and the prefill/decode
-lowerings wait for the launch tooling (ROADMAP.md §1 item 13).
+``build_step(cfg, shape, multi_pod=...)`` returns ``(step_fn, example
+args as meta tensors, in_specs, out_specs)``, the reference's
+``launch/steps.py::build_step``: each step runs inside ``use_rules`` of
+:func:`rules_for`, whose rules the models read (``attn_tp``,
+``bf16_grad``), and the specs give every input and output its
+``PartitionSpec`` under those rules (batch -> (pod, data); ff/vocab/attn
+projections -> model; FSDP d_model -> data; long_500k (B=1) shards the KV
+cache sequence axis over data instead of the batch).  On one device every
+spec is a description: placing the tensors across a mesh is ROADMAP.md
+§1 item 15.
+
+``train_step(params, opt_state, batch, cfg)`` is the train branch: loss
+and gradients (over ``cfg.grad_accum`` micro-batches), the cosine
+schedule at the optimizer's step, and AdamW.
 """
 
 from __future__ import annotations
@@ -13,9 +22,12 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch import sharding
+from repro_torch.launch import shapes as shapes_lib
 from repro_torch.models import model
 from repro_torch.models.config import ModelConfig
-from repro_torch.optim import adamw_update, cosine_schedule
+from repro_torch.optim import adamw_init, adamw_update, cosine_schedule
+from repro_torch.sharding import PartitionSpec as P
 
 
 def loss_and_grads(params: model.Model, batch: Dict[str, torch.Tensor], cfg: ModelConfig
@@ -54,3 +66,138 @@ def train_step(params: model.Model, opt_state, batch: Dict[str, torch.Tensor],
     lr = cosine_schedule(opt_state["step"], peak_lr=3e-4, warmup=2000, total=100_000)
     params, opt_state = adamw_update(params, grads, opt_state, lr=lr)
     return params, opt_state, {"loss": loss}
+
+
+# ---------------------------------------------------------------------------
+# Rules and specs
+# ---------------------------------------------------------------------------
+
+
+def rules_for(cfg: ModelConfig, shape, *, multi_pod: bool, overrides=None):
+    r = sharding.default_rules(
+        multi_pod=multi_pod,
+        n_heads=cfg.n_heads,
+        n_kv_heads=cfg.n_kv_heads,
+        model_axis=16,
+        batch_shardable=shape.global_batch >= (32 if multi_pod else 16),
+        shard_kv_seq=shape.global_batch == 1,
+        # FSDP only in training (it amortises the optimizer state); at
+        # inference weights stay TP-only, except for models whose TP-sharded
+        # weights alone exceed ~12 GiB per chip (grok-1: 631 GiB bf16 / 16).
+        fsdp=shape.kind == "train" or cfg.param_count() * 2 / 16 > 12e9,
+    )
+    r["attn_flat"] = "model"  # flattened head*dim projections always divide
+    if cfg.ssm_nheads and cfg.ssm_nheads % 16 != 0:
+        r["ssm_heads"] = None  # per-head scalars replicate when not divisible
+    if cfg.ssm_dinner and (cfg.ssm_dinner % 16 or (cfg.ssm_dinner // 16) % cfg.ssm_headdim):
+        r["ssm_inner"] = None  # shard only when shards stay head-aligned
+    if overrides:
+        r.update(overrides)
+    return r
+
+
+def _batch_sharding(cfg, shape, rules):
+    """PartitionSpec per data-batch key (labels included)."""
+    batch_axes = rules.get("batch")
+    return {k: P(batch_axes, *([None] * (s.dim() - 1)))
+            for k, s in shapes_lib.batch_specs(cfg, shape, with_labels=True).items()}
+
+
+def _cache_sharding(cfg, shape, rules):
+    """PartitionSpec tree of the decode cache, matched by leaf path: an
+    SSD ``state`` (..., B, H, N, P), a ``conv`` history (..., B, W, C), or
+    attention ``k``/``v`` (..., B, C, KV, hd)."""
+    batch = rules.get("batch")
+    kv_seq = rules.get("kv_seq")
+    kvh = rules.get("kv_heads")
+    kvd = rules.get("kv_head_dim")
+    ssmh = rules.get("ssm_heads")
+
+    def leaf_spec(keys, leaf):
+        nd = leaf.dim()
+        if "state" in keys:
+            return P(*([None] * (nd - 4)), batch, ssmh, None, None)
+        if "conv" in keys:
+            return P(*([None] * (nd - 3)), batch, None, None)
+        return P(*([None] * (nd - 4)), batch, kv_seq, kvh, kvd)
+
+    def walk(t, keys):
+        if isinstance(t, dict):
+            return {k: walk(v, keys + (k,)) for k, v in t.items()}
+        return leaf_spec(keys, t)
+
+    return walk(shapes_lib.cache_specs(cfg, shape), ())
+
+
+# ---------------------------------------------------------------------------
+# build_step
+# ---------------------------------------------------------------------------
+
+
+def build_step(cfg: ModelConfig, shape, *, multi_pod: bool, rule_overrides=None):
+    """Returns ``(step_fn, example_args (meta tensors), in_specs, out_specs)``.
+
+    * train: ``step_fn(params, opt_state, batch)`` -> ``(params,
+      opt_state, {"loss"})`` (:func:`train_step`, updated in place);
+    * prefill: ``step_fn(params, batch)`` -> ``(logits, cache)``;
+    * decode: ``step_fn(params, cache, token, pos)`` -> ``(logits,
+      cache)``, one ``model.decode_step`` (the cache updated in place,
+      ``pos`` an int or a 0-d tensor on the host), whose attention
+      launches ``decode_attention`` on the card.
+
+    The example arguments are meta tensors (``model.abstract_params``, the
+    AdamW state of those, ``shapes.batch_specs``/``decode_specs``);
+    callers pass real tensors of the same shapes and dtypes.
+    """
+    rules = rules_for(cfg, shape, multi_pod=multi_pod, overrides=rule_overrides)
+    with sharding.use_rules(rules):
+        pspecs = model.param_specs(cfg)
+        pstructs = model.abstract_params(cfg)
+
+        if shape.kind == "train":
+            batch_structs = shapes_lib.batch_specs(cfg, shape, with_labels=True)
+            batch_shard = _batch_sharding(cfg, shape, rules)
+            opt_structs = adamw_init(pstructs, cfg.opt_dtype)
+            opt_shard = {"m": pspecs, "v": pspecs, "step": P()}
+
+            def train_fn(params, opt_state, batch):
+                with sharding.use_rules(rules):
+                    return train_step(params, opt_state, batch, cfg)
+
+            args = (pstructs, opt_structs, batch_structs)
+            in_shard = (pspecs, opt_shard, batch_shard)
+            out_shard = (pspecs, opt_shard, {"loss": P()})
+            return train_fn, args, in_shard, out_shard
+
+        if shape.kind == "prefill":
+            batch_structs = shapes_lib.batch_specs(cfg, shape, with_labels=False)
+            batch_shard = _batch_sharding(cfg, shape, rules)
+            batch_shard = {k: batch_shard[k] for k in batch_structs}
+
+            def prefill_step(params, batch):
+                with sharding.use_rules(rules):
+                    return model.prefill(params, batch, cfg)
+
+            args = (pstructs, batch_structs)
+            in_shard = (pspecs, batch_shard)
+            cache_shard = _cache_sharding(
+                cfg,
+                shapes_lib.InputShape(shape.name, shape.seq_len, shape.global_batch, "decode"),
+                rules,
+            )
+            out_shard = (P(rules.get("batch"), rules.get("vocab")), cache_shard)
+            return prefill_step, args, in_shard, out_shard
+
+        # decode
+        dec = shapes_lib.decode_specs(cfg, shape)
+        cache_shard = _cache_sharding(cfg, shape, rules)
+        tok_shard = P(rules.get("batch"))
+
+        def serve_step(params, cache, token, pos):
+            with sharding.use_rules(rules):
+                return model.decode_step(params, cache, token, int(pos), cfg)
+
+        args = (pstructs, dec["cache"], dec["token"], dec["pos"])
+        in_shard = (pspecs, cache_shard, tok_shard, P())
+        out_shard = (P(rules.get("batch"), rules.get("vocab")), cache_shard)
+        return serve_step, args, in_shard, out_shard

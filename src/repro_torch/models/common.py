@@ -4,10 +4,11 @@ the sinusoidal table), attention, loss.
 The port's counterpart of the JAX package's ``models/common.py`` for the
 serving and training paths:
 
-* every parameter is declared once as a :class:`ParamDef` and
-  :func:`materialize` draws the whole tree with the reference's scheme
-  (normal × ``scale / sqrt(fan_in)``, zeros, ones, per-leaf dtype
-  override) from an explicit ``torch.Generator``;
+* every parameter is declared once as a :class:`ParamDef` with its
+  logical sharding axes; :func:`materialize` draws the whole tree with
+  the reference's scheme (normal × ``scale / sqrt(fan_in)``, zeros, ones,
+  per-leaf dtype override) from an explicit ``torch.Generator``, and
+  :func:`param_partition_specs` resolves the axes under the active rules;
 * activations keep the reference's layouts: (batch, seq, ...), attention
   heads (B, S, H, D), KV caches (B, S, KV, D);
 * prefill and training attention (:func:`blockwise_attention`, flash
@@ -17,9 +18,9 @@ serving and training paths:
   attention (:func:`decode_gqa_attention`) goes through the hand-written
   ``decode_attention`` kernel's wrapper;
 * training adds the layer rematerialisation (:func:`remat_scan`) and the
-  S-chunked cross-entropy (:func:`chunked_ce_loss`).  The reference's
-  ``grad_dtype_barrier`` applies only under a sharding rule, which the
-  port does not have (ROADMAP.md §1 item 13).
+  S-chunked cross-entropy (:func:`chunked_ce_loss`), and under the
+  ``bf16_grad`` rule :func:`grad_dtype_barrier`, which keeps the
+  cotangents of the residual stream in the model dtype.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import sharding
 from repro_torch.kernels.decode_attention import ops as decode_ops
 
 # ---------------------------------------------------------------------------
@@ -42,9 +44,13 @@ from repro_torch.kernels.decode_attention import ops as decode_ops
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
     shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]  # logical sharding axes, len == ndim
     init: str = "normal"  # "normal" | "zeros" | "ones"
     scale: float = 1.0    # stddev multiplier for "normal" (fan-in applied)
     dtype: Optional[str] = None  # override model dtype (e.g. norms in f32)
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
 
 
 def materialize(tree, dtype: torch.dtype, generator: Optional[torch.Generator],
@@ -77,6 +83,13 @@ def materialize(tree, dtype: torch.dtype, generator: Optional[torch.Generator],
     return walk(tree)
 
 
+def param_partition_specs(defs_tree):
+    """ParamDef tree -> PartitionSpec tree under the active sharding rules."""
+    if isinstance(defs_tree, ParamDef):
+        return sharding.resolve(defs_tree.axes)
+    return {k: param_partition_specs(v) for k, v in defs_tree.items()}
+
+
 # ---------------------------------------------------------------------------
 # Norms / activations
 # ---------------------------------------------------------------------------
@@ -90,7 +103,7 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
 
 
 def rms_norm_def(d: int) -> ParamDef:
-    return ParamDef((d,), init="zeros", dtype="float32")
+    return ParamDef((d,), (None,), init="zeros", dtype="float32")
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -388,6 +401,29 @@ def _ce_chunk(xt: torch.Tensor, embed: torch.Tensor, lt: torch.Tensor,
     gold = torch.gather(logits, -1, torch.clamp(lt, min=0).long()[..., None])[..., 0]
     mask = (lt >= 0).float()
     return torch.sum((lse - gold) * mask), torch.sum(mask)
+
+
+class _GradDtypeBarrier(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.dtype = x.dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct.to(ctx.dtype)
+
+
+def grad_dtype_barrier(x: torch.Tensor) -> torch.Tensor:
+    """Identity whose backward casts the cotangent to x's dtype.
+
+    The CE loss computes logits in float32, so the residual-stream
+    cotangent arrives in float32; between the decoder stack and the loss
+    (and before the MoE router's float32 cast) this barrier keeps the
+    backward pass in the model dtype (float32 still used inside
+    norms/softmax locally).  Applied under the ``bf16_grad`` rule only.
+    """
+    return _GradDtypeBarrier.apply(x)
 
 
 def chunked_ce_loss(

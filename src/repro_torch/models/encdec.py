@@ -66,12 +66,12 @@ def model_defs(cfg: ModelConfig) -> Dict[str, object]:
     layer count, as in the reference's initialiser), the two norms and the
     learned decoder positions ``pos_embed`` (32,768, D)."""
     return {
-        "embed": ParamDef((cfg.padded_vocab, cfg.d_model), scale=1.0),
+        "embed": ParamDef((cfg.padded_vocab, cfg.d_model), ("vocab", "dmodel"), scale=1.0),
         "enc_layers": transformer._stack(enc_layer_defs(cfg), cfg.n_enc_layers),
         "dec_layers": transformer._stack(dec_layer_defs(cfg), cfg.n_layers),
         "enc_norm": common.rms_norm_def(cfg.d_model),
         "final_norm": common.rms_norm_def(cfg.d_model),
-        "pos_embed": ParamDef((32768, cfg.d_model), scale=1.0),
+        "pos_embed": ParamDef((32768, cfg.d_model), (None, "dmodel"), scale=1.0),
     }
 
 

@@ -1,6 +1,7 @@
 """Model API of every family (dense, vlm, moe, ssm, hybrid and encdec).
 
-  * ``param_defs(cfg)`` / ``init_params(cfg, generator, device=None)``
+  * ``param_defs(cfg)`` / ``abstract_params(cfg)`` /
+    ``init_params(cfg, generator, device=None)`` / ``param_specs(cfg)``
   * ``params_from_numpy(tree, cfg, device=None)`` — the JAX package's
     parameter tree, as numpy arrays, carried over into the port's module;
     ``params_to_tree(params, cfg)`` the way back (checkpoints, tests);
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch import sharding
 from repro_torch.device import resolve_device
 from repro_torch.models import common, encdec, transformer
 from repro_torch.models.common import materialize
@@ -50,6 +52,17 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator], device=N
     dev = resolve_device(device)
     tree = materialize(param_defs(cfg), cfg.torch_dtype, generator, dev)
     return _module(cfg, tree)
+
+
+def abstract_params(cfg: ModelConfig) -> Model:
+    """The parameters as meta tensors: shapes and dtypes, no memory."""
+    return init_params(cfg, None, device="meta")
+
+
+def param_specs(cfg: ModelConfig):
+    """PartitionSpec tree (the reference's parameter tree) under the
+    active sharding rules."""
+    return common.param_partition_specs(param_defs(cfg))
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
@@ -136,12 +149,18 @@ def loss_fn(params: Model, batch: Dict[str, torch.Tensor], cfg: ModelConfig) -> 
     ``labels`` (B, S), -1 = ignore; with the vision frontend also
     ``patches`` (B, P, D), whose positions the loss ignores (labels cover
     the text only); with the encdec family also ``frames`` (B, S_enc, D),
-    which the encoder reads (labels cover the decoder's tokens)."""
+    which the encoder reads (labels cover the decoder's tokens).  Under
+    the ``bf16_grad`` rule the final hidden states pass
+    :func:`common.grad_dtype_barrier` before the loss."""
     if cfg.encdec:
         enc = encdec.encode(params, batch["frames"], cfg, train=True)
         x, _ = encdec.dec_forward(params, batch["tokens"], enc, cfg, train=True)
+        if sharding.active_rule("bf16_grad"):
+            x = common.grad_dtype_barrier(x)
         return common.chunked_ce_loss(x, params.embed, batch["labels"], valid_vocab=cfg.vocab)
     x, _ = transformer.forward(params, batch, cfg, train=True)
+    if sharding.active_rule("bf16_grad"):
+        x = common.grad_dtype_barrier(x)
     labels = batch["labels"]
     if cfg.frontend == "vision":
         pad = torch.full((labels.shape[0], cfg.num_patches), -1, dtype=labels.dtype,

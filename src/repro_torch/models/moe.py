@@ -23,10 +23,11 @@ exactly rather than the torch idiom:
   ``torch.searchsorted`` misses other slots, so :func:`scan_searchsorted`
   replays jnp's bisection step for step.
 
-The reference's ``grad_dtype_barrier`` on the router input applies only
-under its ``bf16_grad`` sharding rule, which the port does not have
-(ROADMAP.md §1 item 13); its ``sharding.constraint`` calls have no
-counterpart on one device.
+Under the ``bf16_grad`` rule the router's input passes
+``common.grad_dtype_barrier``, as in the reference, so that the float32
+router cast leaks no float32 cotangent into the residual stream; the
+reference's ``sharding.constraint`` calls have no counterpart on one
+device.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from typing import Dict, NamedTuple
 
 import torch
 
+from repro_torch import sharding
 from repro_torch.models import common
 from repro_torch.models.config import ModelConfig
 
@@ -48,12 +50,12 @@ def moe_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     d, f)`` (the gate only for swiglu/geglu) and ``w_down`` ``(E, f, d)``."""
     d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
     defs = {
-        "router": ParamDef((d, e), dtype="float32"),
-        "w_up": ParamDef((e, d, f)),
-        "w_down": ParamDef((e, f, d)),
+        "router": ParamDef((d, e), ("dmodel", None), dtype="float32"),
+        "w_up": ParamDef((e, d, f), (None, "dmodel", "ff")),
+        "w_down": ParamDef((e, f, d), (None, "ff", "dmodel")),
     }
     if cfg.mlp in ("swiglu", "geglu"):
-        defs["w_gate"] = ParamDef((e, d, f))
+        defs["w_gate"] = ParamDef((e, d, f), (None, "dmodel", "ff"))
     return defs
 
 
@@ -166,7 +168,8 @@ def moe_layer(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     ``capacity(cfg, S)`` per expert; overflow entries drop."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.topk
-    r = dispatch(p.router, x, cfg)
+    xr = common.grad_dtype_barrier(x) if sharding.active_rule("bf16_grad") else x
+    r = dispatch(p.router, xr, cfg)
     cap = r.cap
 
     expert_in = torch.gather(x, 1, r.tok_of_slot[..., None].expand(b, e * cap, d))

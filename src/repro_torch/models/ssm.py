@@ -38,19 +38,19 @@ def ssm_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     h = cfg.ssm_nheads
     cw = cfg.conv_width
     return {
-        "w_z": ParamDef((d, di)),
-        "w_x": ParamDef((d, di)),
-        "w_bc": ParamDef((d, 2 * n)),   # shared across heads
-        "w_dt": ParamDef((d, h)),
-        "conv_x": ParamDef((cw, di), scale=1.0),
-        "conv_bc": ParamDef((cw, 2 * n), scale=1.0),
-        "conv_b_x": ParamDef((di,), init="zeros"),
-        "conv_b_bc": ParamDef((2 * n,), init="zeros"),
-        "a_log": ParamDef((h,), init="zeros", dtype="float32"),
-        "d_skip": ParamDef((h,), init="ones", dtype="float32"),
-        "dt_bias": ParamDef((h,), init="zeros", dtype="float32"),
+        "w_z": ParamDef((d, di), ("dmodel", "ssm_inner")),
+        "w_x": ParamDef((d, di), ("dmodel", "ssm_inner")),
+        "w_bc": ParamDef((d, 2 * n), ("dmodel", None)),   # shared across heads
+        "w_dt": ParamDef((d, h), ("dmodel", "ssm_heads")),
+        "conv_x": ParamDef((cw, di), (None, "ssm_inner"), scale=1.0),
+        "conv_bc": ParamDef((cw, 2 * n), (None, None), scale=1.0),
+        "conv_b_x": ParamDef((di,), ("ssm_inner",), init="zeros"),
+        "conv_b_bc": ParamDef((2 * n,), (None,), init="zeros"),
+        "a_log": ParamDef((h,), ("ssm_heads",), init="zeros", dtype="float32"),
+        "d_skip": ParamDef((h,), ("ssm_heads",), init="ones", dtype="float32"),
+        "dt_bias": ParamDef((h,), ("ssm_heads",), init="zeros", dtype="float32"),
         "norm": common.rms_norm_def(di),
-        "out_proj": ParamDef((di, d)),
+        "out_proj": ParamDef((di, d), ("ssm_inner", "dmodel")),
     }
 
 

@@ -49,6 +49,7 @@ from typing import Dict, List, Optional
 import torch
 from torch import nn
 
+from repro_torch import sharding
 from repro_torch.models import common, moe, ssm
 from repro_torch.models.config import ModelConfig
 
@@ -63,10 +64,10 @@ ParamDef = common.ParamDef
 def attn_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     defs = {
-        "wq": ParamDef((d, h * hd)),
-        "wk": ParamDef((d, kv * hd)),
-        "wv": ParamDef((d, kv * hd)),
-        "wo": ParamDef((h * hd, d)),
+        "wq": ParamDef((d, h * hd), ("dmodel", "attn_flat")),
+        "wk": ParamDef((d, kv * hd), ("dmodel", "attn_flat")),
+        "wv": ParamDef((d, kv * hd), ("dmodel", "attn_flat")),
+        "wo": ParamDef((h * hd, d), ("attn_flat", "dmodel")),
     }
     if cfg.qk_norm:
         defs["q_norm"] = common.rms_norm_def(hd)
@@ -76,9 +77,10 @@ def attn_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
 
 def mlp_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
     d, f = cfg.d_model, cfg.d_ff
-    defs = {"w_up": ParamDef((d, f)), "w_down": ParamDef((f, d))}
+    defs = {"w_up": ParamDef((d, f), ("dmodel", "ff")),
+            "w_down": ParamDef((f, d), ("ff", "dmodel"))}
     if cfg.mlp in ("swiglu", "geglu"):
-        defs["w_gate"] = ParamDef((d, f))
+        defs["w_gate"] = ParamDef((d, f), ("dmodel", "ff"))
     return defs
 
 
@@ -101,7 +103,8 @@ def layer_defs(cfg: ModelConfig) -> Dict[str, object]:
 
 def _stack(defs, n: int):
     if isinstance(defs, ParamDef):
-        return ParamDef((n,) + defs.shape, defs.init, defs.scale, defs.dtype)
+        return ParamDef((n,) + defs.shape, (None,) + defs.axes, defs.init, defs.scale,
+                        defs.dtype)
     return {k: _stack(v, n) for k, v in defs.items()}
 
 
@@ -116,14 +119,14 @@ def model_defs(cfg: ModelConfig) -> Dict[str, object]:
     group = {"local": _stack(layer_defs(cfg), n_local)} if n_local else {}
     group["global"] = _stack(layer_defs(cfg), n_global)
     defs = {
-        "embed": ParamDef((cfg.padded_vocab, cfg.d_model), scale=1.0),
+        "embed": ParamDef((cfg.padded_vocab, cfg.d_model), ("vocab", "dmodel"), scale=1.0),
         "groups": _stack(group, cfg.n_groups),
         "final_norm": common.rms_norm_def(cfg.d_model),
     }
     if cfg.pos == "learned":
-        defs["pos_embed"] = ParamDef((32768, cfg.d_model), scale=1.0)
+        defs["pos_embed"] = ParamDef((32768, cfg.d_model), (None, "dmodel"), scale=1.0)
     if cfg.frontend == "vision":
-        defs["vision_proj"] = ParamDef((cfg.d_model, cfg.d_model))
+        defs["vision_proj"] = ParamDef((cfg.d_model, cfg.d_model), ("dmodel", "dmodel_act"))
     return defs
 
 
@@ -217,12 +220,23 @@ def _qkv(p: Params, h_in: torch.Tensor, cfg: ModelConfig, positions: torch.Tenso
 def attention_block(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                     window: Optional[int], positions):
     """Causal attention sub-block for training and prefill, sliding-window
-    when ``window`` is set. Returns (out, (k, v))."""
+    when ``window`` is set. Returns (out, (k, v)).
+
+    Under the ``attn_tp`` rule the KV heads are repeated to the full
+    query-head count before the flash tiles, as the reference's
+    Megatron-style GQA tensor parallelism does; the cache keeps the KV
+    heads."""
     q, k, v = _qkv(p, x, cfg, positions)
+    cache_kv = (k, v)
+    if sharding.active_rule("attn_tp"):
+        g = cfg.n_heads // cfg.n_kv_heads
+        if g > 1:
+            k = torch.repeat_interleave(k, g, dim=2)
+            v = torch.repeat_interleave(v, g, dim=2)
     o = common.blockwise_attention(q, k, v, causal=True, window=window,
                                    blk_q=cfg.attn_blk, blk_k=cfg.attn_blk)
     b, s = o.shape[:2]
-    return o.reshape(b, s, -1) @ p.wo, (k, v)
+    return o.reshape(b, s, -1) @ p.wo, cache_kv
 
 
 class DecodeSpan:

@@ -24,7 +24,10 @@ Four protocols run here: ``steady`` (the paper's experiment),
 ring) and ``steady-faulted`` (the queued protocol under per-GPU failures
 with retry and backoff).  :func:`simulate_chunked` drives any of them in
 chunks of events from a host stream staged through pinned buffers, with
-the carry checkpointed through :mod:`repro_torch.checkpoint`.
+the carry checkpointed through :mod:`repro_torch.checkpoint`.  Both
+entry points split the replica axis across the visible cards (``shard=``,
+:func:`shard_events`): each card steps its own contiguous block of R/D
+replicas, and one Python loop over the events steps every block in turn.
 
 Policies are the registry's :class:`~repro_torch.core.policy.PolicySpec`\\ s,
 lowered to a masked-refinement lexicographic argmin over the
@@ -60,11 +63,12 @@ raise.  Pass ``device="cpu"`` to run the plain torch versions on the CPU.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import heapq
 import time
-from typing import Dict, Mapping, NamedTuple, Optional, Sequence, Tuple, Union
+from typing import Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -135,10 +139,6 @@ PROTOCOLS: Dict[str, Protocol] = {
         queued=True, faulted=True,
     ),
 }
-
-#: where the replica split across cards stands in ROADMAP.md
-_NOT_PORTED_SHARD = "ROADMAP.md §1 item 11, replica split across GPUs"
-
 
 def resolve_protocol(protocol: Union[str, Protocol]) -> Protocol:
     """Name-or-descriptor -> :class:`Protocol`; unknown names raise
@@ -1648,11 +1648,15 @@ def _setup_run(
         wait_slots=wait_slots, wait_patience=wait_patience, midx=midx, tables=tables,
     )
     state = _prepare_state(core, state, ring_rows, ring_cols, wait_slots)
-    xs = [
-        torch.as_tensor(np.ascontiguousarray(getattr(events, name))).to(dev)
-        for name in _stream_fields(core.protocol)
-    ]
+    xs = [_on_device(getattr(events, name), dev) for name in _stream_fields(core.protocol)]
     return core, state, xs, _empty_trace(core, xs[0].shape[0], dev)
+
+
+def _on_device(a, dev: torch.device) -> torch.Tensor:
+    """A stream field on ``dev``: a tensor already there as is, else a copy."""
+    if isinstance(a, torch.Tensor):
+        return a.to(dev)
+    return torch.as_tensor(np.ascontiguousarray(a)).to(dev)
 
 
 def _prepare_state(core: EngineCore, state: Optional[ReplicaState], ring_rows: int,
@@ -1698,16 +1702,170 @@ def _empty_trace(core: EngineCore, events: int, device) -> EventTrace:
 def _event_loop(core: EngineCore, state: ReplicaState, xs, trace: EventTrace) -> None:
     """Step every event of ``xs`` into ``trace``; nothing here waits for the
     device (``chip_smoke.py`` runs it under ``set_sync_debug_mode("error")``)."""
-    fields = [name for name in EventTrace._fields if getattr(trace, name) is not None]
-    for e in range(xs[0].shape[0]):
-        row = core.step(state, [x[e] for x in xs])
-        for name in fields:
-            getattr(trace, name)[e] = getattr(row, name)
+    _split_event_loop([(core, state, xs, trace)])
+
+
+def _device_scope(dev: torch.device):
+    """Make ``dev`` the current card while a block of replicas steps (the
+    kernels' launchers set the thread's card); a no-op off CUDA."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+
+
+def _split_event_loop(blocks) -> None:
+    """Step every event of each block's ``(core, state, xs, trace)``: one
+    loop over the events, every block in turn within an event, each under
+    its own card, so that every card has work queued; no host sync."""
+    fields = [name for name in EventTrace._fields if getattr(blocks[0][3], name) is not None]
+    split = len(blocks) > 1
+    for e in range(blocks[0][2][0].shape[0]):
+        for core, state, xs, trace in blocks:
+            with _device_scope(core.midx.device) if split else contextlib.nullcontext():
+                row = core.step(state, [x[e] for x in xs])
+                for name in fields:
+                    getattr(trace, name)[e] = getattr(row, name)
 
 
 def trace_to_numpy(trace: EventTrace) -> EventTrace:
     """Fetch a device trace to the host (the run's one synchronisation)."""
     return EventTrace(*[None if t is None else t.cpu().numpy() for t in trace])
+
+
+# ---------------------------------------------------------------------------
+# Replica split across cards
+# ---------------------------------------------------------------------------
+
+
+def _visible_devices(dev: torch.device) -> List[torch.device]:
+    """The devices a replica split may use: every card for a CUDA device,
+    the one device otherwise."""
+    if dev.type == "cuda":
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [dev]
+
+
+def _replica_devices(runs: int, shard: Optional[bool], device) -> Optional[List[torch.device]]:
+    """The devices of a replica split, one per contiguous block of
+    ``runs / D`` replicas, or ``None``: the reference's
+    ``_replica_sharding`` rules and messages.  ``shard=None`` (auto) splits
+    when more than one device is visible and ``runs`` divides evenly;
+    ``True`` requires it (raises otherwise); ``False`` disables."""
+    if shard is False:
+        return None
+    devices = _visible_devices(resolve_device(device))
+    if len(devices) <= 1:
+        if shard:
+            raise ValueError("replica sharding requested but only one device is visible")
+        return None
+    if runs % len(devices) != 0:
+        if shard:
+            raise ValueError(f"runs={runs} does not divide across {len(devices)} devices")
+        return None
+    return devices
+
+
+class ShardedStream(NamedTuple):
+    """An event stream split along its replica axis: ``shards[i]`` holds
+    replicas ``[i·R/D, (i+1)·R/D)`` of every field, as tensors on
+    ``devices[i]``."""
+
+    shards: Tuple[EventStream, ...]
+    devices: Tuple[torch.device, ...]
+
+
+def _blocks(runs: int, d: int):
+    n = runs // d
+    return [(i * n, (i + 1) * n) for i in range(d)]
+
+
+def _split_field(a, lo: int, hi: int, dev: torch.device) -> Optional[torch.Tensor]:
+    """Replicas ``lo:hi`` (axis 1) of a stream field, contiguous on ``dev``."""
+    if a is None:
+        return None
+    if isinstance(a, torch.Tensor):
+        return a[:, lo:hi].to(dev).contiguous()
+    return torch.as_tensor(np.ascontiguousarray(a[:, lo:hi])).to(dev)
+
+
+def _join_stream(events: ShardedStream) -> EventStream:
+    """The whole host stream of a split one (numpy fields)."""
+    return EventStream(*[
+        None if getattr(events.shards[0], name) is None
+        else np.concatenate([getattr(s, name).cpu().numpy() for s in events.shards], axis=1)
+        for name in EventStream._fields
+    ])
+
+
+def shard_events(events, runs: int, shard: Optional[bool] = None, device=None):
+    """Split the replica axis of an ``(E_max, R)`` event stream across the
+    visible cards: a :class:`ShardedStream` of D contiguous blocks of R/D
+    replicas, block i on card i, or ``events`` unchanged when there is no
+    split (``shard`` as in :func:`_replica_devices`).  A stream already
+    split onto the same devices comes back as is, with no copy."""
+    if device is None and isinstance(events, ShardedStream):
+        device = events.devices[0]
+    devices = _replica_devices(runs, shard, device)
+    if devices is None:
+        return events
+    if isinstance(events, ShardedStream):
+        if events.devices == tuple(devices):
+            return events
+        events = _join_stream(events)
+    return ShardedStream(
+        shards=tuple(
+            EventStream(*[_split_field(a, lo, hi, d) for a in events])
+            for (lo, hi), d in zip(_blocks(runs, len(devices)), devices)),
+        devices=tuple(devices),
+    )
+
+
+def _statics_on(kwargs: dict, dev: torch.device) -> dict:
+    """A run's keyword arguments with its tables and model index on ``dev``."""
+    out = dict(kwargs, device=dev)
+    if kwargs.get("tables") is not None:
+        out["tables"] = SpecTables(*[t.to(dev) for t in kwargs["tables"]])
+    if kwargs.get("midx") is not None:
+        out["midx"] = kwargs["midx"].to(dev)
+    return out
+
+
+def _split_state(state: ReplicaState, devices: Sequence[torch.device]) -> List[ReplicaState]:
+    """A whole carry as D blocks of replicas, each a copy on its device."""
+    runs = state.base.shape[0]
+    return [ReplicaState(*[None if t is None else t[lo:hi].to(d, copy=True)
+                           for t in state])
+            for (lo, hi), d in zip(_blocks(runs, len(devices)), devices)]
+
+
+def _join_state(states: Sequence[ReplicaState], dev: torch.device) -> ReplicaState:
+    """The blocks' carries gathered in order into one carry on ``dev``."""
+    return ReplicaState(*[
+        None if parts[0] is None else torch.cat([t.to(dev) for t in parts])
+        for parts in zip(*states)
+    ])
+
+
+def _join_traces(traces: Sequence[EventTrace], dev: torch.device) -> EventTrace:
+    """The blocks' traces joined along the replica axis, in block order:
+    numpy traces on the host, device traces on ``dev``."""
+    def cat(parts):
+        if isinstance(parts[0], np.ndarray):
+            return np.concatenate(parts, axis=1)
+        return torch.cat([t.to(dev) for t in parts], dim=1)
+
+    return EventTrace(*[None if parts[0] is None else cat(parts) for parts in zip(*traces)])
+
+
+def _simulate_split(events: ShardedStream, **kwargs) -> Tuple[ReplicaState, EventTrace]:
+    """:func:`_simulate` over a split stream: each block builds its core,
+    state and trace on its device, one event loop steps them all, and the
+    run returns the carry gathered on the first device and the host trace
+    joined along the replica axis."""
+    blocks = [_setup_run(ev, **_statics_on(kwargs, d))
+              for ev, d in zip(events.shards, events.devices)]
+    _split_event_loop(blocks)
+    first = events.devices[0]
+    return (_join_state([b[1] for b in blocks], first),
+            _join_traces([trace_to_numpy(b[3]) for b in blocks], first))
 
 
 # ---------------------------------------------------------------------------
@@ -1967,15 +2125,6 @@ def init_carry(
     return _prepare_state(core, None, ring_rows, ring_cols, wait_slots)
 
 
-def _scan_chunk(core: EngineCore, state: ReplicaState, xs, trace: EventTrace) -> EventTrace:
-    """One chunk of events: :func:`_simulate`'s event loop over ``xs`` (each
-    field ``(n, R, ...)`` on the device) through the same
-    :meth:`EngineCore.step`, the carry ``state`` updated in place and the
-    rows written into ``trace``."""
-    _event_loop(core, state, xs, trace)
-    return trace
-
-
 def save_stream_checkpoint(path, state: ReplicaState, events_done: int,
                            metadata: Optional[dict] = None) -> None:
     """Persist a chunked run's carry (a flat npz through
@@ -2199,62 +2348,90 @@ def simulate_chunked(
     chunks.  ``stats``, when given, receives the reference's chunk and
     transfer keys: ``h2d_overlap_frac`` is the share of host-to-device
     bytes staged while an earlier chunk was in flight (every chunk but the
-    first).  ``shard=True`` raises ``NotImplementedError``.
+    first).
+
+    ``shard`` splits the replicas across the visible cards as
+    :func:`shard_events` does: each card gets its block of every staged
+    chunk through its own :class:`_Feed` and :class:`_Drain` (each with its
+    own side stream) and steps its own carry, and one loop over a chunk's
+    events steps every block in turn.  The carry is then the blocks'
+    carries gathered in order on the first card (a passed carry is copied,
+    not updated), so a checkpoint of a split run resumes unsplit and the
+    other way round; the traces join along the replica axis, and ``stats``
+    sums over the blocks.
     """
     if chunk_size <= 0:
         raise ValueError(f"chunk_size must be positive, got {chunk_size}")
     e_max, runs = events.pid.shape
     if not 0 <= start < e_max:
         raise ValueError(f"start={start} outside the event stream [0, {e_max})")
-    if shard:
-        raise NotImplementedError(
-            f"shard=True: the replica split is not ported to repro_torch yet "
-            f"({_NOT_PORTED_SHARD})"
-        )
     dev = resolve_device(device)
-    core = _build_core(
+    devices = _replica_devices(runs, shard, dev)
+    split = devices is not None
+    if not split:
+        devices = [dev]
+    statics = dict(
         policy=policy, metric=metric, num_gpus=num_gpus, use_kernel=use_kernel,
-        runs=runs, device=dev, kernel_spec=kernel_spec, protocol=protocol,
+        runs=runs // len(devices), kernel_spec=kernel_spec, protocol=protocol,
         wait_slots=wait_slots, wait_patience=wait_patience, midx=midx, tables=tables,
     )
+    cores = [_build_core(**_statics_on(statics, d)) for d in devices]
     if carry is not None and tuple(carry.ring_gpu.shape[-2:]) != (ring_rows, ring_cols):
         raise ValueError(
             f"carry ring geometry {tuple(carry.ring_gpu.shape[-2:])} does not match "
             f"this stream's ({ring_rows}, {ring_cols}); resumed with a carry from a "
             "different presample?"
         )
-    state = _prepare_state(core, carry, ring_rows, ring_cols, wait_slots)
-    host = [np.ascontiguousarray(getattr(events, name))
-            for name in _stream_fields(core.protocol)]
+    if carry is None:
+        carries = [None] * len(devices)
+    else:
+        carries = _split_state(carry, devices) if split else [carry]
+    states = [_prepare_state(core, c, ring_rows, ring_cols, wait_slots)
+              for core, c in zip(cores, carries)]
+    whole = [np.ascontiguousarray(getattr(events, name))
+             for name in _stream_fields(cores[0].protocol)]
+    hosts = ([[np.ascontiguousarray(a[:, lo:hi]) for a in whole]
+              for lo, hi in _blocks(runs, len(devices))] if split else [whole])
     bounds = list(range(start, e_max, chunk_size)) + [e_max]
     n_chunks = len(bounds) - 1
     rows = min(chunk_size, e_max - start)
-    feed = _Feed(host, rows, dev)
-    drain = _Drain(core, e_max - start, rows, dev, stream,
-                   side=feed.side if feed.cuda else None)
+    feeds = [_Feed(host, rows, d) for host, d in zip(hosts, devices)]
+    drains = [_Drain(core, e_max - start, rows, d, stream,
+                     side=feed.side if feed.cuda else None)
+              for core, d, feed in zip(cores, devices, feeds)]
     h2d_s = h2d_overlap_s = d2h_s = 0.0
     h2d_bytes = h2d_overlap_bytes = 0
 
-    xs, dt, nb = feed.put(0, bounds[0], bounds[1])  # chunk 0: nothing to overlap
-    h2d_s, h2d_bytes = dt, nb
+    def put(k, lo, hi):
+        staged = [feed.put(k, lo, hi) for feed in feeds]
+        return ([x for x, _, _ in staged], sum(t for _, t, _ in staged),
+                sum(n for _, _, n in staged))
+
+    xss, h2d_s, h2d_bytes = put(0, bounds[0], bounds[1])  # chunk 0: nothing to overlap
     for k in range(n_chunks):
         lo, hi = bounds[k], bounds[k + 1]
         if k + 1 < n_chunks:  # stage chunk k+1 before enqueuing chunk k's events
-            nxt, dt, nb = feed.put(k + 1, hi, bounds[k + 2])
+            nxt, dt, nb = put(k + 1, hi, bounds[k + 2])
             h2d_s += dt
             h2d_overlap_s += dt
             h2d_bytes += nb
             h2d_overlap_bytes += nb
-        feed.ready(k)
-        _scan_chunk(core, state, xs, drain.trace(k, lo - start, hi - start))
-        feed.consumed(k)
-        drain.ran(k, lo - start, hi - start)
-        d2h_s += drain.collect(keep=1)  # chunk k-1's trace, while chunk k runs
+        for feed in feeds:
+            feed.ready(k)
+        _split_event_loop([(core, state, xs, drain.trace(k, lo - start, hi - start))
+                           for core, state, xs, drain in zip(cores, states, xss, drains)])
+        for feed, drain in zip(feeds, drains):
+            feed.consumed(k)
+            drain.ran(k, lo - start, hi - start)
+        for drain in drains:
+            d2h_s += drain.collect(keep=1)  # chunk k-1's trace, while chunk k runs
         if checkpoint_path and checkpoint_every and (k + 1) % checkpoint_every == 0:
-            save_stream_checkpoint(checkpoint_path, state, hi)
+            whole_state = _join_state(states, devices[0]) if split else states[0]
+            save_stream_checkpoint(checkpoint_path, whole_state, hi)
         if k + 1 < n_chunks:
-            xs = nxt
-    d2h_s += drain.collect()
+            xss = nxt
+    for drain in drains:
+        d2h_s += drain.collect()
     if stats is not None:
         stats.update(
             chunks=n_chunks,
@@ -2267,7 +2444,10 @@ def simulate_chunked(
             h2d_overlap_frac=h2d_overlap_bytes / h2d_bytes if h2d_bytes else 0.0,
             d2h_seconds=d2h_s,
         )
-    return state, drain.result()
+    if not split:
+        return states[0], drains[0].result()
+    return (_join_state(states, devices[0]),
+            _join_traces([drain.result() for drain in drains], devices[0]))
 
 
 def run_batched(
@@ -2302,8 +2482,11 @@ def run_batched(
 
     ``chunk_size`` runs the events through :func:`simulate_chunked` (the
     same results for any chunk size); ``stream`` (default ``True``) and
-    ``stats`` are its knobs and need ``chunk_size``.  ``shard=True`` raises
-    ``NotImplementedError`` (the replica split is not ported).
+    ``stats`` are its knobs and need ``chunk_size``.  ``shard`` splits the
+    replicas across the visible cards (:func:`shard_events`; default:
+    auto): the stream is presampled once for all ``runs`` and split, each
+    card steps its block, and the traces join along the replica axis on
+    the host before the aggregate, so the results are the unsplit run's.
     """
     dev = resolve_device(device)
     pspec = resolve(policy, engine="batched")
@@ -2315,11 +2498,6 @@ def run_batched(
         raise ValueError(f"chunk_size must be positive, got {chunk_size}")
     if chunk_size is None and (stream is not None or stats is not None):
         raise ValueError("stream/stats are chunked-driver knobs; pass chunk_size as well")
-    if shard:
-        raise NotImplementedError(
-            f"shard=True: the replica split is not ported to repro_torch yet "
-            f"({_NOT_PORTED_SHARD})"
-        )
     if proto.faulted:
         if cfg.fault_model is None:
             raise ValueError(
@@ -2352,12 +2530,16 @@ def run_batched(
     if chunk_size is not None:
         _, trace = simulate_chunked(events, chunk_size=chunk_size,
                                     stream=True if stream is None else stream,
-                                    stats=stats, **common)
+                                    shard=shard, stats=stats, **common)
         if stream is False:
             trace = trace_to_numpy(trace)
     else:
-        _, trace = _simulate(events, **common)
-        trace = trace_to_numpy(trace)
+        placed = shard_events(events, runs, shard, dev)
+        if isinstance(placed, ShardedStream):
+            _, trace = _simulate_split(placed, **common)
+        else:
+            _, trace = _simulate(events, **common)
+            trace = trace_to_numpy(trace)
     if proto.name == "cumulative":
         return _aggregate_cumulative(events, trace, spec, runs, cfg)
     if proto.faulted:

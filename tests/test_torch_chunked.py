@@ -194,7 +194,8 @@ def test_chunked_equals_monolithic(policy, protocol, size):
 def test_run_batched_and_api_chunked_equal_monolithic():
     """``run_batched`` and ``api.simulate`` take ``chunk_size``/``stream``
     and return the monolithic dict; the knobs without a chunk size, a
-    non-positive chunk size and ``shard=True`` raise."""
+    non-positive chunk size and ``shard=True`` with one visible device
+    raise."""
     cfg = tsim.SimConfig(num_gpus=5, offered_load=1.2, seed=7, protocol="steady-faulted",
                          fault_model=tmig.FaultModel(**FM))
     want = tb.run_batched("mfi", cfg, runs=2, device="cpu")
@@ -211,13 +212,14 @@ def test_run_batched_and_api_chunked_equal_monolithic():
         tb.run_batched("mfi", cfg, runs=2, device="cpu", stats={})
     with pytest.raises(ValueError, match="chunk_size"):
         tb.run_batched("mfi", cfg, runs=2, device="cpu", chunk_size=0)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 11"):
+    with pytest.raises(ValueError, match="only one device is visible"):
         tb.run_batched("mfi", cfg, runs=2, device="cpu", chunk_size=8, shard=True)
 
 
 def test_chunked_refusals():
     """The reference's errors: a chunk size <= 0, ``start`` outside the
-    stream, a carry of another ring geometry; and ``shard=True``."""
+    stream, a carry of another ring geometry; and ``shard=True`` with one
+    visible device."""
     cfg = tsim.SimConfig(num_gpus=3, offered_load=1.0, seed=1)
     events, _, rows, statics = stream(cfg, "steady", runs=2)
     e_max = events.pid.shape[0]
@@ -229,7 +231,7 @@ def test_chunked_refusals():
     bad = tb.init_carry(2, policy="mfi", ring_rows=rows[0] + 1, ring_cols=rows[1], **statics)
     with pytest.raises(ValueError, match="ring geometry"):
         chunked("mfi", events, rows, statics, 8, carry=bad)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 11"):
+    with pytest.raises(ValueError, match="only one device is visible"):
         chunked("mfi", events, rows, statics, 8, shard=True)
 
 

@@ -334,8 +334,8 @@ def test_device_none_means_cuda_and_never_falls_back():
 def test_unported_configurations_raise():
     """Every protocol is ported: the faulted one raises only without a
     fault model, as in the reference; the cumulative, queued and faulted
-    protocols and mfi-defrag run; the replica split (ROADMAP.md §1 item 11)
-    raises."""
+    protocols and mfi-defrag run; ``shard=True`` with one visible device
+    raises the reference's ``ValueError``."""
     with pytest.raises(ValueError, match="fault_model"):
         tb.run_batched("mfi", tsim.SimConfig(num_gpus=3, protocol="steady-faulted"),
                        runs=2, device="cpu")
@@ -344,7 +344,7 @@ def test_unported_configurations_raise():
                                                  fault_model=tmig.FaultModel()),
                            runs=2, device="cpu")
         assert 0.0 < r["acceptance_rate"] <= 1.0, protocol
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 11"):
+    with pytest.raises(ValueError, match="only one device is visible"):
         tb.run_batched("mfi", tsim.SimConfig(num_gpus=3), runs=2, shard=True, device="cpu")
     r = tb.run_batched("mfi-defrag", tsim.SimConfig(num_gpus=3), runs=2, device="cpu")
     assert 0.0 < r["acceptance_rate"] <= 1.0
