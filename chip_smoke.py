@@ -28,8 +28,8 @@ Phases, each printing its own lines:
    included, reproduced with the kernels on;
 5. the paper's experiment at full width (M = 100 A100-80GB, uniform mix,
    offered load 1.0, seed 0, R = 500) for mfi, ff, bf-bi, wf-bi, rr, a
-   delta-only mfi spec and mfi-defrag, once through the kernels (mfi and
-   mfi-defrag over the whole stream, the others over its first 250
+   delta-only mfi spec and mfi-defrag, once through the kernels (mfi
+   over the whole stream, the others over its first 250
    events; launch counts reset just before and read just after) and once
    through the plain lowering over the first 128 of the same events: traces equal
    there, launch counts matching the events; then a profiled 32-event window of the mfi, the
@@ -96,7 +96,7 @@ Phases, each printing its own lines:
    before and read just after: ``mfi_delta`` = arrivals), each decision
    held to the dense lowering on the card and the host MFI scheduler, the
    result equal to the host MFI run field for field; a card-resident loop
-   of 2,500 decisions at M = 10,000 (``mfi_select(use_kernel=True)``,
+   of 1,000 decisions at M = 10,000 (``mfi_select(use_kernel=True)``,
    ``mfi_allocate``, seeded ``release``s, no host sync inside) held
    decision for decision to ``mfi_allocate`` and at its end to a host
    ``ClusterState`` replay; decisions/s of both lowerings; then
@@ -150,7 +150,7 @@ Phases, each printing its own lines:
     (bf16, random weights seeded 0, float32 moments) ``launch/train.py
     --arch llama3.2-1b --steps 5 --batch 8 --seq 128`` and two
     ``steps.train_step`` steps at train_4k's S = 4,096 with a global batch
-    of 8 (cut from 256) as 4 micro-batches of 2, every loss finite, with
+    of 4 (cut from 256) as 2 micro-batches of 2, every loss finite, with
     ms per step, tokens/s, peak device memory against its reckoning, model
     FLOPs (6·N_active·tokens plus attention) and their share of the bf16
     dense peak, and a profiled step of one micro-batch split by what
@@ -214,8 +214,8 @@ Phases, each printing its own lines:
     attention and step (hymba 32, mamba2 0; counts reset just before and
     read just after), prefill and decode times and a profiled window of 8
     decode steps; (c) both trained at train_4k's S = 4,096 at each config's
-    own ``grad_accum``, a global batch (cut from 256) of 4 for mamba2 and 2
-    for hymba, 2 steps, every
+    own ``grad_accum``, a global batch (cut from 256) of 2 for each, 2
+    steps, every
     loss finite, with ms per step, tokens/s, peak memory, model FLOPs and a
     profiled micro-batch split (attention, the SSD chunk scan, CE,
     optimizer, the rest); then a ``{"ssm": ...}`` line;
@@ -266,7 +266,29 @@ Phases, each printing its own lines:
     prefill_32k's S = 32,768 with the batch cut from 32 to 1, and the train
     branch's SMOKE step (hymba-1.5b, float32, weights x 0.1) card vs CPU
     with and without the ``bf16_grad`` rule; then the phase's JSON line;
-18. a ``{"kernels": [...]}`` JSON line (each kernel's launches in total
+18. the mesh on the one card: two processes spawned on ``cuda:0`` and
+    joined by ``gloo`` (the backend stages CUDA tensors through the host;
+    NCCL takes no two ranks on one card) first try ``all_reduce``,
+    ``reduce_scatter_tensor`` and ``all_gather_into_tensor`` on CUDA
+    tensors, through the blocking API and through the functional ops that
+    DTensor calls (a pair of processes of their own: a collective may end
+    them; each result printed); then llama3.2-1b (bf16, random weights
+    seeded 0) at full width, 16 rows prefilled on 1,024 tokens in one
+    process, decodes 4 steps through ``build_step``'s decode branch with
+    its inputs placed by the specs (``steps.place``) on each mesh of the
+    one group whose collectives work: (p) ``(data=2, model=1)``, 8 rows a
+    rank, and (q) ``(data=1, model=2)``, heads, ff and vocab split, the
+    caches' head dim on ``model`` (8 KV heads % 16 != 0) gathered at the
+    attention site; a mesh left out is named with the collective it
+    lacks.  Each rank's part of the logits is held to the one-process card
+    run of all 16 rows within twice that run's own spread (its two halves
+    of 8 rows decoded alone against all 16 at once), and (p)'s to the
+    one-process run of the same 8 rows bit for bit; with ms a step, the
+    collectives of the first step by kind and bytes, the gathered cache
+    bytes, ``decode_attention`` launches a step on each rank (16), peak
+    memory a rank and the phase's seconds; then a ``{"mesh": ...}``
+    line;
+19. a ``{"kernels": [...]}`` JSON line (each kernel's launches in total
     and by path), then the result line.
 
 Every equality of phases 3-5 and 8-11 is exact: all scores are integers
@@ -385,8 +407,8 @@ PLAIN_EVENTS = 128
 #: events of each profiled engine window (phases 5, 10, 11)
 WINDOW_EVENTS = 32
 #: the kernel path of phase 5's side policies (ff, bf-bi, wf-bi, rr,
-#: mfi-delta-only) and of phase 10's mfi-queued: their stream's first this
-#: many events (mfi and mfi-defrag take whole streams)
+#: mfi-delta-only, mfi-defrag) and of phase 10's mfi-queued: their stream's
+#: first this many events (mfi takes the whole stream)
 SIDE_EVENTS = 250
 #: phase 3's mixed fleet of four device models
 FOUR_MODEL_FLEET = "a100-80:30,a100-40:30,h100-96:20,h100-80:20"
@@ -442,12 +464,12 @@ BF16_TIGHT_RTOL = 2.0 ** -7
 BF16_TIGHT_ROW_ATOL = 2.0 ** -10
 #: the training phase (phase 12): llama3.2-1b at train_4k's sequence length
 #: (src/repro/launch/shapes.py:31) with train_4k's global batch of 256
-#: cut to 8 (pod scale), as 4 micro-batches of 2
+#: cut to 4, as 2 micro-batches of 2
 TRAIN_ARCH = "llama3.2-1b"
 TRAIN_SEQ = 4096
 TRAIN_CUT_FROM = 256
-TRAIN_BATCH = 8
-TRAIN_ACCUM = 4
+TRAIN_BATCH = 4
+TRAIN_ACCUM = 2
 #: timed steps (the first is left out of the mean)
 TRAIN_STEPS = 2
 BF16_DENSE_OPS_PER_S = 989e12  # H100 SXM bf16 dense, tensor cores
@@ -502,14 +524,14 @@ GROK_LAYER_MAX_TOL = 2.0 ** -4
 #: padded past its window of 1,024, so its decode reads from start > 0),
 #: 16 decode steps, a profiled window of 8; trained at train_4k's
 #: S = 4,096 and each config's own grad_accum (mamba2 2, hymba 1), 2
-#: steps, with a global batch cut from 256 to 4 for mamba2 and 2 for hymba
-#: (at 8 each the phase took 149 s on an H100: 13.9 and 12.6 s a step);
+#: steps, with a global batch cut from 256 to 2 for each (at 8 each the
+#: phase took 149 s on an H100: 13.9 and 12.6 s a step);
 #: the SMOKEs card vs CPU
 SSM_ARCHS = ("mamba2-2.7b", "hymba-1.5b")
 SSM_PROMPT = 1024
 SSM_NEW = 17
 SSM_WINDOW_STEPS = 8
-SSM_TRAIN_BATCH = {"mamba2-2.7b": 4, "hymba-1.5b": 2}
+SSM_TRAIN_BATCH = {"mamba2-2.7b": 2, "hymba-1.5b": 2}
 SSM_TRAIN_STEPS = 2
 #: the SMOKEs' serving check: (B, prompt, decode steps), and the SMOKE step
 SSM_SMOKE_SERVE = (4, 64, 8)
@@ -578,7 +600,7 @@ MFI_DELTA_FILL = 0.45
 #: the card-resident decision loop: decisions over a fleet of this size,
 #: which starts with every GPU holding work (up to this many requests each)
 DECISION_GPUS = 10_000
-DECISION_STEPS = 2_500
+DECISION_STEPS = 1_000
 DECISION_PREFILL_TRIES = 8
 #: benchmarks/scheduler_scaling.py's fleet sizes, fill and request class
 SCALING_GPUS = (100, 1_000, 10_000)
@@ -1246,9 +1268,9 @@ def full_width_phase(device):
     rates = {}
     for policy in ("mfi", "ff", "bf-bi", "wf-bi", "rr", delta_only, "mfi-defrag"):
         name = policy if isinstance(policy, str) else policy.name
-        # mfi and mfi-defrag take the whole stream, the other policies its
-        # first SIDE_EVENTS events (Fig. 5 runs them over whole streams)
-        run = events if name in ("mfi", "mfi-defrag") else side
+        # mfi takes the whole stream, the other policies its first
+        # SIDE_EVENTS events (Fig. 5 runs them over whole streams)
+        run = events if name == "mfi" else side
         n = run.pid.shape[0]
         out = {}
         for use_kernel in (True, False):
@@ -4640,6 +4662,324 @@ def split_launch_phase(device, wrappers):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the mesh on the one card
+# ---------------------------------------------------------------------------
+
+MESH_ARCH = "llama3.2-1b"
+MESH_BATCH = 16
+MESH_PROMPT = 1024
+MESH_STEPS = 4
+MESH_SHAPES = {"p": (2, 1), "q": (1, 2)}  # ("data", "model")
+#: the functional collectives each mesh's redistributions need between its
+#: two ranks (DTensor calls them; (p) splits rows only)
+MESH_NEEDS = {"p": ("all_reduce",),
+              "q": ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor")}
+#: the limit of max |mesh logits - one-process logits| / max |logits|:
+#: twice the one-process run's own spread in this run (its two halves of
+#: 8 rows decoded alone against all 16 rows at once: the bf16 GEMMs take
+#: other kernels and sum in another order, and random weights amplify it)
+MESH_SPREAD_FACTOR = 2.0
+#: (p)'s ranks against the one-process run of their own 8 rows: the same
+#: kernels on the same rows, so equal bit for bit (measured 0 on an H100)
+MESH_HALVES_TOL = 0.0
+COLLECTIVES = ("all_reduce", "reduce_scatter_tensor", "all_gather_into_tensor")
+
+
+def collective_rank(rank, port, path):
+    """One rank of phase 18's collective check (spawned): each collective
+    on CUDA tensors under ``gloo``, through the blocking API and through
+    the functional ops that DTensor calls; a line is written before and
+    after each, so that a collective that ends the process is known."""
+    import datetime
+    import os
+
+    import torch
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    dist.init_process_group("gloo", rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=120))
+    group = dist.group.WORLD
+    x = torch.arange(4.0, device=device) + 10 * rank
+    total = 2 * torch.arange(4.0) + 10
+    want = {"all_reduce": total, "reduce_scatter_tensor": total[2 * rank:2 * rank + 2],
+            "all_gather_into_tensor": torch.cat([torch.arange(4.0), torch.arange(4.0) + 10])}
+    with open(f"{path}.{rank}", "w") as f:
+        for api in ("blocking", "functional"):
+            for name in COLLECTIVES:
+                f.write(json.dumps([api, name, "started"]) + "\n")
+                f.flush()
+                try:
+                    if api == "blocking":
+                        if name == "all_reduce":
+                            y = x.clone()
+                            dist.all_reduce(y)
+                        elif name == "reduce_scatter_tensor":
+                            y = torch.empty(2, device=device)
+                            dist.reduce_scatter_tensor(y, x)
+                        else:
+                            y = torch.empty(8, device=device)
+                            dist.all_gather_into_tensor(y, x)
+                    elif name == "all_reduce":
+                        y = funcol.wait_tensor(funcol.all_reduce(x, "sum", group))
+                    elif name == "reduce_scatter_tensor":
+                        y = funcol.wait_tensor(funcol.reduce_scatter_tensor(x, "sum", 0, group))
+                    else:
+                        y = funcol.wait_tensor(funcol.all_gather_tensor(x, 0, group))
+                    err = None if torch.equal(y.cpu(), want[name]) else "wrong values"
+                except Exception as e:  # the error text is the finding
+                    err = f"{type(e).__name__}: {e}"
+                f.write(json.dumps([api, name, err]) + "\n")
+                f.flush()
+    dist.destroy_process_group()
+
+
+def gloo_on_cuda():
+    """``{(api, collective): None}`` where it works on two ranks on
+    ``cuda:0``, else its error; a collective during which a rank ended is
+    reported with the ranks' exit codes."""
+    import socket
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as d, socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+        sock.close()
+        path = str(Path(d) / "collectives")
+        ctx = mp.start_processes(collective_rank, args=(port, path), nprocs=2,
+                                 start_method="spawn", join=False)
+        codes = []
+        for proc in ctx.processes:
+            proc.join(300)
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+            codes.append(proc.exitcode)
+        lines = [json.loads(ln) for r in range(2)
+                 for ln in Path(f"{path}.{r}").read_text().splitlines()]
+    started, results = [], {}
+    for api, name, err in lines:
+        if err == "started":
+            started.append((api, name))
+        else:
+            results.setdefault((api, name), []).append(err)
+    out = {}
+    for key in dict.fromkeys(started):
+        errs = results.get(key, [])
+        out[key] = (f"a rank ended during it (exit codes {codes})" if len(errs) < 2
+                    else next((e for e in errs if e), None))
+    return out
+
+
+def mesh_rank(rank, port, result_path, shapes_to_run):
+    """One rank of phase 18 (spawned): writes its results as JSON."""
+    import copy
+    import datetime
+    import faulthandler
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    from repro_torch import sharding
+    from repro_torch.kernels.decode_attention import decode_attention as D
+    from repro_torch.launch import mesh as meshlib, op_analysis, shapes, steps
+    from repro_torch.models import common, model
+
+    faulthandler.enable()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    dist.init_process_group("gloo", rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=300))
+    res = {"rank": rank}
+    try:
+        cfg, params, weight_bytes, _ = draw_model(MESH_ARCH, device)
+        total = MESH_PROMPT + MESH_STEPS + 1
+        gen = torch.Generator(device).manual_seed(1)
+        prompt = torch.randint(0, cfg.vocab, (MESH_BATCH, MESH_PROMPT), generator=gen,
+                               device=device, dtype=torch.int32)
+        forced = torch.randint(0, cfg.vocab, (MESH_STEPS, MESH_BATCH), generator=gen,
+                               device=device, dtype=torch.int32)
+        dshape = shapes.InputShape("d", total, MESH_BATCH, "decode")
+        fn, args, _, _ = steps.build_step(cfg, dshape, multi_pod=False)
+        # the one-process card runs: all 16 rows at once, and each half of
+        # them alone (what a rank of (p) computes); the meshes scatter from rank 0
+        want = torch.empty((MESH_STEPS, MESH_BATCH, cfg.padded_vocab), device=device)
+        halves = torch.empty_like(want)
+        if rank == 0:
+            pfn = steps.build_step(cfg, shapes.InputShape("p", MESH_PROMPT, MESH_BATCH,
+                                                          "prefill"), multi_pod=False)[0]
+            _, cache = pfn(params, {"tokens": prompt})
+            cache = model.pad_cache(cache, MESH_PROMPT, total)
+            half = MESH_BATCH // 2
+            for out, rows in ((want, [slice(0, MESH_BATCH)]),
+                              (halves, [slice(0, half), slice(half, MESH_BATCH)])):
+                for r in rows:
+                    work = {k: {n: t[:, r].clone() for n, t in v.items()}
+                            for k, v in cache.items()}
+                    for i in range(MESH_STEPS):
+                        logits, work = fn(params, work, forced[i, r], MESH_PROMPT + i)
+                        out[i, r] = logits.float()
+                    del work
+        else:
+            cache = {k: {n: torch.empty(t.shape, dtype=t.dtype, device=device)
+                         for n, t in v.items()} for k, v in args[1].items()}
+        dist.broadcast(want, 0)  # every rank holds the one-process logits
+        dist.broadcast(halves, 0)
+        res["spread"] = [float((halves[i] - want[i]).abs().max() / want[i].abs().max())
+                         for i in range(MESH_STEPS)]
+        torch.cuda.synchronize()
+        for name in shapes_to_run:
+            m = meshlib.make_mesh(MESH_SHAPES[name], ("data", "model"))
+            fn, _, ins, _ = steps.build_step(cfg, dshape, multi_pod=False)
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            placed = steps.place((copy.deepcopy(params), {k: {n: t.clone() for n, t in v.items()}
+                                                          for k, v in cache.items()}),
+                                 ins[:2], m)
+            local_bytes = op_analysis.local_bytes(placed)
+            errs, errs_halves, ms, launches, gathers, finite = [], [], [], [], [], True
+            mode = op_analysis.OpAnalysis()
+            c = placed[1]
+            for i in range(MESH_STEPS):
+                tok = steps.place(forced[i], ins[2], m)
+                D.decode_attention.launches = 0
+                common.cache_gathers.update(bytes=0, count=0)
+                dist.barrier()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with sharding.use_mesh(m), (mode if i == 0 else contextlib.nullcontext()):
+                    logits, c = fn(placed[0], c, tok, MESH_PROMPT + i)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                launches.append(D.decode_attention.launches)
+                gathers.append(common.cache_gathers["bytes"])
+                # this rank's rows and columns of the logits against the one-process run's
+                shape_l, off = compute_local_shape_and_global_offset(
+                    logits.shape, logits.device_mesh, logits.placements)
+                part = (slice(off[0], off[0] + shape_l[0]), slice(off[1], off[1] + shape_l[1]))
+                got = logits.to_local().float()
+                errs.append(float((got - want[i][part]).abs().max() / want[i].abs().max()))
+                errs_halves.append(float((got - halves[i][part]).abs().max()
+                                         / want[i].abs().max()))
+                finite &= bool(torch.isfinite(got).all())
+            peak = torch.cuda.max_memory_allocated()
+            a = mode.result
+            res[name] = dict(
+                mesh=dict(zip(("data", "model"), MESH_SHAPES[name])), errors=errs,
+                errors_vs_halves=errs_halves, step_ms=ms,
+                finite=finite, launches=launches, cache_gather_bytes=gathers,
+                collectives_bytes=a.collective_breakdown, collective_ops=a.collective_count,
+                logits_placements=[str(p) for p in logits.placements],
+                placed_bytes=local_bytes, peak_gb=peak / 1e9, base_gb=base / 1e9)
+            del placed, c, logits
+            torch.cuda.empty_cache()
+        res["weight_bytes"] = weight_bytes
+    except Exception:
+        import traceback
+
+        res["error"] = traceback.format_exc()
+    finally:
+        with open(f"{result_path}.{rank}", "w") as f:
+            json.dump(res, f)
+        dist.destroy_process_group()
+
+
+def mesh_phase(device, wrappers):
+    """Phase 18: two ranks on the one card (see the module's docstring)."""
+    import socket
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    works = gloo_on_cuda()
+    for (api, name), err in sorted(works.items()):
+        log(f"mesh: gloo {api} {name} on CUDA tensors, 2 ranks on cuda:0: {err or 'ok'} "
+            f"(torch {torch.__version__})")
+    check(all(works.get(("blocking", n)) is None for n in COLLECTIVES),
+          "mesh: a blocking gloo collective failed on CUDA tensors")
+    run = [n for n, needs in MESH_NEEDS.items()
+           if all(works.get(("functional", c)) is None for c in needs)]
+    out = {"arch": MESH_ARCH, "batch": MESH_BATCH, "prompt": MESH_PROMPT, "steps": MESH_STEPS,
+           "torch": torch.__version__, "launches": 0,
+           "collectives": {f"{a} {n}": e for (a, n), e in works.items()},
+           "left_out": {n: [c for c in MESH_NEEDS[n] if works.get(("functional", c))]
+                        for n in MESH_SHAPES if n not in run}}
+    for name, missing in out["left_out"].items():
+        log(f"mesh: ({name}) {dict(zip(('data', 'model'), MESH_SHAPES[name]))} left out: "
+            f"DTensor's redistributions need the functional {', '.join(missing)}, which "
+            f"fail on CUDA tensors under gloo here; it waits for a machine with several cards")
+    check(bool(run), "mesh: no mesh can run")
+    with tempfile.TemporaryDirectory() as d, socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+        sock.close()
+        path = str(Path(d) / "mesh")
+        mp.start_processes(mesh_rank, args=(port, path, run), nprocs=2, start_method="spawn")
+        ranks = [json.loads(Path(f"{path}.{r}").read_text()) for r in range(2)]
+    for r in ranks:
+        check("error" not in r, f"mesh: rank {r['rank']} failed:\n{r.get('error')}")
+    out["weight_bytes"] = ranks[0]["weight_bytes"]
+    layers = attention_layers_of(MESH_ARCH)
+    spread = max(ranks[0]["spread"])
+    limit = MESH_SPREAD_FACTOR * spread
+    out["spread"] = ranks[0]["spread"]
+    log(f"mesh: the one-process card run's spread, its halves of {MESH_BATCH // 2} rows alone "
+        f"against all {MESH_BATCH} rows: max |diff| / max |logits| "
+        + ", ".join(f"{e:.3e}" for e in ranks[0]["spread"]) + f" by step; limit {limit:.3e}")
+    for name in run:
+        r0, r1 = ranks[0][name], ranks[1][name]
+        worst = max(max(r[name]["errors"]) for r in ranks)
+        worst_halves = max(max(r[name]["errors_vs_halves"]) for r in ranks)
+        per_step = [r[name]["launches"] for r in ranks]
+        out["launches"] += sum(map(sum, per_step))
+        ms = [sum(r["step_ms"][1:]) / (MESH_STEPS - 1) for r in (r0, r1)]
+        log(f"mesh: ({name}) {r0['mesh']} on cuda:0 x 2 ranks: {MESH_STEPS} decode steps, "
+            f"first {r0['step_ms'][0]:.1f} ms, then {ms[0]:.1f} / {ms[1]:.1f} ms a step "
+            f"(rank 0 / 1); decode_attention launches a step {per_step[0]} / {per_step[1]}; "
+            f"collectives of the first step (rank 0) {r0['collective_ops']} ops"
+            + "".join(f", {k} {v / 1e6:.3f} MB" for k, v in sorted(
+                r0["collectives_bytes"].items()))
+            + f"; cache gathered a step {r0['cache_gather_bytes'][-1] / 1e6:.3f} MB a rank; "
+            f"placed arguments {r0['placed_bytes'] / 1e9:.3f} / {r1['placed_bytes'] / 1e9:.3f}"
+            f" GB; peak {r0['peak_gb']:.3f} / {r1['peak_gb']:.3f} GB a rank; logits "
+            f"{r0['logits_placements']} vs the one-process card run, each rank its own part: "
+            f"max |err| / max |logits| {worst:.3e} (limit {limit:.3e}); against the "
+            f"one-process run of the same {MESH_BATCH // 2} rows {worst_halves:.3e}")
+        check(all(n == layers for r in per_step for n in r),
+              f"mesh ({name}): decode_attention launches a step {per_step}, not {layers}")
+        check(r0["finite"] and r1["finite"] and worst <= limit,
+              f"mesh ({name}): logits error {worst} over {limit}")
+        check(name != "p" or worst_halves <= MESH_HALVES_TOL,
+              f"mesh (p): logits {worst_halves} from the one-process run of the same rows")
+        out[name] = dict(r0, ms_per_step=ms, worst_error=worst, worst_vs_halves=worst_halves,
+                         rank1={k: r1[k] for k in ("step_ms", "launches", "peak_gb",
+                                                    "placed_bytes", "collectives_bytes",
+                                                    "errors", "errors_vs_halves")})
+    out["seconds"] = time.perf_counter() - t0
+    log(f"mesh: phase seconds {out['seconds']:.1f}")
+    return out
+
+
+def attention_layers_of(arch) -> int:
+    from repro_torch.configs import ARCHS
+
+    return attention_layers(ARCHS[arch])
+
+
 def main() -> int:
     import torch
 
@@ -4718,10 +5058,12 @@ def main() -> int:
     lap(16)
     split_launch = split_launch_phase(device, wrappers)
     lap(17)
+    meshes = mesh_phase(device, wrappers)
+    lap(18)
     # each path's launches, counted from zero just before it ran
     by_path = {name: dict.fromkeys(wrappers, 0) for name in (
         "steady", "fig5", "serving", "decisions", "protocols", "faults", "dense_options", "moe",
-        "ssm", "encdec", "split", "launch")}
+        "ssm", "encdec", "split", "launch", "mesh")}
     by_path["steady"].update(steady)
     by_path["fig5"].update(fig5_launches)
     by_path["serving"]["decode_attention"] = serving["launches"]
@@ -4734,6 +5076,7 @@ def main() -> int:
     by_path["encdec"]["decode_attention"] = encdec["launches"]
     by_path["split"].update(split_launch["split"]["launches"])
     by_path["launch"]["decode_attention"] = split_launch["launch"]["launches"]
+    by_path["mesh"]["decode_attention"] = meshes["launches"]
     totals = {k: sum(p[k] for p in by_path.values()) for k in wrappers}
 
     kernels = []
@@ -4768,6 +5111,7 @@ def main() -> int:
     log(json.dumps({"ssm": ssm_families}))
     log(json.dumps({"encdec": encdec}))
     log(json.dumps(split_launch))
+    log(json.dumps({"mesh": meshes}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

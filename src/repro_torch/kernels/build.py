@@ -4,7 +4,8 @@ Each source under ``repro_torch/kernels/*/csrc/`` is compiled on first use
 into a shared library with a plain C interface, for ``sm_90a`` (Hopper),
 under ``build/repro_torch/`` at the repository root.  The library's file
 name carries a digest of its source and flags, so an edited source is
-rebuilt and a stale library is never loaded.  Nothing is downloaded: the
+rebuilt and a stale library is never loaded (the shared headers under
+``kernels/csrc/`` enter every digest).  Nothing is downloaded: the
 build uses only the sources in the repository and the CUDA toolkit.  A
 missing ``nvcc`` or a failed compile raises.
 """
@@ -23,6 +24,9 @@ from pathlib import Path
 
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "repro_torch"
+
+#: headers that every source includes (part of each library's digest)
+HEADERS = (KERNELS_DIR / "csrc" / "device_scope.h",)
 
 #: sources by library name
 SOURCES = {
@@ -60,7 +64,8 @@ def nvcc() -> str:
 def build(name: str) -> BuildResult:
     """Compile library ``name`` unless an up-to-date build exists."""
     src = SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in (src, *HEADERS))
+                            + " ".join(NVCC_FLAGS).encode())
     out = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
     if out.exists():
         return BuildResult(out, 0.0, "")

@@ -67,6 +67,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "../../csrc/device_scope.h"
 #include <math_constants.h>
 #include <stdint.h>
 
@@ -707,8 +709,8 @@ int decode_attention_launch(const void* q, const void* k, const void* v,
                             const void* length, const void* start, void* out, void* scratch,
                             void* counters, int b, int h, int kheads, int s, int d, int bf16,
                             float scale, int split_len, int n_splits, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
+  DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return scope.error();
   if (b <= 0 || kheads <= 0 || h % kheads != 0 || s < 0 || d <= 0 ||
       d > kMaxHeadDim || split_len <= 0 || n_splits <= 0 ||
       static_cast<int64_t>(split_len) * n_splits < s)

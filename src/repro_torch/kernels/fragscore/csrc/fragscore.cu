@@ -22,6 +22,8 @@
 // decision over up to 10^6 GPUs, where its bytes bound it (see its note).
 
 #include <cuda_runtime.h>
+
+#include "../../csrc/device_scope.h"
 #include <math_constants.h>
 #include <stdint.h>
 
@@ -1395,8 +1397,8 @@ extern "C" {
 int fragscore_launch(const void* occ, const void* w, const void* v, void* out,
                      int q, int n, int s, int partial, int device,
                      void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
+  DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return scope.error();
   if (q <= 0 || s > kMaxSlices) return cudaErrorInvalidValue;
   const int blocks = (q + kFragThreads - 1) / kFragThreads;
   const size_t smem = 4 * (static_cast<size_t>(n) * s + n);
@@ -1410,8 +1412,9 @@ int mfi_delta_launch(const void* occ, const void* w, const void* v,
                      const void* profile_masks, const void* profile_valid,
                      void* out, int m, int n, int s, int a, int partial,
                      int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
+  DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return scope.error();
+  cudaError_t err = cudaSuccess;
   if (m <= 0 || a <= 0 || n < 0 || s < 0 || s > kMaxSlices) return cudaErrorInvalidValue;
   const auto kernel = partial ? mfi_delta_kernel<true> : mfi_delta_kernel<false>;
   const size_t smem = mfi_smem_bytes(n, s, a);
@@ -1441,8 +1444,9 @@ int delta_from_base_launch(const void* base, const void* free, const void* f,
                            const void* maskwin, const void* profile_mem,
                            void* out, int r_count, int m, int n, int a,
                            int p_count, int k_count, int partial, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
+  DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return scope.error();
+  cudaError_t err = cudaSuccess;
   if (r_count <= 0 || m <= 0 || n < 0 || a < 0 || p_count <= 0 || k_count <= 0)
     return cudaErrorInvalidValue;
   const int run = m < kDeltaRun ? (m + 3) & ~3 : kDeltaRun;  // 16-byte aligned areas
@@ -1474,8 +1478,9 @@ int select_from_base_launch(const void* base, const void* free, const void* f,
                             int n, int a, int p_count, int k_count, int nkeys,
                             int keycode, int partial, int device,
                             void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
+  DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return scope.error();
+  cudaError_t err = cudaSuccess;
   // window bits fit one 32-bit word
   if (r_count <= 0 || m < 0 || nkeys < 0 || nkeys > kMaxKeys || n <= 0 || n > kMaxWindows ||
       a <= 0 || p_count <= 0 || k_count <= 0) {
@@ -1516,8 +1521,9 @@ int migrate_refine_launch(
     void* out_a2, void* out_k2, void* out_ap, void* out_okp, void* out_kp,
     int r_count, int m, int c_count, int n, int a, int p_count, int k_count,
     int nkeys, int keycode, int partial, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
+  DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return scope.error();
+  cudaError_t err = cudaSuccess;
   // window bits fit one 32-bit word; a class takes one warp of pass 0
   if (r_count <= 0 || m <= 0 || c_count < 0 || nkeys < 0 || nkeys > kMaxKeys || n <= 0 ||
       n > kMaxWindows || a <= 0 || p_count <= 0 || p_count > kMigrateClasses) {

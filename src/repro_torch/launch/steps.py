@@ -7,9 +7,14 @@ args as meta tensors, in_specs, out_specs)``, the reference's
 ``bf16_grad``), and the specs give every input and output its
 ``PartitionSpec`` under those rules (batch -> (pod, data); ff/vocab/attn
 projections -> model; FSDP d_model -> data; long_500k (B=1) shards the KV
-cache sequence axis over data instead of the batch).  On one device every
-spec is a description: placing the tensors across a mesh is ROADMAP.md
-§1 item 15.
+cache sequence axis over data instead of the batch).
+
+:func:`place` puts real tensors (a model, the AdamW state, batch and
+cache dicts) on a mesh by those specs as DTensors, as the reference's
+``jax.jit(in_shardings=...)`` does; a step called inside
+``sharding.use_mesh(mesh)`` returns its outputs redistributed to
+``out_specs``.  On the 1×1 host mesh :func:`place` returns its inputs
+unchanged and the steps run on plain tensors.
 
 ``train_step(params, opt_state, batch, cfg)`` is the train branch: loss
 and gradients (over ``cfg.grad_accum`` micro-batches), the cosine
@@ -21,6 +26,7 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import torch
+from torch import nn
 
 from repro_torch import sharding
 from repro_torch.launch import shapes as shapes_lib
@@ -56,7 +62,8 @@ def train_step(params: model.Model, opt_state, batch: Dict[str, torch.Tensor],
     else:
         micro = {k: v.reshape((na, v.shape[0] // na) + tuple(v.shape[1:]))
                  for k, v in batch.items()}
-        loss = torch.zeros((), dtype=torch.float32, device=params.embed.device)
+        loss = sharding.replicated(
+            torch.zeros((), dtype=torch.float32, device=params.embed.device), like=params.embed)
         grads = {k: torch.zeros_like(p) for k, p in params.named_parameters()}
         for i in range(na):
             l, g = loss_and_grads(params, {k: v[i] for k, v in micro.items()}, cfg)
@@ -130,6 +137,63 @@ def _cache_sharding(cfg, shape, rules):
 
 
 # ---------------------------------------------------------------------------
+# Placement
+# ---------------------------------------------------------------------------
+
+
+def _placed(t: torch.Tensor, spec, mesh) -> torch.Tensor:
+    from torch.distributed.tensor import distribute_tensor
+
+    want = sharding.placements(spec, mesh)
+    if sharding.is_dtensor(t):
+        return t if tuple(t.placements) == want else t.redistribute(mesh.device_mesh, want)
+    return distribute_tensor(t, mesh.device_mesh, want)
+
+
+def _walk(arg, spec, mesh):
+    if isinstance(arg, nn.Module):
+        return _place_module(arg, spec, mesh)
+    if isinstance(arg, dict):
+        if isinstance(spec, dict) and not set(arg) <= set(spec):
+            spec = model.specs_by_name(arg, spec)  # an AdamW moment keyed by parameter name
+        return {k: _walk(v, spec[k], mesh) for k, v in arg.items()}
+    if isinstance(arg, (tuple, list)):
+        return type(arg)(_walk(a, s, mesh) for a, s in zip(arg, spec))
+    if isinstance(arg, torch.Tensor):
+        return _placed(arg, spec, mesh)
+    return arg  # a Python int (the decode position)
+
+
+def _place_module(module: nn.Module, tree, mesh) -> nn.Module:
+    """Each parameter of ``module`` replaced, in place, by itself placed by
+    its spec (a DTensor ``nn.Parameter``); one already so placed stays."""
+    specs = model.specs_by_name(module, tree)
+    for name, p in list(module.named_parameters()):
+        t = _placed(p.detach(), specs[name], mesh)
+        if not (sharding.is_dtensor(p) and tuple(t.placements) == tuple(p.placements)):
+            owner, _, leaf = name.rpartition(".")
+            module.get_submodule(owner).register_parameter(
+                leaf, nn.Parameter(t, requires_grad=p.requires_grad))
+    return module
+
+
+def place(args, specs, mesh):
+    """``args`` (a tuple, or one argument) as DTensors on ``mesh`` by
+    ``specs`` (:func:`build_step`'s ``in_specs`` or ``out_specs``): plain
+    tensors are distributed (``distribute_tensor``), DTensors
+    redistributed; a model's parameters are replaced in place by DTensor
+    parameters (:func:`model.specs_by_name`), an AdamW moment keyed by
+    parameter name is placed as the parameters are; Python ints pass.
+    On a mesh of one device (the host mesh) it returns ``args`` unchanged.
+    A step called inside ``sharding.use_mesh`` returns its outputs so
+    placed by its ``out_specs`` (a model's parameters, updated in place,
+    keep theirs)."""
+    if sharding.device_mesh_of(mesh) is None:
+        return args
+    return _walk(args, specs, mesh)
+
+
+# ---------------------------------------------------------------------------
 # build_step
 # ---------------------------------------------------------------------------
 
@@ -160,13 +224,15 @@ def build_step(cfg: ModelConfig, shape, *, multi_pod: bool, rule_overrides=None)
             opt_structs = adamw_init(pstructs, cfg.opt_dtype)
             opt_shard = {"m": pspecs, "v": pspecs, "step": P()}
 
-            def train_fn(params, opt_state, batch):
-                with sharding.use_rules(rules):
-                    return train_step(params, opt_state, batch, cfg)
-
             args = (pstructs, opt_structs, batch_structs)
             in_shard = (pspecs, opt_shard, batch_shard)
             out_shard = (pspecs, opt_shard, {"loss": P()})
+
+            def train_fn(params, opt_state, batch):
+                with sharding.use_rules(rules):
+                    return place(train_step(params, opt_state, batch, cfg), out_shard,
+                                 sharding.active_mesh())
+
             return train_fn, args, in_shard, out_shard
 
         if shape.kind == "prefill":
@@ -176,7 +242,8 @@ def build_step(cfg: ModelConfig, shape, *, multi_pod: bool, rule_overrides=None)
 
             def prefill_step(params, batch):
                 with sharding.use_rules(rules):
-                    return model.prefill(params, batch, cfg)
+                    return place(model.prefill(params, batch, cfg), out_shard,
+                                 sharding.active_mesh())
 
             args = (pstructs, batch_structs)
             in_shard = (pspecs, batch_shard)
@@ -193,11 +260,13 @@ def build_step(cfg: ModelConfig, shape, *, multi_pod: bool, rule_overrides=None)
         cache_shard = _cache_sharding(cfg, shape, rules)
         tok_shard = P(rules.get("batch"))
 
-        def serve_step(params, cache, token, pos):
-            with sharding.use_rules(rules):
-                return model.decode_step(params, cache, token, int(pos), cfg)
-
         args = (pstructs, dec["cache"], dec["token"], dec["pos"])
         in_shard = (pspecs, cache_shard, tok_shard, P())
         out_shard = (P(rules.get("batch"), rules.get("vocab")), cache_shard)
+
+        def serve_step(params, cache, token, pos):
+            with sharding.use_rules(rules):
+                return place(model.decode_step(params, cache, token, int(pos), cfg), out_shard,
+                             sharding.active_mesh())
+
         return serve_step, args, in_shard, out_shard

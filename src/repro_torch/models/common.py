@@ -125,6 +125,7 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     d = x.shape[-1]
     half = d // 2
     freqs = theta ** (-torch.arange(half, dtype=torch.float32, device=x.device) / half)
+    freqs = sharding.replicated(freqs, like=x)
     angles = positions[..., None].float() * freqs  # (B, S, half)
     angles = angles[..., None, :]                  # (B, S, 1, half)
     sin, cos = torch.sin(angles), torch.cos(angles)
@@ -250,6 +251,61 @@ class _FlashQTile(torch.autograd.Function):
         return dq.to(qt.dtype), dks, dvs, None, None, None, None, None, None
 
 
+#: bytes that the attention sites gathered from a cache split over what the
+#: kernel contracts over (``kv_seq``, ``kv_head_dim``) or over heads that
+#: cannot stay split: per rank, the all-gathers' result sizes
+cache_gathers = {"bytes": 0, "count": 0}
+
+
+def attention_local(fn: Callable, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    *rows: Optional[torch.Tensor], heads_dim: int):
+    """``fn(q, k, v, *rows)`` on each rank's batch rows and heads.
+
+    Plain tensors go straight to ``fn``.  With DTensors (a mesh of more
+    than one rank) the work is made local, mesh dim by mesh dim, from
+    q's placement: a dim that splits q's batch (axis 0) splits k, v and
+    the per-row ``rows`` ((B,) lengths and starts) alike; a dim that
+    splits q's heads (``heads_dim``) splits k's and v's heads (axis 2) when
+    it divides both head counts, so that query head ``h`` meets KV head
+    ``h // G`` on the same rank; every other dim is replicated.  A cache
+    split along what the kernel contracts over (its slots under
+    ``kv_seq``, its head dim under ``kv_head_dim``) or along heads that
+    cannot stay split is first all-gathered to ``Replicate`` on that dim,
+    and the gathered bytes are added to :data:`cache_gathers`.
+    """
+    if not sharding.is_dtensor(q):
+        return fn(q, k, v, *rows)
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = q.device_mesh
+    h, kvh = q.shape[heads_dim], k.shape[2]
+    qp, kp, rp = [], [], []
+    for m, pl in enumerate(q.placements):
+        n = mesh.size(m)
+        if pl == Shard(0):
+            qp.append(Shard(0)), kp.append(Shard(0)), rp.append(Shard(0))
+        elif pl == Shard(heads_dim) and h % n == 0 and kvh % n == 0:
+            qp.append(pl), kp.append(Shard(2)), rp.append(Replicate())
+        else:
+            qp.append(Replicate()), kp.append(Replicate()), rp.append(Replicate())
+
+    def gathered(t):
+        # Replicate first wherever the cache is split otherwise than the target
+        pre = [pl if pl == want or not pl.is_shard() or mesh.size(m) == 1 else Replicate()
+               for m, (pl, want) in enumerate(zip(t.placements, kp))]
+        if pre == list(t.placements):
+            return t
+        t = t.redistribute(mesh, pre)
+        cache_gathers["bytes"] += t.to_local().nbytes
+        cache_gathers["count"] += 1
+        return t
+
+    k, v = gathered(k), gathered(v)
+    rows = tuple(None if r is None else sharding.replicated(r, like=q) for r in rows)
+    ins = (qp, kp, kp) + tuple(None if r is None else rp for r in rows)
+    return sharding.local(fn, qp, ins, q, k, v, *rows)
+
+
 def blockwise_attention(
     q: torch.Tensor,  # (B, Sq, H, D)
     k: torch.Tensor,  # (B, Sk, KV, D)
@@ -274,8 +330,15 @@ def blockwise_attention(
 
     Logits and the softmax statistics are float32; the unnormalised
     probabilities are cast to v's dtype for the value product, which
-    accumulates in float32.
+    accumulates in float32.  On a mesh the tiles run on each rank's batch
+    rows and heads (:func:`attention_local`; :class:`_FlashQTile` takes
+    plain tensors).
     """
+    if sharding.is_dtensor(q):
+        return attention_local(
+            lambda q, k, v: blockwise_attention(q, k, v, causal=causal, window=window,
+                                                blk_q=blk_q, blk_k=blk_k),
+            q, k, v, heads_dim=2)
     b, sq, h, d = q.shape
     sk, kv = k.shape[1], k.shape[2]
     g = h // kv
@@ -332,8 +395,20 @@ def decode_gqa_attention(
     does not depend on the order of the slots.  So this calls the
     ``decode_attention`` kernel's wrapper, which launches the CUDA kernel
     for CUDA tensors (its plain version on the CPU).
+
+    On a mesh the kernel runs on each rank's batch rows and heads
+    (:func:`attention_local`).  A meta tensor (the dry run) has no device
+    to launch on: it takes the plain version, whose products the dry
+    run's op analysis counts, as the reference's lowering counts its jnp
+    attention.
     """
-    return decode_ops.gqa_decode_attention(q, k_cache, v_cache, length, start=start)
+    def attend(q, k, v, length, start=None):
+        return decode_ops.gqa_decode_attention(q, k, v, length, start=start,
+                                               use_kernel=q.device.type != "meta")
+
+    if start is None:
+        return attention_local(attend, q, k_cache, v_cache, length, heads_dim=1)
+    return attention_local(attend, q, k_cache, v_cache, length, start, heads_dim=1)
 
 
 def mask_padded_logits(logits: torch.Tensor, valid_vocab: int) -> torch.Tensor:
@@ -341,7 +416,7 @@ def mask_padded_logits(logits: torch.Tensor, valid_vocab: int) -> torch.Tensor:
     v = logits.shape[-1]
     if v == valid_vocab:
         return logits
-    mask = torch.arange(v, device=logits.device) < valid_vocab
+    mask = sharding.replicated(torch.arange(v, device=logits.device) < valid_vocab, like=logits)
     return torch.where(mask, logits, torch.full_like(logits, -1e30))
 
 
@@ -394,11 +469,20 @@ def remat_scan(body: Callable, x: torch.Tensor, xs: Sequence, *, train: bool) ->
 def _ce_chunk(xt: torch.Tensor, embed: torch.Tensor, lt: torch.Tensor,
               valid_vocab: Optional[int]):
     """Summed cross-entropy and label count of one S-chunk (float32)."""
-    logits = torch.einsum("bsd,vd->bsv", xt.float(), embed.float())
+    logits = sharding.constraint(torch.einsum("bsd,vd->bsv", xt.float(), embed.float()),
+                                 "batch", None, "vocab")
     if valid_vocab is not None:
         logits = mask_padded_logits(logits, valid_vocab)
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, torch.clamp(lt, min=0).long()[..., None])[..., 0]
+    label = torch.clamp(lt, min=0).long()[..., None]
+    if sharding.is_dtensor(logits):
+        # DTensor's gather rule leaves a masked partial sum that it cannot
+        # reduce after the select; the label's one-hot picks the same value
+        # (the logit plus zeros) as a plain sum over the split vocabulary
+        vocab = sharding.replicated(torch.arange(logits.shape[-1], device=lt.device), like=lt)
+        gold = torch.where(vocab == label, logits, 0.0).sum(dim=-1)
+    else:
+        gold = torch.gather(logits, -1, label)[..., 0]
     mask = (lt >= 0).float()
     return torch.sum((lse - gold) * mask), torch.sum(mask)
 
@@ -423,6 +507,8 @@ def grad_dtype_barrier(x: torch.Tensor) -> torch.Tensor:
     backward pass in the model dtype (float32 still used inside
     norms/softmax locally).  Applied under the ``bf16_grad`` rule only.
     """
+    if sharding.is_dtensor(x):  # a custom autograd function takes plain tensors
+        return sharding.local(_GradDtypeBarrier.apply, x.placements, (x.placements,), x)
     return _GradDtypeBarrier.apply(x)
 
 
@@ -442,8 +528,8 @@ def chunked_ce_loss(
     chunk = min(chunk, s)
     if s % chunk:
         raise ValueError(f"chunk {chunk} must divide the sequence {s}")
-    loss_sum = torch.zeros((), dtype=torch.float32, device=x.device)
-    n = torch.zeros((), dtype=torch.float32, device=x.device)
+    loss_sum = sharding.replicated(torch.zeros((), dtype=torch.float32, device=x.device), like=x)
+    n = sharding.replicated(torch.zeros((), dtype=torch.float32, device=x.device), like=x)
     for c in range(0, s, chunk):
         part, count = checkpoint(_ce_chunk, x[:, c:c + chunk], embed, labels[:, c:c + chunk],
                                  valid_vocab, use_reentrant=False)

@@ -35,6 +35,7 @@ from typing import Dict, List, Optional
 import torch
 from torch import nn
 
+from repro_torch import sharding
 from repro_torch.models import common, transformer
 from repro_torch.models.config import ModelConfig
 
@@ -130,7 +131,8 @@ def encode(params: EncDec, frames: torch.Tensor, cfg: ModelConfig, *,
     added; the layers (rematerialised when training); ``enc_norm``."""
     _, s, d = frames.shape
     table = torch.from_numpy(common.sincos_positions(s, d)).to(frames.device, cfg.torch_dtype)
-    x = frames.to(cfg.torch_dtype) + table[None]
+    x = frames.to(cfg.torch_dtype) + sharding.replicated(table, like=frames)[None]
+    x = sharding.constraint(x, "batch", None, "dmodel_act")
     x = common.remat_scan(lambda xc, p: _enc_layer(p, xc, cfg), x, list(params.enc_layers),
                           train=train)
     return common.rms_norm(x, params.enc_norm)
@@ -168,9 +170,10 @@ def dec_forward(params: EncDec, tokens: torch.Tensor, enc_states: torch.Tensor,
     if train and return_cache:
         raise ValueError("a training forward returns no cache")
     b, s = tokens.shape
-    x = params.embed[tokens.long()].to(cfg.torch_dtype) * (cfg.d_model ** 0.5)
+    x = transformer.embed_tokens(params.embed, tokens).to(cfg.torch_dtype) * (cfg.d_model ** 0.5)
     x = x + params.pos_embed[:s][None].to(x.dtype)
-    positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    positions = sharding.replicated(torch.arange(s, device=x.device)[None, :].expand(b, s),
+                                    like=x)
     leaves: Dict[str, List[torch.Tensor]] = {"k": [], "v": [], "cross_k": [], "cross_v": []}
 
     def body(xc, p):
@@ -210,7 +213,7 @@ def decode(params: EncDec, cache: Dict[str, Dict[str, torch.Tensor]], token: tor
     Both attentions go through ``decode_attention``: the self-attention
     over the slots ``[0, pos + 1)`` of its linear cache, the
     cross-attention over every slot of the cross cache."""
-    x = params.embed[token.long()].to(cfg.torch_dtype) * (cfg.d_model ** 0.5)
+    x = transformer.embed_tokens(params.embed, token).to(cfg.torch_dtype) * (cfg.d_model ** 0.5)
     x = x + params.pos_embed[pos][None].to(x.dtype)
     b = x.shape[0]
     sk, sv = cache["self"]["k"], cache["self"]["v"]
@@ -224,6 +227,6 @@ def decode(params: EncDec, cache: Dict[str, Dict[str, torch.Tensor]], token: tor
         q = (hq @ p.cross_attn.wq).reshape(b, cfg.n_heads, cfg.head_dim)
         o = common.decode_gqa_attention(q, ck[i], cv[i], cross_len)
         x = x + o.reshape(b, -1) @ p.cross_attn.wo
-        x = x + transformer.mlp_block(p.mlp, common.rms_norm(x, p.ln2), cfg)
+        x = x + transformer.mlp_block(p.mlp, common.rms_norm(x, p.ln2)[:, None, :], cfg)[:, 0]
     x = common.rms_norm(x, params.final_norm)
-    return transformer.logits_of(params, x, cfg), cache
+    return sharding.constraint(transformer.logits_of(params, x, cfg), "batch", "vocab"), cache

@@ -65,6 +65,30 @@ def param_specs(cfg: ModelConfig):
     return common.param_partition_specs(param_defs(cfg))
 
 
+def specs_by_name(params: Union[nn.Module, Mapping[str, torch.Tensor]],
+                  tree) -> Dict[str, sharding.PartitionSpec]:
+    """A spec tree shaped as the reference's parameter tree
+    (:func:`param_specs`) keyed as ``params.named_parameters()`` (or as a
+    ``{name: tensor}`` mapping so keyed, an AdamW moment): a layer's
+    leaf (``layers.i.…``, ``enc_layers.i.…``, ``dec_layers.i.…``) takes its
+    stacked leaf's spec without the stacking axes, which the rules never
+    split (a decoder's local and global layers share their definitions)."""
+    named = params.named_parameters() if isinstance(params, nn.Module) else params.items()
+    out = {}
+    for name, p in named:
+        parts = name.split(".")
+        if parts[0] == "layers":
+            node, parts = next(iter(tree["groups"].values())), parts[2:]
+        elif parts[0] in ("enc_layers", "dec_layers"):
+            node, parts = tree[parts[0]], parts[2:]
+        else:
+            node = tree
+        for part in parts:
+            node = node[part]
+        out[name] = sharding.PartitionSpec(*tuple(node)[len(node) - p.dim():])
+    return out
+
+
 def _tensor(a, device: torch.device) -> torch.Tensor:
     if isinstance(a, torch.Tensor):
         return a.to(device)
@@ -217,7 +241,8 @@ def prefill(params: Model, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
         x, cache = encdec.dec_forward(params, batch["tokens"], enc, cfg, return_cache=True)
     else:
         x, cache = transformer.forward(params, batch, cfg, return_cache=True)
-    return transformer.logits_of(params, x[:, -1], cfg), cache
+    logits = transformer.logits_of(params, x[:, -1], cfg)
+    return sharding.constraint(logits, "batch", "vocab"), cache
 
 
 def decode_step(params: Model, cache, token: torch.Tensor, pos: int, cfg: ModelConfig):

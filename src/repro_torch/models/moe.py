@@ -25,9 +25,12 @@ exactly rather than the torch idiom:
 
 Under the ``bf16_grad`` rule the router's input passes
 ``common.grad_dtype_barrier``, as in the reference, so that the float32
-router cast leaks no float32 cotangent into the residual stream; the
-reference's ``sharding.constraint`` calls have no counterpart on one
-device.
+router cast leaks no float32 cotangent into the residual stream.
+
+On a mesh the routing and the token gathers are per batch row, so they
+run on each rank's rows (``sharding.local``: sort, scatter and the
+bisection have no DTensor sharding rule); the expert products run on
+DTensors under the reference's constraints.
 """
 
 from __future__ import annotations
@@ -60,15 +63,21 @@ def moe_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
 
 
 def _expert_ffn_batched(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Batched expert MLP. x: (B, E, C, D) -> (B, E, C, D)."""
-    up = torch.einsum("becd,edf->becf", x, p.w_up)
+    """Batched expert MLP. x: (B, E, C, D) -> (B, E, C, D); the weights
+    gathered over the FSDP shard at the use site
+    (``transformer._gathered``)."""
+    def g(w):
+        return sharding.constraint(w, "experts", None, "ff")
+
+    up = torch.einsum("becd,edf->becf", x, g(p.w_up))
     if cfg.mlp == "swiglu":
-        h = common.silu(torch.einsum("becd,edf->becf", x, p.w_gate)) * up
+        h = common.silu(torch.einsum("becd,edf->becf", x, g(p.w_gate))) * up
     elif cfg.mlp == "geglu":
-        h = common.gelu(torch.einsum("becd,edf->becf", x, p.w_gate)) * up
+        h = common.gelu(torch.einsum("becd,edf->becf", x, g(p.w_gate))) * up
     else:
         h = common.gelu(up)
-    return torch.einsum("becf,efd->becd", h, p.w_down)
+    h = sharding.constraint(h, "batch", "experts", None, "ff")
+    return torch.einsum("becf,efd->becd", h, sharding.constraint(p.w_down, "experts", "ff", None))
 
 
 def top_k(x: torch.Tensor, k: int):
@@ -168,21 +177,46 @@ def moe_layer(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     ``capacity(cfg, S)`` per expert; overflow entries drop."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.topk
+    cap = capacity(cfg, s)
     xr = common.grad_dtype_barrier(x) if sharding.active_rule("bf16_grad") else x
-    r = dispatch(p.router, xr, cfg)
-    cap = r.cap
+    router = p.router
+    rows = None  # on a mesh: every (B, ...) tensor split by its batch rows alone
+    if sharding.is_dtensor(x):
+        rows = sharding.placements(sharding.resolve(("batch",)), sharding.active_mesh())
+        router = sharding.constraint(router, None, None)  # read whole on every rank
 
-    expert_in = torch.gather(x, 1, r.tok_of_slot[..., None].expand(b, e * cap, d))
-    expert_in = torch.where(r.slot_hit[..., None], expert_in, torch.zeros((), dtype=x.dtype,
-                                                                           device=x.device))
-    expert_out = _expert_ffn_batched(p, expert_in.reshape(b, e, cap, d), cfg).reshape(b, e * cap, d)
+    def route(router, xr):
+        return tuple(dispatch(router, xr, cfg)[1:-1])
 
-    # route outputs back: sorted entry -> its slot -> original (token, k) lane
-    back = torch.clamp(r.slot, max=e * cap - 1)
-    out_sorted = torch.gather(expert_out, 1, back[..., None].expand(b, s * k, d))
-    out_sorted = out_sorted * (r.w_s * r.keep).to(x.dtype)[..., None]
-    contrib = torch.gather(out_sorted, 1, r.inv_order[..., None].expand(b, s * k, d))
-    return torch.sum(contrib.reshape(b, s, k, d), dim=2)
+    # the reference's intermediates after the top-k indices (w_s, keep,
+    # slot, entry_of_slot, slot_hit, tok_of_slot, inv_order), (B, ...) each
+    r = Dispatch(None, *sharding.local(route, rows and (rows,) * 7,
+                                       rows and (router.placements, rows), router, xr), cap)
+
+    def tokens_in(x, tok_of_slot, slot_hit):
+        bl = x.shape[0]
+        xin = torch.gather(x, 1, tok_of_slot[..., None].expand(bl, e * cap, d))
+        xin = torch.where(slot_hit[..., None], xin, torch.zeros((), dtype=x.dtype,
+                                                               device=x.device))
+        return xin.reshape(bl, e, cap, d)
+
+    expert_in = sharding.local(tokens_in, rows, rows and (rows,) * 3,
+                               x, r.tok_of_slot, r.slot_hit)
+    expert_in = sharding.constraint(expert_in, "batch", "experts", None, "dmodel_act")
+    expert_out = _expert_ffn_batched(p, expert_in, cfg)
+
+    def tokens_out(expert_out, slot, w_s, keep, inv_order):
+        # sorted entry -> its slot -> original (token, k) lane
+        bl = expert_out.shape[0]
+        expert_out = expert_out.reshape(bl, e * cap, d)
+        back = torch.clamp(slot, max=e * cap - 1)
+        out_sorted = torch.gather(expert_out, 1, back[..., None].expand(bl, s * k, d))
+        out_sorted = out_sorted * (w_s * keep).to(x.dtype)[..., None]
+        contrib = torch.gather(out_sorted, 1, inv_order[..., None].expand(bl, s * k, d))
+        return torch.sum(contrib.reshape(bl, s, k, d), dim=2)
+
+    return sharding.local(tokens_out, rows, rows and (rows,) * 5,
+                          expert_out, r.slot, r.w_s, r.keep, r.inv_order)
 
 
 def moe_layer_ref(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

@@ -22,6 +22,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch import sharding
 from repro_torch.models import common
 from repro_torch.models.config import ModelConfig
 
@@ -55,10 +56,19 @@ def ssm_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
 
 
 def _project(p, x: torch.Tensor, cfg: ModelConfig):
-    """x (..., D) -> (z, xs, B, C, dt)."""
+    """x (B, L, D) -> (z, xs, B, C, dt), the inner channels split over
+    ``ssm_inner`` and the heads over ``ssm_heads``; the weights gathered
+    over the FSDP shard at the use site (``transformer._gathered``)."""
     n = cfg.ssm_state
-    bc = x @ p.w_bc
-    return x @ p.w_z, x @ p.w_x, bc[..., :n], bc[..., n:], x @ p.w_dt
+
+    def g(w, ax):
+        return sharding.constraint(w, None, ax)
+
+    z = sharding.constraint(x @ g(p.w_z, "ssm_inner"), "batch", None, "ssm_inner")
+    xs = sharding.constraint(x @ g(p.w_x, "ssm_inner"), "batch", None, "ssm_inner")
+    bc = x @ g(p.w_bc, None)
+    dt = sharding.constraint(x @ g(p.w_dt, "ssm_heads"), "batch", None, "ssm_heads")
+    return z, xs, bc[..., :n], bc[..., n:], dt
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -155,16 +165,23 @@ def ssm_forward(p, x: torch.Tensor, cfg: ModelConfig, *, return_cache: bool = Fa
 
     dt = softplus(dt.float() + p.dt_bias)  # (B, L, H)
     a = -torch.exp(p.a_log)                # (H,)
-    x_c = xs.reshape(bsz, nc, q, h, pdim).float()
+    # chunk views, heads split over the model axis: the intra-chunk decay
+    # and score tensors are the SSD's memory hot-spot and must not replicate
+    heads = ("batch", None, None, "ssm_heads")
+    x_c = sharding.constraint(xs.reshape(bsz, l, h, pdim).float(), "batch", None, "ssm_heads",
+                              None).reshape(bsz, nc, q, h, pdim)
+    x_c = sharding.constraint(x_c, *heads, None)
+    dt_c = sharding.constraint(dt.reshape(bsz, nc, q, h), *heads)
     bcf = bc.float().reshape(bsz, nc, q, 2 * n)
-    y, s_last = ssd_scan(x_c, dt.reshape(bsz, nc, q, h), a, bcf[..., :n], bcf[..., n:])
+    y, s_last = _scan(x_c, dt_c, a, bcf[..., :n], bcf[..., n:])
+    y = sharding.constraint(y, *heads, None)
 
     y = y + p.d_skip[None, None, :, None] * x_c
     y = y.reshape(bsz, l, di).to(x.dtype)
 
     # gated norm + out proj (the Mamba-2 block's tail)
     y = common.rms_norm(y * common.silu(z), p.norm)
-    out = y @ p.out_proj
+    out = y @ sharding.constraint(p.out_proj, "ssm_inner", None)
     if not return_cache:
         return out
     cw = cfg.conv_width
@@ -174,6 +191,25 @@ def ssm_forward(p, x: torch.Tensor, cfg: ModelConfig, *, return_cache: bool = Fa
     else:
         conv_tail = torch.nn.functional.pad(conv_in, (0, 0, cw - 1 - l, 0))
     return out, {"state": s_last, "conv": conv_tail}
+
+
+def _scan(x_c, dt_c, a, b_c, c_c):
+    """:func:`ssd_scan`, on a mesh on each rank's batch rows and heads
+    (``local_map``; the scan's in-place exponent and its loop over chunks
+    are per row and head).  B and C are shared by the heads, so they are
+    split by batch only (``sharding.local`` sums the gradients of what a
+    rank reads whole and uses in part: B and C over heads, A over rows)."""
+    if not sharding.is_dtensor(x_c):
+        return ssd_scan(x_c, dt_c, a, b_c, c_c)
+    from torch.distributed.tensor import Replicate, Shard
+
+    xp = tuple(p if p in (Shard(0), Shard(3)) else Replicate() for p in x_c.placements)
+    heads = [p == Shard(3) for p in xp]
+    rows = tuple(Shard(0) if p == Shard(0) else Replicate() for p in xp)
+    ap = tuple(Shard(0) if hd else Replicate() for hd in heads)
+    sp = tuple(Shard(0) if p == Shard(0) else Shard(1) if hd else Replicate()
+               for p, hd in zip(xp, heads))
+    return sharding.local(ssd_scan, (xp, sp), (xp, xp, ap, rows, rows), x_c, dt_c, a, b_c, c_c)
 
 
 def ssm_init_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype, device=None
@@ -192,8 +228,9 @@ def ssm_decode_step(p, x: torch.Tensor, cache: Dict[str, torch.Tensor], cfg: Mod
     bsz, _ = x.shape
     di, n, h, pdim = cfg.ssm_dinner, cfg.ssm_state, cfg.ssm_nheads, cfg.ssm_headdim
 
-    z, xs, b_, c_, dt = _project(p, x, cfg)
-    conv_in = torch.cat([xs, b_, c_], dim=-1)  # (B, C)
+    z, xs, b_, c_, dt = _project(p, x[:, None, :], cfg)
+    z, dt = z[:, 0], dt[:, 0]
+    conv_in = torch.cat([xs, b_, c_], dim=-1)[:, 0]  # (B, C)
     conv_w = torch.cat([p.conv_x, p.conv_bc], dim=-1).float()
     conv_b = torch.cat([p.conv_b_x, p.conv_b_bc], dim=-1).float()
 

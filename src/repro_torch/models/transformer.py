@@ -202,12 +202,42 @@ class Transformer(FrozenModel):
 # ---------------------------------------------------------------------------
 
 
+def _gathered(w: torch.Tensor, *axes) -> torch.Tensor:
+    """The FSDP weight gather: drop the ``dmodel`` shard at the use site, so
+    that the (small) weights are all-gathered once a layer rather than the
+    (large) partial sums of the contraction all-reduced (the reference's
+    ``transformer._gathered``)."""
+    return sharding.constraint(w, *axes)
+
+
+def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """(B, S, n·hd) as (B, S, n, hd).  On a mesh whose dims split the flat
+    axis into pieces that are not whole heads (``n`` not a multiple of the
+    dim's size; GSPMD splits ``n`` and ``hd`` together there), that dim is
+    gathered first: DTensor unflattens only whole shards."""
+    b, s = x.shape[:2]
+    if sharding.is_dtensor(x):
+        from torch.distributed.tensor import Replicate, Shard
+
+        mesh = x.device_mesh
+        pl = [Replicate() if p == Shard(2) and n % mesh.size(m) else p
+              for m, p in enumerate(x.placements)]
+        if pl != list(x.placements):
+            x = x.redistribute(mesh, pl)
+    return x.reshape(b, s, n, hd)
+
+
 def _qkv(p: Params, h_in: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
+    """Projections, (qk-norm,) RoPE, for training and prefill (B, S, D) and
+    for one decode token (B, 1, D): the reference's ``_qkv`` and the
+    projections of its ``attention_decode``, which the port shares."""
     b, s, _ = h_in.shape
     hn, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (h_in @ p.wq).reshape(b, s, hn, hd)
-    k = (h_in @ p.wk).reshape(b, s, kv, hd)
-    v = (h_in @ p.wv).reshape(b, s, kv, hd)
+    flat = ("batch", None, "attn_flat")
+    q = sharding.constraint(h_in @ _gathered(p.wq, None, "attn_flat"), *flat)
+    k = sharding.constraint(h_in @ _gathered(p.wk, None, "attn_flat"), *flat)
+    v = sharding.constraint(h_in @ _gathered(p.wv, None, "attn_flat"), *flat)
+    q, k, v = _split_heads(q, hn, hd), _split_heads(k, kv, hd), _split_heads(v, kv, hd)
     if cfg.qk_norm:
         q = common.rms_norm(q, p.q_norm)
         k = common.rms_norm(k, p.k_norm)
@@ -231,12 +261,28 @@ def attention_block(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     if sharding.active_rule("attn_tp"):
         g = cfg.n_heads // cfg.n_kv_heads
         if g > 1:
-            k = torch.repeat_interleave(k, g, dim=2)
-            v = torch.repeat_interleave(v, g, dim=2)
+            k = _repeat_heads(k, g)
+            v = _repeat_heads(v, g)
+        heads = ("batch", None, "heads_tp", None)
+        q, k, v = (sharding.constraint(t, *heads) for t in (q, k, v))
     o = common.blockwise_attention(q, k, v, causal=True, window=window,
                                    blk_q=cfg.attn_blk, blk_k=cfg.attn_blk)
     b, s = o.shape[:2]
-    return o.reshape(b, s, -1) @ p.wo, cache_kv
+    o = sharding.constraint(o, "batch", None, "heads_tp", None)
+    out = o.reshape(b, s, -1) @ _gathered(p.wo, "attn_flat", None)
+    return sharding.constraint(out, "batch", None, "dmodel_act"), cache_kv
+
+
+def _repeat_heads(x: torch.Tensor, g: int) -> torch.Tensor:
+    """Each KV head repeated ``g`` times along axis 2 (``jnp.repeat``); on
+    a mesh on each rank's shard, with the head axis gathered first
+    (``repeat_interleave`` has no DTensor sharding rule)."""
+    if not sharding.is_dtensor(x):
+        return torch.repeat_interleave(x, g, dim=2)
+    from torch.distributed.tensor import Replicate, Shard
+
+    pl = tuple(Replicate() if p == Shard(2) else p for p in x.placements)
+    return sharding.local(lambda t: torch.repeat_interleave(t, g, dim=2), pl, (pl,), x)
 
 
 class DecodeSpan:
@@ -288,34 +334,60 @@ def attention_decode(p: Params, x: torch.Tensor, k_cache: torch.Tensor,
     place at ``span.slot``; the kernel reads slots ``[span.start,
     span.length)``."""
     b = x.shape[0]
-    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    positions = sharding.replicated(
+        torch.full((b, 1), pos, dtype=torch.int32, device=x.device), like=x)
     q, k_new, v_new = _qkv(p, x[:, None, :], cfg, positions)
-    k_cache[:, span.slot] = k_new[:, 0].to(k_cache.dtype)
-    v_cache[:, span.slot] = v_new[:, 0].to(v_cache.dtype)
+    write_slot(k_cache, span.slot, k_new[:, 0])
+    write_slot(v_cache, span.slot, v_new[:, 0])
     o = common.decode_gqa_attention(q[:, 0], k_cache, v_cache, span.length, start=span.start)
     return o.reshape(b, -1) @ p.wo
 
 
+def write_slot(cache: torch.Tensor, slot: int, new: torch.Tensor) -> None:
+    """``cache[:, slot] = new`` in place: cache (B, C, KV, hd), new (B, KV,
+    hd), cast to the cache's dtype.
+
+    On a DTensor cache ``new`` is redistributed to the cache's split and
+    written into each rank's own shard; a cache split along its slots
+    (``kv_seq``) is written by the rank that holds ``slot`` alone, at its
+    local index, so the cache is never replicated for the write."""
+    if not sharding.is_dtensor(cache):
+        cache[:, slot] = new.to(cache.dtype)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    # the cache's split, without the slot axis: its axis d > 1 is new's d - 1
+    pl = [Replicate() if p == Shard(1) or not p.is_shard() else
+          (Shard(p.dim - 1) if p.dim > 1 else p) for p in cache.placements]
+    local_new = new.redistribute(cache.device_mesh, pl).to_local().to(cache.dtype)
+    shape, offset = compute_local_shape_and_global_offset(
+        cache.shape, cache.device_mesh, cache.placements)
+    i = slot - offset[1]
+    if 0 <= i < shape[1]:
+        cache.to_local()[:, i] = local_new
+
+
 def mlp_block(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    up = x @ p.w_up
+    ff = ("batch", None, "ff")
+    up = sharding.constraint(x @ _gathered(p.w_up, None, "ff"), *ff)
     if cfg.mlp == "swiglu":
-        h = common.silu(x @ p.w_gate) * up
+        h = common.silu(sharding.constraint(x @ _gathered(p.w_gate, None, "ff"), *ff)) * up
     elif cfg.mlp == "geglu":
-        h = common.gelu(x @ p.w_gate) * up
+        h = common.gelu(sharding.constraint(x @ _gathered(p.w_gate, None, "ff"), *ff)) * up
     else:
         h = common.gelu(up)
-    return h @ p.w_down
+    return sharding.constraint(h @ _gathered(p.w_down, "ff", None), "batch", None, "dmodel_act")
 
 
 def _ffn(p: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """The layer's MLP, or its experts with the moe family, on (B, S, D) or
-    one decode token (B, D); the token is routed as a sequence of one
-    (``moe.capacity``'s decode branch)."""
-    if cfg.family != "moe":
-        return mlp_block(p, h, cfg)
+    one decode token (B, D); the token goes through as a sequence of one,
+    as in the reference (``moe.capacity``'s decode branch)."""
+    block = moe.moe_layer if cfg.family == "moe" else mlp_block
     if h.dim() == 2:
-        return moe.moe_layer(p, h[:, None, :], cfg)[:, 0]
-    return moe.moe_layer(p, h, cfg)
+        return block(p, h[:, None, :], cfg)[:, 0]
+    return block(p, h, cfg)
 
 
 def _residual(p: Params, x: torch.Tensor, attn_out: torch.Tensor, cfg: ModelConfig):
@@ -429,25 +501,71 @@ def embed_inputs(params: Transformer, batch: Dict[str, torch.Tensor], cfg: Model
     vision frontend, plus ``pos_embed[:s]`` with learned positions.
     Returns (x, positions)."""
     tokens = batch["tokens"]
-    x = params.embed[tokens.long()].to(cfg.torch_dtype) * (cfg.d_model ** 0.5)
+    x = embed_tokens(params.embed, tokens).to(cfg.torch_dtype) * (cfg.d_model ** 0.5)
     if cfg.frontend == "vision":
         px = batch["patches"].to(cfg.torch_dtype) @ params.vision_proj  # (B, P, D) stub embeds
         x = torch.cat([px, x], dim=1)
     b, s, _ = x.shape
-    positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    positions = sharding.replicated(torch.arange(s, device=x.device)[None, :].expand(b, s),
+                                    like=x)
     if cfg.pos == "learned":
         x = x + params.pos_embed[:s][None].to(x.dtype)
-    return x, positions
+    return sharding.constraint(x, "batch", None, "dmodel_act"), positions
+
+
+def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Rows of the embedding table (a gather, ``embed[tokens]``).
+
+    On a mesh the table's FSDP (``dmodel``) shard is gathered first, as at
+    every other weight's use site, and each rank looks its tokens up in
+    its own slice of the vocabulary (``local_map``): rows of other slices
+    are zero, and the slices' rows are summed (an all-reduce of the rows,
+    exact: one row and zeros).  DTensor's own embedding rule leaves a
+    masked partial sum that its redistributions and backward cannot take
+    on this torch."""
+    if not sharding.is_dtensor(embed):
+        return torch.nn.functional.embedding(tokens.long(), embed)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    table = _gathered(embed, "vocab", None)
+    tokens = sharding.replicated(tokens, like=table)
+    mesh = table.device_mesh
+    vocab = [p == Shard(0) for p in table.placements]
+    tp = [Shard(0) if v else Replicate() for v in vocab]
+    kp = [Shard(0) if p == Shard(0) and not v else Replicate()
+          for p, v in zip(tokens.placements, vocab)]
+    op = [Partial() if v else k for v, k in zip(vocab, kp)]
+    (n, _), (lo, _) = compute_local_shape_and_global_offset(table.shape, mesh, tp)
+
+    def lookup(t, tok):
+        idx = tok.long() - lo
+        inside = (idx >= 0) & (idx < n)
+        rows = torch.nn.functional.embedding(torch.where(inside, idx, 0), t)
+        return torch.where(inside[..., None], rows, torch.zeros((), dtype=rows.dtype))
+
+    rows = sharding.local(lookup, op, (tp, kp), table, tokens)
+    return rows.redistribute(mesh, [Replicate() if p.is_partial() else p for p in op])
 
 
 def _ring(x: torch.Tensor, window: int) -> torch.Tensor:
     """A local layer's prefill keys or values (B, L, KV, hd) as its ring
     cache (the reference's ``_prefill_cache_from``): the last
     ``w = min(window, L)`` positions, position ``t`` at slot ``t % w``
-    (the tail rolled by ``L % w``)."""
+    (the tail rolled by ``L % w``).  On a mesh on each rank's shard, the
+    sequence gathered first (``roll`` has no DTensor sharding rule)."""
     length = x.shape[1]
     w = min(window, length)
-    return torch.roll(x[:, length - w:], shifts=length % w, dims=1)
+
+    def ring(t):
+        return torch.roll(t[:, length - w:], shifts=length % w, dims=1)
+
+    if not sharding.is_dtensor(x):
+        return ring(x)
+    from torch.distributed.tensor import Replicate, Shard
+
+    pl = tuple(Replicate() if p == Shard(1) else p for p in x.placements)
+    return sharding.local(ring, pl, (pl,), x)
 
 
 def forward(params: Transformer, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
@@ -523,7 +641,7 @@ def decode(params: Transformer, cache: Dict[str, Dict[str, torch.Tensor]], token
     """One decode step. token: (B,) at position ``pos`` (a Python int, one
     for the whole batch; with the vision frontend positions count the patch
     prefix). Returns (logits (B, V), cache updated in place)."""
-    x = params.embed[token.long()].to(cfg.torch_dtype) * (cfg.d_model ** 0.5)
+    x = embed_tokens(params.embed, token).to(cfg.torch_dtype) * (cfg.d_model ** 0.5)
     if cfg.pos == "learned":
         x = x + params.pos_embed[pos][None].to(x.dtype)
     b = x.shape[0]
@@ -538,4 +656,4 @@ def decode(params: Transformer, cache: Dict[str, Dict[str, torch.Tensor]], token
         x = layer_decode(p, x, {name: t[i] for name, t in cache[kind].items()}, cfg, pos=pos,
                          span=spans.get(kind))
     x = common.rms_norm(x, params.final_norm)
-    return logits_of(params, x, cfg), cache
+    return sharding.constraint(logits_of(params, x, cfg), "batch", "vocab"), cache

@@ -13,6 +13,14 @@ reference's ``attn``/``ssm`` level of the cache tree: a reference cache
 leaf is compared with its first two axes merged (its spec with its first
 entry, ``None``, dropped) under its path without that level.
 
+``sharding.constraint`` on a ``fake`` 2 × 2 process group's mesh places
+by mesh dim (``Shard``/``Replicate``, the pair ``("pod", "data")``
+pod-major); it stays the identity on the host mesh and without rules.
+``dryrun.run_one`` on a ``fake`` group of 256 or 512 ranks places
+``build_step``'s meta arguments with exactly the reference's per-device
+bytes (its spec arithmetic, each dim divided, rounded up, by the product
+of its spec's mesh-axis sizes).
+
 ``build_step``'s steps on the SMOKE configs against the reference's
 ``build_step`` functions run under ``jax.set_mesh(make_host_mesh())``,
 the reference's parameters carried over.  Tolerances, by the two regimes
@@ -248,6 +256,15 @@ def test_meshes():
 
 
 def test_constraint_is_the_identity_on_one_device_and_refuses_a_larger_mesh():
+    """The identity outside a rule set, on the host mesh and on a
+    described mesh for a spec that names no axis larger than 1; a
+    described mesh (no process group) refuses a larger axis; on a ``fake``
+    2 × 2 group's mesh it places: ``Shard(i)`` on the mesh dims that the
+    entry of tensor dim ``i`` names, ``Replicate()`` elsewhere, and the
+    pair ``("pod", "data")`` shards one dim pod-major."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+
     x = torch.arange(6.0).reshape(2, 3)
     assert sharding.constraint(x, "batch", "ff") is x
     rules = sharding.default_rules()
@@ -257,10 +274,86 @@ def test_constraint_is_the_identity_on_one_device_and_refuses_a_larger_mesh():
             assert sharding.constraint(x, "batch", "ff") is x
         with sharding.use_mesh(mesh.make_production_mesh()):
             assert sharding.constraint(x, None, "seq") is x  # replicated on every axis
-            with pytest.raises(NotImplementedError, match=r"ROADMAP\.md §1 item 15"):
+            with pytest.raises(RuntimeError, match="no process group of 256 ranks"):
                 sharding.constraint(x, "batch", None)
     with sharding.use_mesh(mesh.make_production_mesh()):
         assert sharding.constraint(x, "batch", "ff") is x  # no rules: no placement
+
+    dryrun.fake_process_group(4)
+    try:
+        m = mesh.make_mesh((2, 2), ("data", "model"), device="cpu")
+        pods = mesh.make_mesh((2, 2), ("pod", "data"), device="cpu")
+        t = torch.arange(16.0 * 8).reshape(16, 8)
+        want = {("batch", "ff"): (Shard(0), Shard(1)), ("ff", "batch"): (Shard(1), Shard(0)),
+                ("batch", None): (Shard(0), Replicate()), (None, "vocab"): (Replicate(), Shard(1)),
+                (None, None): (Replicate(), Replicate())}
+        with sharding.use_rules(rules), sharding.use_mesh(m):
+            d = distribute_tensor(t, m.device_mesh, [Replicate(), Replicate()])
+            for axes, placements in want.items():
+                y = sharding.constraint(d, *axes)
+                assert isinstance(y, DTensor) and tuple(y.placements) == placements, axes
+                assert sharding.placements(sharding.resolve(axes), m) == placements
+            with pytest.raises(TypeError, match="test_torch_launch.py"):
+                sharding.constraint(t, "batch", None)
+        with sharding.use_rules(sharding.default_rules(multi_pod=True)), sharding.use_mesh(pods):
+            assert sharding.resolve(("batch",)) == sharding.PartitionSpec(("pod", "data"))
+            d = distribute_tensor(t, pods.device_mesh, [Replicate(), Replicate()])
+            y = sharding.constraint(d, "batch", None)
+            assert tuple(y.placements) == (Shard(0), Shard(0))
+            # rank 0 is (pod 0, data 0): rows [4·(2·0 + 0), +4)
+            assert torch.equal(y.to_local(), t[:4])
+        with pytest.raises(ValueError, match="otherwise than the mesh"):
+            sharding.placements(sharding.PartitionSpec(("data", "pod")), pods)
+    finally:
+        dist.destroy_process_group()
+
+
+def _reference_arg_bytes(arch, shape_name, multi_pod):
+    """The reference's spec arithmetic: each leaf of its ``build_step``
+    arguments, every dim divided, rounded up, by the product of its spec's
+    mesh-axis sizes, times the leaf's item size."""
+    sizes = {"pod": 2, "data": 16, "model": 16}
+    _, args, in_shard, _ = j_steps.build_step(J_ARCHS[arch], j_shapes.SHAPES[shape_name],
+                                              multi_pod=multi_pod)
+    leaves = jax.tree.leaves(args)
+    specs = jax.tree.leaves(in_shard, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
+    assert len(leaves) == len(specs)
+    total = 0
+    for a, spec in zip(leaves, specs):
+        n = 1
+        for i, d in enumerate(a.shape):
+            entry = spec[i] if i < len(spec) else None
+            axes = () if entry is None else (entry,) if isinstance(entry, str) else entry
+            n *= -(-d // math.prod(sizes[x] for x in axes))
+        total += n * np.dtype(a.dtype).itemsize
+    return total
+
+
+@pytest.mark.parametrize("arch,shape_name,multi_pod", [
+    ("llama3.2-1b", "decode_32k", False),
+    ("hymba-1.5b", "long_500k", True),
+], ids=["llama-decode_32k-16x16", "hymba-long_500k-2x16x16"])
+def test_dry_run_places_the_reference_bytes_per_device(tmp_path, arch, shape_name, multi_pod):
+    """``run_one`` on a ``fake`` group of 256 or 512 ranks runs the step on
+    meta tensors; its per-device argument bytes are the reference's spec
+    arithmetic exactly, its record has the reference's name and keys
+    (less those with no counterpart), its roofline H100 constants, and the
+    group is torn down after it."""
+    import torch.distributed as dist
+
+    res = dryrun.run_one(arch, shape_name, multi_pod, tmp_path)
+    assert not dist.is_initialized()
+    assert res["memory"]["args_bytes_per_chip"] == _reference_arg_bytes(arch, shape_name,
+                                                                        multi_pod)
+    mesh_name = "2x16x16" if multi_pod else "16x16"
+    assert (tmp_path / f"{arch}__{shape_name}__{mesh_name}.json").exists()
+    assert res["chips"] == (512 if multi_pod else 256) and res["mesh"] == mesh_name
+    assert "compile_s" not in res and "xla_cost_analysis" not in res
+    hlo = res["hlo_analysis"]
+    assert hlo["flops_per_chip"] > 0 and hlo["collective_op_count"] > 0
+    assert hlo["collective_bytes_per_chip"] == sum(hlo["collective_breakdown"].values())
+    assert res["roofline"]["compute_s"] == hlo["flops_per_chip"] / 989.4e12
+    assert (dryrun.PEAK_FLOPS, dryrun.HBM_BW) == (989.4e12, 3.35e12)
 
 
 def test_grad_dtype_barrier_casts_the_cotangent_exactly():

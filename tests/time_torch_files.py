@@ -1,13 +1,14 @@
 """Time the port's test files on two checkouts side by side.
 
-    python tests/time_torch_files.py PARENT_CHECKOUT THIS_CHECKOUT [--jobs 6]
+    python tests/time_torch_files.py PARENT_CHECKOUT THIS_CHECKOUT [--jobs 6] [--files F ...]
 
 Each ``tests/test_torch_*.py`` of either checkout runs in its own pytest
 process (``PYTHONPATH=src``, JAX on the CPU); the two runs of a file are
 queued one after the other, ``--jobs`` processes at a time, so both see
 the same load.  Prints each file's wall seconds and CPU seconds (user +
 sys of the process and its children, from ``os.wait4``) on both sides,
-then the totals.  Not a test: pytest collects only ``test_*.py``.
+then the totals.  ``--files`` times only the named files (e.g.
+``test_torch_mesh.py``).  Not a test: pytest collects only ``test_*.py``.
 """
 
 from __future__ import annotations
@@ -25,10 +26,12 @@ def main() -> None:
     ap.add_argument("parent", type=Path)
     ap.add_argument("tree", type=Path)
     ap.add_argument("--jobs", type=int, default=6)
+    ap.add_argument("--files", nargs="*", default=None)
     args = ap.parse_args()
     roots = {"parent": args.parent.resolve(), "tree": args.tree.resolve()}
     files = sorted({p.name for root in roots.values()
-                    for p in (root / "tests").glob("test_torch_*.py")})
+                    for p in (root / "tests").glob("test_torch_*.py")
+                    if args.files is None or p.name in args.files})
     jobs = [(side, f) for f in files for side in roots if (roots[side] / "tests" / f).exists()]
     env = dict(os.environ, PYTHONPATH="src", JAX_PLATFORMS="cpu")
     running, results = {}, {}
